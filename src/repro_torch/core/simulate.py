@@ -1,0 +1,116 @@
+"""The paper's grid (§3) through the cache_sim kernel.
+
+Each case's 12 Zipf(1.1) traces (the reference's seeds) go through one policy
+in one kernel launch. CHR, evictions and metadata entries come from the
+kernel's outputs by the reference simulator's rules:
+
+* inserts = T - hits (lru/lfu/plfu), or #(requests with id < hot) - hits (plfua);
+* evictions = inserts - final occupancy;
+* metadata = occupancy (lru), or occupancy + parked, parked = freq > 0 and not cached.
+
+On the card each case also reports its device seconds (CUDA events around the
+launch) and the device energy per request at the card's power limit; on the
+CPU those fields are ``None``: not measured.
+
+The reference's ``run_trace`` and ``hit_miss_scatter`` time the pure-Python
+policies, which are not ported yet (ROADMAP.md module 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch._device import card_info, resolve_device
+from repro_torch.core import energy, zipf
+from repro_torch.kernels.cache_sim import ops
+
+
+@dataclasses.dataclass
+class CaseResult:
+    """Means over the case's samples (the paper reports means of 12)."""
+
+    policy: str
+    case: zipf.GridCase
+    mean_chr: float
+    std_chr: float
+    mean_evictions: float
+    mean_metadata: float
+    device_s: float | None  # device time of the case's ops.cache_sim call; None = not measured
+    j_per_request: float | None  # device_s at the power limit per request; None = not measured
+
+
+def run_case(
+    policy: str,
+    case: zipf.GridCase,
+    n_samples: int = zipf.PAPER_NUM_SAMPLES,
+    trace_len: int = zipf.PAPER_TRACE_LEN,
+    seed: int = 0,
+    device=None,
+    power_w: float | None = None,
+) -> CaseResult:
+    """One case: ``n_samples`` traces through ``policy`` in one launch.
+    ``power_w`` is the card's power limit (read from ``nvidia-smi`` when
+    ``None`` on the card)."""
+    dev = resolve_device(device)
+    traces_np = zipf.sample_traces(case.n_objects, n_samples, trace_len, seed=seed)
+    traces = torch.as_tensor(traces_np, device=dev)
+    kw = dict(kind=policy, n_objects=case.n_objects, capacity=case.cache_size, device=dev)
+    if dev.type == "cuda":
+        if power_w is None:
+            power_w = card_info(dev.index).power_limit_w
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        hits, freq, in_cache = ops.cache_sim(traces, **kw)
+        end.record()
+        torch.cuda.synchronize(dev)
+        device_s = start.elapsed_time(end) / 1e3
+        j_per_request = energy.device_energy_j(device_s, power_w) / traces.numel()
+    else:
+        hits, freq, in_cache = ops.cache_sim(traces, **kw)
+        device_s = j_per_request = None
+
+    hits = hits.cpu().numpy().astype(np.int64)
+    count = in_cache.sum(dim=1).cpu().numpy()
+    if policy == "plfua":
+        inserts = (traces_np < case.hot_size).sum(axis=1) - hits
+    else:
+        inserts = trace_len - hits
+    if policy == "lru":
+        metadata = count
+    else:
+        metadata = count + ((freq > 0) & ~in_cache).sum(dim=1).cpu().numpy()
+    chrs = hits / trace_len
+    return CaseResult(
+        policy=policy,
+        case=case,
+        mean_chr=float(np.mean(chrs)),
+        std_chr=float(np.std(chrs)),
+        mean_evictions=float(np.mean(inserts - count)),
+        mean_metadata=float(np.mean(metadata)),
+        device_s=device_s,
+        j_per_request=j_per_request,
+    )
+
+
+def run_grid(
+    policy: str,
+    cases: Sequence[zipf.GridCase] | None = None,
+    n_samples: int = zipf.PAPER_NUM_SAMPLES,
+    trace_len: int = zipf.PAPER_TRACE_LEN,
+    seed: int = 0,
+    device=None,
+) -> list[CaseResult]:
+    """The paper's 60-case grid (or a caller-supplied reduction), one launch per case."""
+    dev = resolve_device(device)
+    if cases is None:
+        cases = zipf.paper_grid()
+    power_w = card_info(dev.index).power_limit_w if dev.type == "cuda" else None
+    return [
+        run_case(policy, c, n_samples=n_samples, trace_len=trace_len, seed=seed, device=dev, power_w=power_w)
+        for c in cases
+    ]

@@ -1,0 +1,68 @@
+"""Public entry point of the cache_sim kernel."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core import registry
+from repro_torch.core.torch_cache import not_ported
+from repro_torch.kernels.cache_sim.cache_sim import KERNEL_KINDS, cache_sim_cuda, cache_sim_plain
+
+_ALL_KINDS = registry.names(pallas=True)
+
+
+def cache_sim(
+    traces,
+    *,
+    kind: str,
+    n_objects: int,
+    capacity: int,
+    hot_size: int = 0,
+    window: int = 0,
+    refresh: int = 0,
+    sketch_width: int = 0,
+    doorkeeper: int = 0,
+    telemetry_window: int = 0,
+    capacity_bytes: int = 0,
+    max_victims: int = 0,
+    sizes=None,
+    n_groups: int = 0,
+    groups=None,
+    device=None,
+):
+    """Batched cache-policy simulation of ``(S, T)`` traces; returns
+    ``(hits (S,) int32, freq (S, N) int32, in_cache (S, N) bool)`` (see
+    :mod:`repro_torch.kernels.cache_sim.cache_sim` for the contract).
+
+    Runs the CUDA kernel on the card (``device=None`` means ``cuda``) and the
+    plain PyTorch version only when ``device="cpu"``. The signature is the
+    reference's; ``window``, ``refresh`` and ``sketch_width`` do not apply to
+    the covered kinds and are ignored, as the reference ignores them. Kinds
+    and options this slice does not cover raise ``NotImplementedError``.
+    """
+    if kind not in _ALL_KINDS:
+        raise ValueError(f"kind={kind!r} not in {_ALL_KINDS}")
+    if kind not in KERNEL_KINDS:
+        raise not_ported(kind)
+    if doorkeeper < 0:
+        raise ValueError(f"doorkeeper must be >= 0, got {doorkeeper}")
+    if doorkeeper:
+        raise ValueError("doorkeeper is a tinylfu-only option")
+    if telemetry_window < 0:
+        raise ValueError(f"telemetry_window must be >= 0, got {telemetry_window}")
+    if n_groups < 0:
+        raise ValueError(f"n_groups must be >= 0, got {n_groups}")
+    if telemetry_window or n_groups or groups is not None:
+        raise not_ported("telemetry")
+    if capacity_bytes < 0:
+        raise ValueError(f"capacity_bytes must be >= 0, got {capacity_bytes}")
+    if max_victims < 0:
+        raise ValueError(f"max_victims must be >= 0, got {max_victims}")
+    if max_victims and not capacity_bytes:
+        raise ValueError("max_victims is a byte-capacity (capacity_bytes) option")
+    if capacity_bytes or sizes is not None:
+        raise not_ported("bytes")
+    dev = resolve_device(device)
+    traces = torch.as_tensor(traces, dtype=torch.int32, device=dev).contiguous()
+    run = cache_sim_cuda if traces.is_cuda else cache_sim_plain
+    return run(traces, kind=kind, n_objects=n_objects, capacity=capacity, hot_size=hot_size)
