@@ -6,6 +6,7 @@ with ``device="cpu"``; nothing falls back to the CPU quietly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import subprocess
 
 import torch
@@ -21,6 +22,14 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch version on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=32)
+def arange(n: int, device: torch.device) -> torch.Tensor:
+    """``torch.arange(n)`` on ``device``, made once and shared: the plain
+    simulator indexes its samples with it at every request, where a new one
+    would cost a kernel launch on the card. Callers must not modify it."""
+    return torch.arange(n, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

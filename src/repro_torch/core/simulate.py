@@ -1,12 +1,16 @@
 """The paper's grid (§3) through the cache_sim kernel.
 
 Each case's 12 Zipf(1.1) traces (the reference's seeds) go through one policy
-in one kernel launch. CHR, evictions and metadata entries come from the
-kernel's outputs by the reference simulator's rules:
+in one kernel launch, with the policy's default options (wlfu: a window of
+10,000 requests, the reference policies' default; tinylfu: no doorkeeper).
+CHR, evictions and metadata entries come from the kernel's outputs by the
+reference simulator's rules:
 
-* inserts = T - hits (lru/lfu/plfu), or #(requests with id < hot) - hits (plfua);
+* inserts: the kernel's count (every admitted miss inserts);
 * evictions = inserts - final occupancy;
-* metadata = occupancy (lru), or occupancy + parked, parked = freq > 0 and not cached.
+* metadata = occupancy, plus parked ids (freq > 0 and not cached) for
+  lfu/plfu/plfua/plfua_dyn, plus ids in the window (freq > 0) for wlfu, plus
+  the sketch's counters (and doorkeeper bits) for tinylfu/plfua_dyn.
 
 On the card each case also reports its device seconds (CUDA events around the
 launch) and the device energy per request at the card's power limit; on the
@@ -24,8 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch._device import card_info, resolve_device
-from repro_torch.core import energy, zipf
+from repro_torch.core import energy, sketch, zipf
 from repro_torch.kernels.cache_sim import ops
+
+#: the grid's wlfu window: ``policies.make_policy``'s default in the reference
+WLFU_WINDOW = 10_000
 
 
 @dataclasses.dataclass
@@ -58,6 +65,8 @@ def run_case(
     traces_np = zipf.sample_traces(case.n_objects, n_samples, trace_len, seed=seed)
     traces = torch.as_tensor(traces_np, device=dev)
     kw = dict(kind=policy, n_objects=case.n_objects, capacity=case.cache_size, device=dev)
+    if policy == "wlfu":
+        kw["window"] = WLFU_WINDOW
     if dev.type == "cuda":
         if power_w is None:
             power_w = card_info(dev.index).power_limit_w
@@ -65,32 +74,31 @@ def run_case(
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        hits, freq, in_cache = ops.cache_sim(traces, **kw)
+        hits, freq, in_cache, inserts = ops.cache_sim_with_inserts(traces, **kw)
         end.record()
         torch.cuda.synchronize(dev)
         device_s = start.elapsed_time(end) / 1e3
         j_per_request = energy.device_energy_j(device_s, power_w) / traces.numel()
     else:
-        hits, freq, in_cache = ops.cache_sim(traces, **kw)
+        hits, freq, in_cache, inserts = ops.cache_sim_with_inserts(traces, **kw)
         device_s = j_per_request = None
 
     hits = hits.cpu().numpy().astype(np.int64)
     count = in_cache.sum(dim=1).cpu().numpy()
-    if policy == "plfua":
-        inserts = (traces_np < case.hot_size).sum(axis=1) - hits
-    else:
-        inserts = trace_len - hits
-    if policy == "lru":
-        metadata = count
-    else:
-        metadata = count + ((freq > 0) & ~in_cache).sum(dim=1).cpu().numpy()
+    metadata = count.copy()
+    if policy == "wlfu":
+        metadata += (freq > 0).sum(dim=1).cpu().numpy()
+    elif policy not in ("lru", "tinylfu"):
+        metadata += ((freq > 0) & ~in_cache).sum(dim=1).cpu().numpy()
+    if policy in ("tinylfu", "plfua_dyn"):
+        metadata += sketch.DEPTH * sketch.default_width(case.cache_size)
     chrs = hits / trace_len
     return CaseResult(
         policy=policy,
         case=case,
         mean_chr=float(np.mean(chrs)),
         std_chr=float(np.std(chrs)),
-        mean_evictions=float(np.mean(inserts - count)),
+        mean_evictions=float(np.mean(inserts.cpu().numpy() - count)),
         mean_metadata=float(np.mean(metadata)),
         device_s=device_s,
         j_per_request=j_per_request,

@@ -12,19 +12,26 @@ is the reference's ``vmap`` written out. :func:`step` updates the state's
 tensors in place (the reference is pure); :func:`simulate` and
 :func:`simulate_batch` copy the state they are given first.
 
-This slice covers ``lru``, ``lfu``, ``plfu`` and ``plfua`` in object-count
-mode without telemetry. Other kinds, per-object sizes, byte budgets and
+The port covers ``lru``, ``lfu``, ``plfu``, ``plfua``, ``wlfu``, ``tinylfu``
+(with or without the doorkeeper) and ``plfua_dyn`` in object-count mode
+without telemetry. ``gdsf``, ``arc``, per-object sizes, byte budgets and
 telemetry raise ``NotImplementedError`` naming the ROADMAP item that brings
 them.
+
+plfua_dyn refreshes its hot set every ``effective_refresh`` requests counted
+from the start of the run (the reference's global-time cadence); a run
+continued from a handed-over state counts from its own start, so hand a
+plfua_dyn state over only at a refresh boundary.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import arange, resolve_device
 from repro_torch.core import registry, sketch
 
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -32,13 +39,12 @@ _I32_MAX = torch.iinfo(torch.int32).max
 #: kinds a PolicySpec accepts (the reference simulator's)
 SPEC_KINDS = registry.names(jax=True)
 #: kinds this module steps; the rest of SPEC_KINDS build a spec only
-PORTED_KINDS = ("lru", "lfu", "plfu", "plfua")
+PORTED_KINDS = ("lru", "lfu", "plfu", "plfua", "wlfu", "tinylfu", "plfua_dyn")
+#: kinds that carry count-min sketch rows (and an ``inserts`` counter)
+SKETCH_KINDS = registry.names(sketch=True)
 
 #: where each missing piece sits in ROADMAP.md
 _ROADMAP = {
-    "wlfu": "ROADMAP.md module 3 (wlfu ring)",
-    "tinylfu": "ROADMAP.md module 3 (tinylfu) with the sketch hashing of module 1",
-    "plfua_dyn": "ROADMAP.md module 3 (plfua_dyn, refresh_hot)",
     "gdsf": "ROADMAP.md module 3 (gdsf)",
     "arc": "ROADMAP.md module 3 (arc)",
     "bytes": "ROADMAP.md module 3 (byte mode)",
@@ -119,6 +125,12 @@ class PolicySpec:
     def effective_sketch_width(self) -> int:
         return self.sketch_width or sketch.default_width(self.capacity)
 
+    def _bucket_table(self) -> np.ndarray:
+        return sketch.bucket_table(np.arange(self.n_objects), self.effective_sketch_width)
+
+    def _bloom_table(self) -> np.ndarray:
+        return sketch.bloom_table(np.arange(self.n_objects), self.doorkeeper)
+
 
 def _require_ported(spec: PolicySpec) -> None:
     if spec.kind not in PORTED_KINDS:
@@ -127,26 +139,46 @@ def _require_ported(spec: PolicySpec) -> None:
         raise not_ported("bytes")
 
 
+@functools.lru_cache(maxsize=16)
+def _tables(spec: PolicySpec, device: torch.device):
+    """The spec's sketch bucket table ``(N, DEPTH)`` and doorkeeper bloom
+    table ``(N, BLOOM_DEPTH)`` (``None`` without a doorkeeper), int64 on
+    ``device``; made once per spec and device, not once per step."""
+    bloom = spec._bloom_table() if spec.kind == "tinylfu" and spec.doorkeeper else None
+    as_index = lambda a: None if a is None else torch.as_tensor(a, device=device).long()
+    return as_index(spec._bucket_table()), as_index(bloom)
+
+
 def init_state(spec: PolicySpec, n_samples: int | None = None, device=None) -> dict:
     """Zero state, shaped like the reference's (``(N,)`` rows, ``()``
     scalars), or with a leading ``n_samples`` dimension when it is given.
-    ``hot`` is the PLFUA admission mask (the rank-prefix hot set)."""
+    ``hot`` is the PLFUA admission mask (the rank-prefix hot set, which for
+    plfua_dyn is the prior until the first refresh)."""
     _require_ported(spec)
     dev = resolve_device(device)
     lead = () if n_samples is None else (n_samples,)
     n = spec.n_objects
-    state = {
-        "in_cache": torch.zeros(lead + (n,), dtype=torch.bool, device=dev),
-        "count": torch.zeros(lead, dtype=torch.int32, device=dev),
-    }
+    zeros = lambda *shape, dtype=torch.int32: torch.zeros(lead + shape, dtype=dtype, device=dev)
+    state = {"in_cache": zeros(n, dtype=torch.bool), "count": zeros()}
     if spec.kind == "lru":
-        state["last"] = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
-        state["t"] = torch.zeros(lead, dtype=torch.int32, device=dev)
+        state["last"] = zeros(n)
+        state["t"] = zeros()
     else:
-        state["freq"] = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
-    if spec.kind == "plfua":
+        state["freq"] = zeros(n)
+    if spec.kind in ("plfua", "plfua_dyn"):
         hot = torch.arange(n, device=dev) < spec.effective_hot
         state["hot"] = hot.expand(lead + (n,)).clone()
+    if spec.kind == "wlfu":
+        state["ring"] = torch.full(lead + (spec.window,), -1, dtype=torch.int32, device=dev)
+        state["ptr"] = zeros()
+    if spec.kind in SKETCH_KINDS:
+        state["sketch"] = zeros(sketch.DEPTH, spec.effective_sketch_width)
+        # admissions depend on the data, so the insert count is carried
+        state["inserts"] = zeros()
+    if spec.kind == "tinylfu":
+        state["seen"] = zeros()  # aging-window position
+        if spec.doorkeeper:
+            state["bloom"] = zeros(spec.doorkeeper, dtype=torch.bool)
     return state
 
 
@@ -176,6 +208,82 @@ def _masked_argmin(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return masked.argmin(dim=-1)
 
 
+def _i32(b: torch.Tensor) -> torch.Tensor:
+    return b.to(torch.int32)
+
+
+# The step functions below run once per request on the card too (as the
+# kernel's yardstick), where every tensor operation is a kernel launch: they
+# add bools to int32 counters directly and index samples with a shared arange.
+def _wlfu_step(spec, state, rows, x, cap, fill):
+    """Window-LFU: the ring of the last ``window`` ids slides *before* the
+    hit test, and every miss inserts (``fill`` permitting)."""
+    in_cache, count, freq, ring, ptr = (state[k] for k in ("in_cache", "count", "freq", "ring", "ptr"))
+    slot = ptr.long()
+    old = ring[rows, slot].long()
+    freq[rows, old.clamp(min=0)] -= _i32(old >= 0)
+    ring[rows, slot] = x.to(torch.int32)
+    ptr.copy_((ptr + 1) % spec.window)
+    freq[rows, x] += 1
+    hit = in_cache[rows, x]
+    insert = ~hit & fill
+    need_evict = insert & (count >= cap)
+    victim = _masked_argmin(freq, in_cache)
+    in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
+    in_cache[rows, x] = in_cache[rows, x] | insert
+    count += insert
+    count -= _i32(need_evict)
+    return hit
+
+
+def _tinylfu_step(spec, state, rows, x, cap, fill):
+    """TinyLFU: sketch add (gated by the doorkeeper when it is on), then
+    aging, then an admission duel of the request against the LFU victim by
+    post-aging estimate; LFU eviction semantics (a victim's count dies, an
+    insert restarts at 1)."""
+    in_cache, count, freq, rows_sk, seen = (
+        state[k] for k in ("in_cache", "count", "freq", "sketch", "seen"))
+    table, btab = _tables(spec, in_cache.device)
+    idx = table[x]
+    if spec.doorkeeper:
+        bloom = state["bloom"]
+        bidx = btab[x]
+        # first touch per window marks the bloom only; the sketch counts from
+        # the second touch on
+        sketch.rows_add(rows_sk, idx, sketch.bloom_contains(bloom, bidx))
+        sketch.bloom_set(bloom, bidx)
+    else:
+        sketch.rows_add(rows_sk, idx)
+    seen += 1
+    age = seen >= spec.effective_window
+    rows_sk >>= age[:, None, None].to(torch.int32)
+    seen.masked_fill_(age, 0)
+    if spec.doorkeeper:
+        bloom &= ~age[:, None]
+
+    hit = in_cache[rows, x]
+    full = count >= cap
+    victim = _masked_argmin(freq, in_cache)
+    est_x = sketch.rows_estimate(rows_sk, idx)
+    est_v = sketch.rows_estimate(rows_sk, table[victim])
+    if spec.doorkeeper:
+        # the doorkeeper'd occurrence counts back in (post-aging membership)
+        est_x = est_x + sketch.bloom_contains(bloom, bidx)
+        est_v = est_v + sketch.bloom_contains(bloom, btab[victim])
+    admit = est_x > est_v
+    insert = ~hit & (~full | admit) & fill
+    need_evict = ~hit & full & admit & fill
+    in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
+    freq[rows, victim] = torch.where(need_evict, 0, freq[rows, victim])
+    fx = freq[rows, x]
+    freq[rows, x] = torch.where(hit, fx + 1, torch.where(insert, 1, fx))
+    in_cache[rows, x] = in_cache[rows, x] | insert
+    count += insert
+    count -= _i32(need_evict)
+    state["inserts"] += insert
+    return hit
+
+
 def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None):
     """One request per sample: ``x`` is ``(S,)`` ids, ``state`` batched.
     Updates ``state`` in place and returns ``(state, hit (S,) bool)``. The
@@ -183,18 +291,32 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None):
 
     ``cap`` overrides ``spec.capacity`` (a scalar or an ``(S,)`` tensor).
     ``fill`` gates insertion and the eviction that makes room for it (a bool
-    or an ``(S,)`` bool tensor); an unfilled admitted miss still bumps the
-    parked frequency, and lru still stamps it. ``None`` inserts always."""
+    or an ``(S,)`` bool tensor); an unfilled miss still updates the policy's
+    metadata (parked frequency, window, sketch), and lru still stamps it.
+    ``None`` inserts always. plfua_dyn's hot-set refresh is not a step: see
+    :func:`refresh_hot`."""
     _require_ported(spec)
     in_cache, count = state["in_cache"], state["count"]
-    rows = torch.arange(in_cache.shape[0], device=in_cache.device)
-    x = x.to(torch.long)
+    rows = arange(in_cache.shape[0], in_cache.device)
+    x = x.to(device=in_cache.device, dtype=torch.long)
     cap = spec.capacity if cap is None else torch.as_tensor(cap, device=count.device)
     fill = True if fill is None else torch.as_tensor(fill, device=count.device)
+    if spec.kind == "wlfu":
+        return state, _wlfu_step(spec, state, rows, x, cap, fill)
+    if spec.kind == "tinylfu":
+        return state, _tinylfu_step(spec, state, rows, x, cap, fill)
 
     hit = in_cache[rows, x]
     key = state["last"] if spec.kind == "lru" else state["freq"]
-    admitted = state["hot"][rows, x] if spec.kind == "plfua" else True
+    if spec.kind == "plfua_dyn":
+        # the step only feeds the sketch; a dynamic hot set gates admission
+        # only, so a cached object keeps hitting after it leaves the set
+        sketch.rows_add(state["sketch"], _tables(spec, in_cache.device)[0][x])
+        admitted = state["hot"][rows, x] | hit
+    elif spec.kind == "plfua":
+        admitted = state["hot"][rows, x]
+    else:
+        admitted = True
     want = ~hit & admitted & fill
     need_evict = want & (count >= cap)
     victim = _masked_argmin(key, in_cache)
@@ -209,8 +331,26 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None):
         # PLFU/PLFUA: freq[x] of a non-cached object *is* the parked entry
         key[rows, x] += hit | admitted
     in_cache[rows, x] = in_cache[rows, x] | want
-    count += want.to(torch.int32) - need_evict.to(torch.int32)
+    count += want
+    count -= _i32(need_evict)
+    if spec.kind == "plfua_dyn":
+        state["inserts"] += want
     return state, hit
+
+
+def refresh_hot(spec: PolicySpec, state: dict) -> dict:
+    """plfua_dyn hot-set refresh, in place: the new mask is the top
+    ``effective_hot`` ids by sketch estimate (descending, ties to the lowest
+    id: a stable sort, whose order ``torch.topk`` does not promise), then
+    the sketch rows halve."""
+    rows_sk = state["sketch"]
+    est = sketch.rows_estimate_all(rows_sk, _tables(spec, rows_sk.device)[0])
+    top = torch.argsort(-est, dim=-1, stable=True)[:, : spec.effective_hot]
+    hot = state["hot"]
+    hot.zero_()
+    hot.scatter_(1, top, True)
+    sketch.rows_halve(rows_sk)
+    return state
 
 
 def _check_options(spec, telemetry, sizes, groups):
@@ -225,7 +365,11 @@ def simulate_batch(spec, traces, telemetry=None, sizes=None, groups=None, *, sta
     """Run ``(S, T)`` traces from a zero state, or from a copy of ``state``
     (batched, e.g. from :func:`state_from_numpy`). Returns ``(hits (S, T)
     bool, final state)``. ``telemetry``, ``sizes`` and ``groups`` must be
-    ``None`` in this slice."""
+    ``None``: they are not ported yet.
+
+    plfua_dyn refreshes its hot set after every whole ``effective_refresh``
+    requests of this run (the reference's ``_chunked_scan``); a partial
+    tail period never refreshes."""
     _check_options(spec, telemetry, sizes, groups)
     dev = resolve_device(device)
     traces = torch.as_tensor(traces, device=dev)
@@ -236,10 +380,13 @@ def simulate_batch(spec, traces, telemetry=None, sizes=None, groups=None, *, sta
         state = init_state(spec, n_samples=s, device=dev)
     else:
         state = {k: v.to(dev).clone() for k, v in state.items()}
+    refresh = spec.effective_refresh if spec.kind == "plfua_dyn" else 0
     hits = torch.zeros((s, t), dtype=torch.bool, device=dev)
     for i in range(t):
         state, hit = step(spec, state, traces[:, i])
         hits[:, i] = hit
+        if refresh and (i + 1) % refresh == 0:
+            refresh_hot(spec, state)
     return hits, state
 
 
@@ -261,19 +408,29 @@ def chr_of(hits: torch.Tensor) -> torch.Tensor:
 def metadata_entries(spec: PolicySpec, state: dict) -> torch.Tensor:
     """Live metadata entries: cached entries, plus parked ones for the
     frequency family (lfu parks only under the fill gate; its eviction still
-    zeroes the victim)."""
+    zeroes the victim), plus the sketch's counters for the sketch kinds
+    (and tinylfu's doorkeeper bits); wlfu counts its window's distinct ids."""
     _require_ported(spec)
+    count = state["count"]
     if spec.kind == "lru":
-        return state["count"]
+        return count
+    if spec.kind == "wlfu":
+        return (state["freq"] > 0).sum(dim=-1) + count
+    sketch_size = sketch.DEPTH * spec.effective_sketch_width if spec.kind in SKETCH_KINDS else 0
+    if spec.kind == "tinylfu":
+        return count + sketch_size + spec.doorkeeper
     parked = ((state["freq"] > 0) & ~state["in_cache"]).sum(dim=-1)
-    return state["count"] + parked
+    return count + parked + sketch_size
 
 
 def eviction_count(spec: PolicySpec, hits, trace, state) -> int:
     """Total evictions implied by one :func:`simulate` run (host-side): every
-    admitted miss inserts, so evictions = inserts - final occupancy."""
+    admitted miss inserts, so evictions = inserts - final occupancy. The
+    sketch kinds carry the insert count in their state."""
     _require_ported(spec)
     count = int(state["count"])
+    if spec.kind in SKETCH_KINDS:
+        return int(state["inserts"]) - count
     hits = torch.as_tensor(hits).cpu().numpy()
     if spec.kind == "plfua":
         hot = np.arange(spec.n_objects) < spec.effective_hot

@@ -2,9 +2,9 @@
 
 ``nvcc`` compiles a kernel's ``csrc/`` sources for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``build/kernels/`` at the
-root of the checkout. The library's name carries a hash of the sources and the
-flags, so an edited source builds anew and an unchanged one loads the library
-already built. ``ctypes`` loads it; the caller declares each function's
+root of the checkout. The library's name carries a hash of the sources, the
+headers (``*.cuh``) beside them and the flags, so an edited source or header
+builds anew and an unchanged one loads the library already built. ``ctypes`` loads it; the caller declares each function's
 ``argtypes``. The compiler's ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside the library.
 """
@@ -45,10 +45,13 @@ def _nvcc() -> str:
 
 
 def build(name: str, sources) -> Library:
-    """Compile ``sources`` (unless a library of the same hash exists) and load it."""
+    """Compile ``sources`` (unless a library of the same hash exists) and load
+    it. Safe to call from several threads at once for different names, so
+    that several libraries build in parallel."""
     sources = [Path(s) for s in sources]
+    headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
     digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
     if path in _LOADED:

@@ -3,8 +3,9 @@
 // Replaces the TPU kernel `_cache_sim_kernel` in
 // src/repro/kernels/cache_sim/cache_sim.py (built by `cache_sim_pallas`), for the program
 // that kernel runs for lru, lfu, plfu and plfua in object-count mode without telemetry
-// (`base_step` and the loop over the trace). It computes what that program computes, not
-// block by block:
+// (`base_step` and the loop over the trace); wlfu.cu, tinylfu.cu and plfua_dyn.cu hold its
+// other ported programs, and cache_sim_common.cuh the helpers they share (the victim's
+// block argmin among them). It computes what that program computes, not block by block:
 //
 // * One thread block per sample. The steps of one sample are strictly sequential, so a
 //   loop over t inside the block takes the place of the TPU's in-kernel `fori_loop`.
@@ -28,63 +29,13 @@
 // one launch, keeping small-N state in shared memory, and an ordered structure in place of
 // the O(N) argmin are later work.
 
-#include <climits>
-#include <cuda_runtime.h>
+#include "cache_sim_common.cuh"
 
 namespace {
 
 constexpr int kLru = 0;
 constexpr int kLfu = 1;
 constexpr int kPlfua = 3;  // kPlfu = 2 needs no case of its own
-constexpr int kMaxThreads = 1024;
-constexpr int kWarp = 32;
-
-// (ka, ia) precedes (kb, ib): smaller key, then lower id.
-__device__ __forceinline__ bool precedes(int ka, int ia, int kb, int ib) {
-  return ka < kb || (ka == kb && ia < ib);
-}
-
-__device__ __forceinline__ void warp_min(int& key, int& id) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    const int k2 = __shfl_down_sync(0xffffffffu, key, off);
-    const int i2 = __shfl_down_sync(0xffffffffu, id, off);
-    if (precedes(k2, i2, key, id)) {
-      key = k2;
-      id = i2;
-    }
-  }
-}
-
-// argmin of where(in_cache, key, INT_MAX) with ties to the lowest id: a non-cached id
-// competes as (INT_MAX, id), so an empty cache gives id 0, as the reference's argmin does.
-// The result is valid in thread 0 only. blockDim.x is a multiple of 32.
-__device__ int block_argmin(const int* key, const unsigned char* in_cache, int n,
-                            int* s_key, int* s_id) {
-  int best_k = INT_MAX;
-  int best_i = INT_MAX;  // above every real id, so any real candidate replaces it
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int k = in_cache[i] ? key[i] : INT_MAX;
-    if (precedes(k, i, best_k, best_i)) {
-      best_k = k;
-      best_i = i;
-    }
-  }
-  warp_min(best_k, best_i);
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (lane == 0) {
-    s_key[warp] = best_k;
-    s_id[warp] = best_i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x / kWarp;
-    best_k = lane < n_warps ? s_key[lane] : INT_MAX;
-    best_i = lane < n_warps ? s_id[lane] : INT_MAX;
-    warp_min(best_k, best_i);
-  }
-  return best_i;
-}
 
 // One barrier a step (two with an eviction). It orders thread 0's writes of step t-1
 // before every read of step t, and every read of step t-1 before thread 0's writes of
@@ -145,13 +96,7 @@ extern "C" int cache_sim_launch(const int* traces, int* hits, int* freq,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = (n_objects + kWarp - 1) / kWarp * kWarp;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  cache_sim_kernel<<<n_samples, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cache_sim_kernel<<<n_samples, block_threads(n_objects), 0, static_cast<cudaStream_t>(stream)>>>(
       traces, trace_len, n_objects, kind, capacity, hot_size, hits, freq, in_cache);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* cache_sim_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -36,17 +36,50 @@ def cache_sim(
 
     Runs the CUDA kernel on the card (``device=None`` means ``cuda``) and the
     plain PyTorch version only when ``device="cpu"``. The signature is the
-    reference's; ``window``, ``refresh`` and ``sketch_width`` do not apply to
-    the covered kinds and are ignored, as the reference ignores them. Kinds
-    and options this slice does not cover raise ``NotImplementedError``.
+    reference's, and so are the option rules: ``window`` is wlfu's (required)
+    and tinylfu's aging window, ``refresh`` and ``hot_size`` plfua_dyn's,
+    ``sketch_width`` the sketch kinds', ``doorkeeper`` tinylfu's; 0 takes the
+    reference's default, and a kind ignores the options that are not its own.
+    Kinds and options not ported yet raise ``NotImplementedError``.
     """
+    return cache_sim_with_inserts(
+        traces, kind=kind, n_objects=n_objects, capacity=capacity, hot_size=hot_size, window=window,
+        refresh=refresh, sketch_width=sketch_width, doorkeeper=doorkeeper,
+        telemetry_window=telemetry_window, capacity_bytes=capacity_bytes, max_victims=max_victims,
+        sizes=sizes, n_groups=n_groups, groups=groups, device=device,
+    )[:3]
+
+
+def cache_sim_with_inserts(
+    traces,
+    *,
+    kind: str,
+    n_objects: int,
+    capacity: int,
+    hot_size: int = 0,
+    window: int = 0,
+    refresh: int = 0,
+    sketch_width: int = 0,
+    doorkeeper: int = 0,
+    telemetry_window: int = 0,
+    capacity_bytes: int = 0,
+    max_victims: int = 0,
+    sizes=None,
+    n_groups: int = 0,
+    groups=None,
+    device=None,
+):
+    """:func:`cache_sim` plus each sample's insert count: ``(hits, freq,
+    in_cache, inserts (S,) int32)``. The grid harness needs it, since the
+    admission kinds insert on data-dependent decisions (evictions = inserts -
+    final occupancy)."""
     if kind not in _ALL_KINDS:
         raise ValueError(f"kind={kind!r} not in {_ALL_KINDS}")
     if kind not in KERNEL_KINDS:
         raise not_ported(kind)
     if doorkeeper < 0:
         raise ValueError(f"doorkeeper must be >= 0, got {doorkeeper}")
-    if doorkeeper:
+    if doorkeeper and kind != "tinylfu":
         raise ValueError("doorkeeper is a tinylfu-only option")
     if telemetry_window < 0:
         raise ValueError(f"telemetry_window must be >= 0, got {telemetry_window}")
@@ -65,4 +98,7 @@ def cache_sim(
     dev = resolve_device(device)
     traces = torch.as_tensor(traces, dtype=torch.int32, device=dev).contiguous()
     run = cache_sim_cuda if traces.is_cuda else cache_sim_plain
-    return run(traces, kind=kind, n_objects=n_objects, capacity=capacity, hot_size=hot_size)
+    return run(
+        traces, kind=kind, n_objects=n_objects, capacity=capacity, hot_size=hot_size, window=window,
+        refresh=refresh, sketch_width=sketch_width, doorkeeper=doorkeeper,
+    )

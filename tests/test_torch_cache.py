@@ -2,9 +2,10 @@
 
 ``torch_cache`` with ``device="cpu"`` must equal ``jax_cache`` exactly on the
 hit series and on every state entry (in_cache, count, freq or lru's last/t,
-plfua's hot mask), for lru/lfu/plfu/plfua, and through the fill gate, a traced
-capacity and a state handed over mid-trace. Everything compared is an integer
-or a bool, so the tolerance is exact.
+the hot mask, wlfu's ring and ptr, the sketch rows, inserts, tinylfu's seen
+and doorkeeper bloom), for the seven ported kinds, and through the fill gate,
+a traced capacity and a state handed over mid-trace. Everything compared is
+an integer or a bool, so the tolerance is exact.
 """
 import jax
 import jax.numpy as jnp
@@ -16,10 +17,18 @@ from repro.core import jax_cache, policies
 from repro.core import zipf as ref_zipf
 from repro_torch.core import torch_cache
 
-KINDS = ("lru", "lfu", "plfu", "plfua")
+KINDS = ("lru", "lfu", "plfu", "plfua", "wlfu", "tinylfu", "plfua_dyn")
+# small windows, refresh periods and sketches, so that the ring wraps, the
+# sketch ages and the hot set refreshes within the short traces below (the
+# mid-trace handover at 333 = 3 x 111 falls on a refresh boundary)
+KIND_KW = {
+    "wlfu": dict(window=16),
+    "tinylfu": dict(window=50, sketch_width=64),
+    "plfua_dyn": dict(refresh=111, sketch_width=64),
+}
 
-# the lru/lfu/plfu/plfua rows of tests/test_kernels_cache_sim.py's SWEEP
-# (cap == N, cap = 1, N crossing a 128-lane pad) plus lru/plfua edge rows
+# the rows of tests/test_kernels_cache_sim.py's SWEEP (cap == N, cap = 1, N
+# crossing a 128-lane pad, the sketch kinds' defaults) plus edge rows
 SWEEP = [
     # (kind, n_objects, capacity, n_samples, trace_len, kwargs)
     ("lfu", 64, 9, 3, 400, {}),
@@ -34,6 +43,18 @@ SWEEP = [
     ("plfu", 16, 1, 2, 300, {}),
     ("lru", 16, 1, 2, 300, {}),
     ("plfua", 130, 1, 2, 300, dict(hot_size=7)),
+    ("wlfu", 64, 9, 3, 400, dict(window=48)),
+    ("wlfu", 130, 3, 2, 500, dict(window=33)),
+    ("tinylfu", 64, 9, 3, 400, dict(window=48, sketch_width=64)),
+    ("tinylfu", 300, 20, 2, 500, dict(window=77, sketch_width=100)),
+    ("tinylfu", 64, 9, 2, 400, {}),
+    ("plfua_dyn", 64, 9, 3, 400, dict(refresh=97, sketch_width=64)),
+    ("plfua_dyn", 130, 3, 2, 500, dict(refresh=50, sketch_width=96, hot_size=7)),
+    ("plfua_dyn", 16, 1, 2, 300, dict(refresh=30, sketch_width=64)),
+    # the doorkeeper, and a window of 1 (the ring overwrites its only slot)
+    ("tinylfu", 64, 9, 2, 500, dict(window=60, sketch_width=64, doorkeeper=128)),
+    ("tinylfu", 40, 5, 2, 300, dict(window=1, sketch_width=33, doorkeeper=1)),
+    ("wlfu", 40, 5, 2, 300, dict(window=1)),
 ]
 
 
@@ -73,7 +94,7 @@ def test_simulate_batch_matches_jax(kind, n, cap, s, t, kw):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_simulate_single_trace_matches_jax(kind):
-    port_spec, ref_spec = _specs(kind, 40, 6)
+    port_spec, ref_spec = _specs(kind, 40, 6, **KIND_KW.get(kind, {}))
     trace = _traces(40, 1, 500, seed=3)[0]
     hits, state = torch_cache.simulate(port_spec, trace, device="cpu")
     ref_hits, ref_state = jax_cache.simulate(ref_spec, jnp.asarray(trace))
@@ -84,7 +105,7 @@ def test_simulate_single_trace_matches_jax(kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_metadata_and_evictions_match_jax(kind):
-    port_spec, ref_spec = _specs(kind, 64, 9)
+    port_spec, ref_spec = _specs(kind, 64, 9, **KIND_KW.get(kind, {}))
     trace = _traces(64, 1, 3000, seed=7)[0]
     hits, state = torch_cache.simulate(port_spec, trace, device="cpu")
     ref_hits, ref_state = jax_cache.simulate(ref_spec, jnp.asarray(trace))
@@ -100,8 +121,9 @@ def test_metadata_and_evictions_match_jax(kind):
 def test_hit_series_matches_python_reference(kind):
     n, cap = 50, 7
     trace = _traces(n, 1, 1500, seed=21)[0]
-    hits, state = torch_cache.simulate(torch_cache.PolicySpec(kind, n, cap), trace, device="cpu")
-    pol = policies.make_policy(kind, cap, n_objects=n)
+    kw = KIND_KW.get(kind, {})
+    hits, state = torch_cache.simulate(torch_cache.PolicySpec(kind, n, cap, **kw), trace, device="cpu")
+    pol = policies.make_policy(kind, cap, n_objects=n, **kw)
     expected = np.array([pol.request(int(x)) for x in trace])
     np.testing.assert_array_equal(hits.numpy(), expected)
     np.testing.assert_array_equal(state["in_cache"].numpy(), [pol.contains(i) for i in range(n)])
@@ -110,8 +132,9 @@ def test_hit_series_matches_python_reference(kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_state_carried_from_jax_mid_trace(kind):
     """JAX runs the first half, the port finishes from JAX's state: the result
-    equals the one-shot JAX run."""
-    port_spec, ref_spec = _specs(kind, 90, 8)
+    equals the one-shot JAX run. plfua_dyn's refresh cadence counts from the
+    start of each run, so its handover falls on a refresh boundary."""
+    port_spec, ref_spec = _specs(kind, 90, 8, **KIND_KW.get(kind, {}))
     trace = _traces(90, 1, 800, seed=31)[0]
     half = 333
     first_hits, mid = jax_cache.simulate(ref_spec, jnp.asarray(trace[:half]))
@@ -144,7 +167,7 @@ def test_step_fill_gate_and_traced_cap_match_jax(kind):
     """Per-sample ``fill`` (False steps included) and a per-sample ``cap``
     against the reference step vmapped over samples."""
     n, s, t = 40, 3, 300
-    port_spec, ref_spec = _specs(kind, n, 6)
+    port_spec, ref_spec = _specs(kind, n, 6, **KIND_KW.get(kind, {}))
     traces = _traces(n, s, t, seed=9)
     fills = np.random.default_rng(1).random((s, t)) < 0.6
     caps = np.array([1, 4, 9], np.int32)
@@ -180,9 +203,20 @@ def test_masked_argmin_ties_to_lowest_id():
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("kind", ["wlfu", "tinylfu", "plfua_dyn", "gdsf", "arc"])
-def test_unported_kinds_raise(kind):
-    spec = torch_cache.PolicySpec(kind=kind, n_objects=16, capacity=4, window=4)
+# gdsf and arc are not ported; wlfu, tinylfu and plfua_dyn are, but not
+# under a byte budget (ids keep the kinds' names)
+@pytest.mark.parametrize(
+    "kind,spec_kw",
+    [
+        pytest.param("wlfu", dict(capacity_bytes=64), id="wlfu"),
+        pytest.param("tinylfu", dict(capacity_bytes=64), id="tinylfu"),
+        pytest.param("plfua_dyn", dict(capacity_bytes=64), id="plfua_dyn"),
+        pytest.param("gdsf", {}, id="gdsf"),
+        pytest.param("arc", {}, id="arc"),
+    ],
+)
+def test_unported_kinds_raise(kind, spec_kw):
+    spec = torch_cache.PolicySpec(kind=kind, n_objects=16, capacity=4, window=4, **spec_kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         torch_cache.init_state(spec, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

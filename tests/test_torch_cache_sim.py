@@ -2,22 +2,28 @@
 
 On the CPU ``ops.cache_sim(..., device="cpu")`` runs the plain PyTorch version;
 it must equal the reference Pallas kernel in interpret mode exactly (hits,
-freq/stamps, in_cache: all integers). On the card the ``cuda``-marked test
+freq/stamps, in_cache: all integers), for the seven ported kinds, tinylfu's
+doorkeeper and plfua_dyn's refresh boundary included. On the card the ``cuda``-marked test
 holds the CUDA kernel to the plain version and to the reference on the same
 rows; it skips elsewhere, deciding inside a fixture. tests/test_torch_cuda.py
 has the card's other tests.
 """
+import ctypes
+import re
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import jax_cache
 from repro.core import zipf as ref_zipf
 from repro.kernels.cache_sim import ops as ref_ops
 from repro_torch.kernels.cache_sim import cache_sim as port_kernel
 from repro_torch.kernels.cache_sim import ops
 
-# the lru/lfu/plfu/plfua rows of tests/test_kernels_cache_sim.py's SWEEP
-# (cap == N, cap = 1, N crossing a 128-lane pad) plus lru/plfua edge rows
+# the rows of tests/test_kernels_cache_sim.py's SWEEP (cap == N, cap = 1, N
+# crossing a 128-lane pad, the sketch kinds' defaults) plus edge rows
 SWEEP = [
     # (kind, n_objects, capacity, n_samples, trace_len, kwargs)
     ("lfu", 64, 9, 3, 400, {}),
@@ -32,6 +38,18 @@ SWEEP = [
     ("plfu", 16, 1, 2, 300, {}),
     ("lru", 16, 1, 2, 300, {}),
     ("plfua", 50, 5, 1, 400, dict(hot_size=7)),
+    ("wlfu", 64, 9, 3, 400, dict(window=48)),
+    ("wlfu", 130, 3, 2, 500, dict(window=33)),
+    ("tinylfu", 64, 9, 3, 400, dict(window=48, sketch_width=64)),
+    ("tinylfu", 300, 20, 2, 500, dict(window=77, sketch_width=100)),
+    ("tinylfu", 64, 9, 2, 400, {}),
+    ("plfua_dyn", 64, 9, 3, 400, dict(refresh=97, sketch_width=64)),
+    ("plfua_dyn", 130, 3, 2, 500, dict(refresh=50, sketch_width=96, hot_size=7)),
+    ("plfua_dyn", 16, 1, 2, 300, dict(refresh=30, sketch_width=64)),
+    # tests/test_kernels_cache_sim.py's doorkeeper case, on its traces' shape
+    ("tinylfu", 64, 9, 2, 500, dict(window=60, sketch_width=64, doorkeeper=128)),
+    # a custom hot set larger than the default, with refreshes
+    ("plfua_dyn", 64, 5, 2, 400, dict(refresh=45, sketch_width=64, hot_size=30)),
 ]
 
 
@@ -60,6 +78,46 @@ def test_port_matches_reference_kernel(kind, n, cap, s, t, kw):
     np.testing.assert_array_equal(in_cache.numpy(), np.asarray(cache_r))
 
 
+@pytest.mark.parametrize("trace_len", [388, 400])  # 388 = 4 * 97: exact periods
+def test_plfua_dyn_refresh_boundary_matches_reference_kernel(trace_len):
+    """A partial tail period must not refresh; an exact multiple refreshes on
+    the last step (tests/test_kernels_cache_sim.py's boundary case)."""
+    n, cap, kw = 64, 9, dict(refresh=97, sketch_width=64)
+    traces = np.stack([ref_zipf.sample_trace(n, trace_len, seed=40 + i) for i in range(2)]).astype(np.int32)
+    ref = ref_ops.cache_sim(traces, kind="plfua_dyn", n_objects=n, capacity=cap, interpret=True, **kw)
+    port = ops.cache_sim(traces, kind="plfua_dyn", n_objects=n, capacity=cap, device="cpu", **kw)
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_doorkeeper_changes_decisions():
+    """The doorkeeper'd run really differs from the plain tinylfu run."""
+    traces = np.stack([ref_zipf.sample_trace(64, 500, seed=5 + i) for i in range(2)]).astype(np.int32)
+    kw = dict(kind="tinylfu", n_objects=64, capacity=9, window=60, sketch_width=64, device="cpu")
+    with_dk = ops.cache_sim(traces, doorkeeper=128, **kw)
+    without = ops.cache_sim(traces, **kw)
+    assert not torch.equal(with_dk[0], without[0])
+
+
+def test_inserts_match_the_reference_simulator():
+    """``cache_sim_with_inserts``'s fourth output is ``jax_cache``'s
+    ``state["inserts"]`` for the sketch kinds and the derived count for the
+    others."""
+    n, cap = 64, 9
+    traces = _traces(n, 2, 400)
+    for kind, kw in (("lfu", {}), ("plfua", {}), ("wlfu", dict(window=20)),
+                     ("tinylfu", dict(window=50, sketch_width=64, doorkeeper=64)),
+                     ("plfua_dyn", dict(refresh=60, sketch_width=64))):
+        *_, inserts = ops.cache_sim_with_inserts(traces, kind=kind, n_objects=n, capacity=cap,
+                                                 device="cpu", **kw)
+        spec = jax_cache.PolicySpec(kind=kind, n_objects=n, capacity=cap, **kw)
+        for i in range(2):
+            hits, state = jax_cache.simulate(spec, jnp.asarray(traces[i]))
+            state = {k: np.asarray(v) for k, v in state.items()}
+            want = jax_cache.eviction_count(spec, hits, traces[i], state) + int(state["count"])
+            assert int(inserts[i]) == want, kind
+
+
 def test_uniform_trace_matches_reference_kernel():
     rng = np.random.default_rng(0)
     traces = rng.integers(0, 77, size=(2, 321)).astype(np.int32)
@@ -73,9 +131,10 @@ def test_uniform_trace_matches_reference_kernel():
 @pytest.mark.parametrize(
     "kind,kw",
     [
-        ("wlfu", dict(window=8)),
-        ("tinylfu", {}),
-        ("plfua_dyn", {}),
+        # the admission kinds run, but not with telemetry or under a byte budget
+        ("wlfu", dict(window=8, sizes=np.ones(32, np.int32))),
+        ("tinylfu", dict(telemetry_window=8)),
+        ("plfua_dyn", dict(capacity_bytes=64)),
         ("gdsf", {}),
         ("arc", {}),
         ("lfu", dict(capacity_bytes=64)),
@@ -99,6 +158,10 @@ def test_unported_kinds_and_options_raise(kind, kw):
         (dict(kind="lfu", max_victims=2), "max_victims"),
         (dict(kind="lfu", capacity_bytes=-1), "capacity_bytes"),
         (dict(kind="lfu", telemetry_window=-1), "telemetry_window"),
+        (dict(kind="wlfu"), "window"),
+        (dict(kind="plfua_dyn", doorkeeper=64), "doorkeeper"),
+        (dict(kind="tinylfu", sketch_width=-1), "sketch_width"),
+        (dict(kind="plfua_dyn", refresh=-1), "refresh"),
     ],
 )
 def test_bad_options_raise_value_error(kw, match):
@@ -125,7 +188,7 @@ def test_default_device_raises_without_a_card(monkeypatch):
 def test_kernel_wrapper_refuses_cpu_tensors():
     """No quiet fallback: the CUDA wrapper takes CUDA tensors only."""
     traces = torch.zeros((1, 16), dtype=torch.int32)
-    before = port_kernel.LAUNCHES
+    before = dict(port_kernel.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_kernel.cache_sim_cuda(traces, kind="lfu", n_objects=32, capacity=4)
     assert port_kernel.LAUNCHES == before
@@ -136,13 +199,31 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_kernel_matches_plain_on_card(cuda_device, kind, n, cap, s, t, kw):
     traces_np = _traces(n, s, t)
     traces = torch.as_tensor(traces_np, device=cuda_device)
-    before = port_kernel.LAUNCHES
+    program = port_kernel.PROGRAM_OF[kind]
+    before = port_kernel.LAUNCHES[program]
     got = ops.cache_sim(traces, kind=kind, n_objects=n, capacity=cap, **kw)
     torch.cuda.synchronize()
-    assert port_kernel.LAUNCHES == before + 1
+    assert port_kernel.LAUNCHES[program] == before + 1
     want = port_kernel.cache_sim_plain(traces, kind=kind, n_objects=n, capacity=cap, **kw)
     ref = ref_ops.cache_sim(traces_np, kind=kind, n_objects=n, capacity=cap, interpret=True, **kw)
     for a, b, r in zip(got, want, ref):
         assert a.is_cuda and a.dtype == b.dtype
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         np.testing.assert_array_equal(a.cpu().numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("program", sorted(port_kernel.PROGRAMS))
+def test_program_entry_matches_its_c_signature(program):
+    """Each program's ctypes argument types follow its C entry point's
+    parameters (a pointer as ``c_void_p``, an int as ``c_int``): a mismatch
+    would pass a pointer cut to 32 bits, and no CPU run could show it."""
+    prog = port_kernel.PROGRAMS[program]
+    source = prog.source.read_text()
+    match = re.search(r'extern "C" int ' + prog.entry + r"\(([^)]*)\)", source)
+    assert match, f"{prog.entry} not found in {prog.source.name}"
+    params = [p.strip() for p in match.group(1).split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert all("*" in p or p.startswith("int ") for p in params), params
+    assert list(prog.argtypes) == want
+    assert set(port_kernel.PROGRAM_OF.values()) == set(port_kernel.PROGRAMS)
+    assert set(port_kernel.PROGRAM_OF) == set(port_kernel.KERNEL_KINDS)

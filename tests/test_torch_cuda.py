@@ -39,15 +39,32 @@ def _assert_equal(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# options that make the ring wrap, the sketch age and the hot set refresh
+# several times within the 3,000-request traces below
+ABOVE_ONE_BLOCK = [
+    ("lru", {}), ("lfu", {}), ("plfu", {}), ("plfua", {}),
+    ("wlfu", dict(window=500)),
+    ("tinylfu", dict(window=400)),
+    ("tinylfu", dict(window=400, doorkeeper=320)),
+    ("plfua_dyn", dict(refresh=700)),
+    ("plfua_dyn", dict(refresh=500, hot_size=4_000, sketch_width=300)),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["lru", "lfu", "plfu", "plfua"])
-def test_kernel_matches_plain_above_one_block(cuda_device, kind):
+@pytest.mark.parametrize("kind,kw", ABOVE_ONE_BLOCK)
+def test_kernel_matches_plain_above_one_block(cuda_device, kind, kw):
     """N above a block's 1024 threads: the strided scan and the cross-warp
-    reduction both keep the lowest-id tie-break."""
+    reduction both keep the lowest-id tie-break, and the admission programs'
+    block-wide passes (aging, the hot set's top-k) cover every id. Exact on
+    hits, freq, in_cache and inserts."""
     n, cap = 5000, 40
     traces = _traces(n, 4, 3000, cuda_device, seed=7)
-    got = ops.cache_sim(traces, kind=kind, n_objects=n, capacity=cap)
-    _assert_equal(got, port_kernel.cache_sim_plain(traces, kind=kind, n_objects=n, capacity=cap))
+    program = port_kernel.PROGRAM_OF[kind]
+    before = port_kernel.LAUNCHES[program]
+    got = port_kernel.cache_sim_cuda(traces, kind=kind, n_objects=n, capacity=cap, **kw)
+    assert port_kernel.LAUNCHES[program] == before + 1
+    _assert_equal(got, port_kernel.cache_sim_plain(traces, kind=kind, n_objects=n, capacity=cap, **kw))
 
 
 @pytest.mark.cuda
@@ -61,7 +78,7 @@ def test_kernel_raises_on_out_of_range_ids(cuda_device):
 @pytest.mark.cuda
 def test_run_grid_on_card_matches_cpu(cuda_device):
     cases = zipf.paper_grid([100, 1000], [0.02, 0.25])
-    for kind in ("lru", "plfua"):
+    for kind in ("lru", "plfua", "wlfu", "tinylfu", "plfua_dyn"):
         card = simulate.run_grid(kind, cases, n_samples=2, trace_len=2000)
         cpu = simulate.run_grid(kind, cases, n_samples=2, trace_len=2000, device="cpu")
         for a, b in zip(card, cpu):

@@ -3,7 +3,9 @@
 ``simulate.run_grid(..., device="cpu")`` on a reduced grid must give the CHR,
 evictions and metadata that the same cases give through
 ``jax_cache.simulate_batch`` + ``metadata_entries`` + ``eviction_count``,
-exactly (CHR as the float mean of equal integer counts, computed the same way).
+exactly (CHR as the float mean of equal integer counts, computed the same way),
+for the seven ported kinds with the grid's options (wlfu's window of 10,000,
+the sketch kinds' defaults).
 Device fields are ``None`` on the CPU: not measured.
 """
 import jax
@@ -22,7 +24,8 @@ CASES = zipf.paper_grid([100, 1000], [0.02, 0.25])
 
 
 def _reference_case(kind, case, seed):
-    spec = jax_cache.PolicySpec(kind=kind, n_objects=case.n_objects, capacity=case.cache_size)
+    window = simulate.WLFU_WINDOW if kind == "wlfu" else 0
+    spec = jax_cache.PolicySpec(kind=kind, n_objects=case.n_objects, capacity=case.cache_size, window=window)
     traces = ref_zipf.sample_traces(case.n_objects, N_SAMPLES, TRACE_LEN, seed=seed)
     hits = np.asarray(jax_cache.simulate_batch(spec, jnp.asarray(traces)))
     states = jax.vmap(lambda tr: jax_cache.simulate(spec, tr)[1])(jnp.asarray(traces))
@@ -35,7 +38,7 @@ def _reference_case(kind, case, seed):
     return (float(np.mean(chrs)), float(np.std(chrs)), float(np.mean(evictions)), float(np.mean(metadata)))
 
 
-@pytest.mark.parametrize("kind", ["lru", "lfu", "plfu", "plfua"])
+@pytest.mark.parametrize("kind", ["lru", "lfu", "plfu", "plfua", "wlfu", "tinylfu", "plfua_dyn"])
 def test_run_grid_matches_reference(kind):
     seed = 3
     rows = simulate.run_grid(kind, CASES, n_samples=N_SAMPLES, trace_len=TRACE_LEN, seed=seed, device="cpu")
