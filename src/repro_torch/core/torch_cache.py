@@ -12,11 +12,11 @@ is the reference's ``vmap`` written out. :func:`step` updates the state's
 tensors in place (the reference is pure); :func:`simulate` and
 :func:`simulate_batch` copy the state they are given first.
 
-The port covers ``lru``, ``lfu``, ``plfu``, ``plfua``, ``wlfu``, ``tinylfu``
-(with or without the doorkeeper) and ``plfua_dyn`` in object-count mode
-without telemetry. ``gdsf``, ``arc``, per-object sizes, byte budgets and
-telemetry raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+The port covers every kind of the reference simulator: ``lru``, ``lfu``,
+``plfu``, ``plfua``, ``wlfu``, ``tinylfu`` (with or without the doorkeeper),
+``plfua_dyn``, ``gdsf`` and ``arc``, in object-count mode and (all but arc)
+under a byte budget over per-object ``sizes``. Telemetry raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 
 plfua_dyn refreshes its hot set every ``effective_refresh`` requests counted
 from the start of the run (the reference's global-time cadence); a run
@@ -38,22 +38,21 @@ _I32_MAX = torch.iinfo(torch.int32).max
 
 #: kinds a PolicySpec accepts (the reference simulator's)
 SPEC_KINDS = registry.names(jax=True)
-#: kinds this module steps; the rest of SPEC_KINDS build a spec only
-PORTED_KINDS = ("lru", "lfu", "plfu", "plfua", "wlfu", "tinylfu", "plfua_dyn")
+#: kinds this module steps: every spec kind
+PORTED_KINDS = SPEC_KINDS
 #: kinds that carry count-min sketch rows (and an ``inserts`` counter)
 SKETCH_KINDS = registry.names(sketch=True)
 
 #: where each missing piece sits in ROADMAP.md
-_ROADMAP = {
-    "gdsf": "ROADMAP.md module 3 (gdsf)",
-    "arc": "ROADMAP.md module 3 (arc)",
-    "bytes": "ROADMAP.md module 3 (byte mode)",
-    "telemetry": "ROADMAP.md module 4 (telemetry)",
-}
+_ROADMAP = {"telemetry": "ROADMAP.md module 4 (telemetry)"}
+#: GDSF's fixed-point scale, registry.GDSF_SHIFT
+GDSF_SHIFT = registry.GDSF_SHIFT
+#: arc's list tags in ``lst``: 0 = untracked
+T1, T2, B1, B2 = 1, 2, 3, 4
 
 
 def not_ported(what: str) -> NotImplementedError:
-    """The error for a kind or option this slice does not cover."""
+    """The error for an option this slice does not cover."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: see {_ROADMAP[what]}"
     )
@@ -132,13 +131,6 @@ class PolicySpec:
         return sketch.bloom_table(np.arange(self.n_objects), self.doorkeeper)
 
 
-def _require_ported(spec: PolicySpec) -> None:
-    if spec.kind not in PORTED_KINDS:
-        raise not_ported(spec.kind)
-    if spec.capacity_bytes:
-        raise not_ported("bytes")
-
-
 @functools.lru_cache(maxsize=16)
 def _tables(spec: PolicySpec, device: torch.device):
     """The spec's sketch bucket table ``(N, DEPTH)`` and doorkeeper bloom
@@ -153,8 +145,8 @@ def init_state(spec: PolicySpec, n_samples: int | None = None, device=None) -> d
     """Zero state, shaped like the reference's (``(N,)`` rows, ``()``
     scalars), or with a leading ``n_samples`` dimension when it is given.
     ``hot`` is the PLFUA admission mask (the rank-prefix hot set, which for
-    plfua_dyn is the prior until the first refresh)."""
-    _require_ported(spec)
+    plfua_dyn is the prior until the first refresh). Byte mode adds the
+    resident ``bytes`` and, for the kinds without a sketch, ``inserts``."""
     dev = resolve_device(device)
     lead = () if n_samples is None else (n_samples,)
     n = spec.n_objects
@@ -162,6 +154,13 @@ def init_state(spec: PolicySpec, n_samples: int | None = None, device=None) -> d
     state = {"in_cache": zeros(n, dtype=torch.bool), "count": zeros()}
     if spec.kind == "lru":
         state["last"] = zeros(n)
+        state["t"] = zeros()
+    elif spec.kind == "arc":
+        # list tag per id (0 untracked, T1, T2, B1, B2) and entry stamp: a
+        # list's LRU is its least-stamped member
+        state["lst"] = zeros(n)
+        state["stamp"] = zeros(n)
+        state["p"] = zeros()  # adaptive T1 size target
         state["t"] = zeros()
     else:
         state["freq"] = zeros(n)
@@ -179,6 +178,13 @@ def init_state(spec: PolicySpec, n_samples: int | None = None, device=None) -> d
         state["seen"] = zeros()  # aging-window position
         if spec.doorkeeper:
             state["bloom"] = zeros(spec.doorkeeper, dtype=torch.bool)
+    if spec.kind == "gdsf":
+        state["score"] = zeros(n)  # cached priority H
+        state["L"] = zeros()  # global aging credit
+    if spec.capacity_bytes:
+        state["bytes"] = zeros()  # resident bytes
+        # whether a miss fits is data-dependent, so every kind carries its inserts
+        state.setdefault("inserts", zeros())
     return state
 
 
@@ -187,7 +193,6 @@ def state_from_numpy(spec: PolicySpec, np_state: dict, device=None) -> dict:
     state ``jax_cache.simulate`` returns, as numpy arrays). Shapes are kept:
     a single-sample state stays unbatched, a batched one keeps its leading
     sample dimension."""
-    _require_ported(spec)
     dev = resolve_device(device)
     want = set(init_state(spec, device="cpu"))
     if set(np_state) != want:
@@ -197,7 +202,6 @@ def state_from_numpy(spec: PolicySpec, np_state: dict, device=None) -> dict:
 
 def state_to_numpy(spec: PolicySpec, state: dict) -> dict:
     """numpy arrays of the port's state, in the reference's keys and dtypes."""
-    _require_ported(spec)
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
 
 
@@ -215,7 +219,58 @@ def _i32(b: torch.Tensor) -> torch.Tensor:
 # The step functions below run once per request on the card too (as the
 # kernel's yardstick), where every tensor operation is a kernel launch: they
 # add bools to int32 counters directly and index samples with a shared arange.
-def _wlfu_step(spec, state, rows, x, cap, fill):
+class _Budget:
+    """A step's byte budget: the request's size, the budget and the sizes
+    row (``None`` = unit sizes), and the room-making that precedes an
+    insert."""
+
+    def __init__(self, spec, sizes, x, cap_bytes):
+        self.spec, self.sizes = spec, sizes
+        self.size_x = _sz(sizes, x)
+        self.cap_b = spec.capacity_bytes if cap_bytes is None else cap_bytes
+
+    def evict(self, state, rows, key, want, credit=None):
+        """The reference's ``_evict_bytes_loop``, in place: evict the masked
+        argmin of ``key`` until x fits, the cache is empty or
+        ``effective_max_victims`` victims are gone; an object larger than the
+        whole budget evicts nothing. lfu and tinylfu zero each victim's key,
+        and gdsf's ``credit`` ratchets to each victim's score. ``need``
+        never turns back to true, so once no sample needs a victim the
+        reference's remaining iterations change nothing and are skipped."""
+        in_cache, count, nbytes = state["in_cache"], state["count"], state["bytes"]
+        size_x, cap_b = self.size_x, self.cap_b
+        want_fits = want & (size_x <= cap_b)
+        for _ in range(self.spec.effective_max_victims):
+            need = want_fits & (nbytes + size_x > cap_b) & (count > 0)
+            if not bool(need.any()):
+                break
+            v = _masked_argmin(key, in_cache)
+            kv = key[rows, v]
+            if credit is not None:
+                credit.copy_(torch.where(need, kv, credit))
+            in_cache[rows, v] = in_cache[rows, v] & ~need
+            count -= _i32(need)
+            nbytes -= _i32(need) * _sz(self.sizes, v)
+            if self.spec.kind in ("lfu", "tinylfu"):
+                key[rows, v] = torch.where(need, 0, kv)
+
+    def insert(self, state, rows, key, want, credit=None):
+        """Make room for x, then admit it if it fits: updates count, bytes
+        and inserts, and returns the insert mask."""
+        self.evict(state, rows, key, want, credit)
+        insert = want & (state["bytes"] + self.size_x <= self.cap_b)
+        state["count"] += insert
+        state["bytes"] += _i32(insert) * self.size_x
+        state["inserts"] += insert
+        return insert
+
+
+def _sz(sizes, i):
+    """Per-object size lookup; ``sizes=None`` is the unit-size convention."""
+    return 1 if sizes is None else sizes[i]
+
+
+def _wlfu_step(spec, state, rows, x, cap, fill, budget):
     """Window-LFU: the ring of the last ``window`` ids slides *before* the
     hit test, and every miss inserts (``fill`` permitting)."""
     in_cache, count, freq, ring, ptr = (state[k] for k in ("in_cache", "count", "freq", "ring", "ptr"))
@@ -227,6 +282,10 @@ def _wlfu_step(spec, state, rows, x, cap, fill):
     freq[rows, x] += 1
     hit = in_cache[rows, x]
     insert = ~hit & fill
+    if budget is not None:
+        insert = budget.insert(state, rows, freq, insert)
+        in_cache[rows, x] = in_cache[rows, x] | insert
+        return hit
     need_evict = insert & (count >= cap)
     victim = _masked_argmin(freq, in_cache)
     in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
@@ -236,11 +295,12 @@ def _wlfu_step(spec, state, rows, x, cap, fill):
     return hit
 
 
-def _tinylfu_step(spec, state, rows, x, cap, fill):
+def _tinylfu_step(spec, state, rows, x, cap, fill, budget):
     """TinyLFU: sketch add (gated by the doorkeeper when it is on), then
     aging, then an admission duel of the request against the LFU victim by
     post-aging estimate; LFU eviction semantics (a victim's count dies, an
-    insert restarts at 1)."""
+    insert restarts at 1). Under a byte budget "full" means x does not fit
+    as it is, and a won duel makes room with the bounded loop."""
     in_cache, count, freq, rows_sk, seen = (
         state[k] for k in ("in_cache", "count", "freq", "sketch", "seen"))
     table, btab = _tables(spec, in_cache.device)
@@ -262,7 +322,7 @@ def _tinylfu_step(spec, state, rows, x, cap, fill):
         bloom &= ~age[:, None]
 
     hit = in_cache[rows, x]
-    full = count >= cap
+    full = state["bytes"] + budget.size_x > budget.cap_b if budget is not None else count >= cap
     victim = _masked_argmin(freq, in_cache)
     est_x = sketch.rows_estimate(rows_sk, idx)
     est_v = sketch.rows_estimate(rows_sk, table[victim])
@@ -271,20 +331,96 @@ def _tinylfu_step(spec, state, rows, x, cap, fill):
         est_x = est_x + sketch.bloom_contains(bloom, bidx)
         est_v = est_v + sketch.bloom_contains(bloom, btab[victim])
     admit = est_x > est_v
-    insert = ~hit & (~full | admit) & fill
-    need_evict = ~hit & full & admit & fill
-    in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
-    freq[rows, victim] = torch.where(need_evict, 0, freq[rows, victim])
+    if budget is not None:
+        # an empty cache has no victim to duel: an over-budget object is rejected
+        want = ~hit & (~full | ((count > 0) & admit)) & fill
+        insert = budget.insert(state, rows, freq, want)
+    else:
+        insert = ~hit & (~full | admit) & fill
+        need_evict = ~hit & full & admit & fill
+        in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
+        freq[rows, victim] = torch.where(need_evict, 0, freq[rows, victim])
+        count += insert
+        count -= _i32(need_evict)
+        state["inserts"] += insert
     fx = freq[rows, x]
     freq[rows, x] = torch.where(hit, fx + 1, torch.where(insert, 1, fx))
     in_cache[rows, x] = in_cache[rows, x] | insert
-    count += insert
-    count -= _i32(need_evict)
-    state["inserts"] += insert
     return hit
 
 
-def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None):
+def _list_lru(stamp, lst, tags):
+    """Each sample's LRU of the list ``tags[sample]`` names (id 0 when empty)."""
+    return _masked_argmin(stamp, lst == tags[:, None])
+
+
+def _arc_step(state, rows, x, cap, fill):
+    """ARC case for case, as the reference's scan: list sizes are tag counts,
+    a list's LRU its least-stamped member (an empty list's argmin is id 0,
+    whose tag a write then follows). Ghost hits adapt ``p``; a cold miss
+    trims B1 (or hard-drops T1's LRU when B1 is empty) or B2 first; a filled
+    miss into a full cache demotes T1's or T2's LRU to its ghost list. An
+    unfilled ghost hit refreshes its stamp in place, an unfilled cold miss
+    parks in B1, unless that would need a resident eviction (``park_skip``).
+    The reference searches all four lists' LRUs every step; a sample needs
+    at most one trim and one demotion, so this searches the one list each
+    takes."""
+    lst, stamp, p, t = (state[k] for k in ("lst", "stamp", "p", "t"))
+    lx = lst[rows, x]
+    hit = (lx == T1) | (lx == T2)
+    g1, g2, cold = lx == B1, lx == B2, lx == 0
+    ghost = g1 | g2
+    counts = torch.zeros((lst.shape[0], B2 + 1), dtype=torch.int32, device=lst.device)
+    counts.scatter_add_(1, lst.long(), torch.ones_like(lst))
+    t1n, t2n, b1n, b2n = counts[:, 1:].unbind(dim=1)
+    total = t1n + t2n + b1n + b2n
+    # adaptation (ghost hits only, filled or not): a B1 hit grows the recency
+    # target p, a B2 hit shrinks it
+    d1 = (b2n // b1n.clamp(min=1)).clamp(min=1)
+    d2 = (b1n // b2n.clamp(min=1)).clamp(min=1)
+    p.copy_(torch.where(g1, (p + d1).clamp(max=cap), torch.where(g2, (p - d2).clamp(min=0), p)))
+    # `fill` is True (every miss inserts) or a bool tensor; the unfilled
+    # paths exist only for the latter
+    gated = fill is not True
+    case_a = cold & (t1n + b1n >= cap)
+    hard_t1 = case_a & (b1n == 0)
+    if gated:
+        park_skip = hard_t1 & ~fill
+        hard_t1 = hard_t1 & fill
+    gone_b1 = case_a & (b1n > 0)
+    gone_b2 = cold & ~case_a & (total >= 2 * cap) & (b2n > 0)
+    trimmed = _list_lru(stamp, lst, torch.where(gone_b1, B1, B2))
+    lst[rows, trimmed] = torch.where(gone_b1 | gone_b2, 0, lst[rows, trimmed])
+    need_evict = ~hit & ~hard_t1 & (t1n + t2n >= cap)
+    if gated:
+        need_evict = need_evict & fill
+    from_t1 = (t1n >= 1) & ((g2 & (t1n == p)) | (t1n > p) | (t2n == 0))
+    victim = _list_lru(stamp, lst, torch.where(hard_t1 | from_t1, T1, T2))
+    evict = need_evict | hard_t1
+    vdst = torch.where(hard_t1, 0, torch.where(from_t1, B1, B2)).to(torch.int32)
+    lst[rows, victim] = torch.where(evict, vdst, lst[rows, victim])
+    stamp[rows, victim] = torch.where(need_evict, t, stamp[rows, victim])
+    # any hit and every filled ghost hit land at T2's MRU, a filled cold miss
+    # at T1's; an unfilled ghost hit refreshes in place, an unfilled cold
+    # miss parks in B1, unless parking would need a resident eviction
+    if gated:
+        dst = torch.where(hit | (ghost & fill), T2, torch.where(cold & fill, T1, torch.where(ghost, lx, B1)))
+        lst[rows, x] = torch.where(park_skip, lst[rows, x], dst.to(torch.int32))
+        stamp[rows, x] = torch.where(park_skip, stamp[rows, x], t)
+    else:
+        lst[rows, x] = torch.where(hit | ghost, T2, T1).to(torch.int32)
+        stamp[rows, x] = t
+    # only the demoted id and x can change residency
+    in_cache = state["in_cache"]
+    for ids in (victim, x):
+        tag = lst[rows, ids]
+        in_cache[rows, ids] = (tag == T1) | (tag == T2)
+    state["count"].copy_(in_cache.sum(dim=1, dtype=torch.int32))
+    t += 1
+    return hit
+
+
+def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, sizes=None, cap_bytes=None):
     """One request per sample: ``x`` is ``(S,)`` ids, ``state`` batched.
     Updates ``state`` in place and returns ``(state, hit (S,) bool)``. The
     order of operations is the reference's.
@@ -292,49 +428,76 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None):
     ``cap`` overrides ``spec.capacity`` (a scalar or an ``(S,)`` tensor).
     ``fill`` gates insertion and the eviction that makes room for it (a bool
     or an ``(S,)`` bool tensor); an unfilled miss still updates the policy's
-    metadata (parked frequency, window, sketch), and lru still stamps it.
-    ``None`` inserts always. plfua_dyn's hot-set refresh is not a step: see
+    metadata (parked frequency, window, sketch, arc's ghost lists), and lru
+    still stamps it. ``None`` inserts always. ``sizes`` is the ``(N,)`` int32
+    size row shared by the samples (``None`` = unit sizes) and ``cap_bytes``
+    overrides ``spec.capacity_bytes``; both are consulted only when
+    ``spec.size_aware``. plfua_dyn's hot-set refresh is not a step: see
     :func:`refresh_hot`."""
-    _require_ported(spec)
     in_cache, count = state["in_cache"], state["count"]
-    rows = arange(in_cache.shape[0], in_cache.device)
-    x = x.to(device=in_cache.device, dtype=torch.long)
-    cap = spec.capacity if cap is None else torch.as_tensor(cap, device=count.device)
-    fill = True if fill is None else torch.as_tensor(fill, device=count.device)
+    dev = in_cache.device
+    rows = arange(in_cache.shape[0], dev)
+    x = x.to(device=dev, dtype=torch.long)
+    cap = spec.capacity if cap is None else torch.as_tensor(cap, device=dev)
+    fill = True if fill is None else torch.as_tensor(fill, device=dev)
+    if spec.kind == "arc":
+        return state, _arc_step(state, rows, x, cap, fill)
+    if spec.size_aware and sizes is not None:
+        sizes = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+    if spec.capacity_bytes:
+        cap_bytes = None if cap_bytes is None else torch.as_tensor(cap_bytes, device=dev)
+        budget = _Budget(spec, sizes, x, cap_bytes)
+    else:
+        budget = None
     if spec.kind == "wlfu":
-        return state, _wlfu_step(spec, state, rows, x, cap, fill)
+        return state, _wlfu_step(spec, state, rows, x, cap, fill, budget)
     if spec.kind == "tinylfu":
-        return state, _tinylfu_step(spec, state, rows, x, cap, fill)
+        return state, _tinylfu_step(spec, state, rows, x, cap, fill, budget)
 
+    # lru and the frequency family: lfu / plfu / plfua / plfua_dyn / gdsf
     hit = in_cache[rows, x]
-    key = state["last"] if spec.kind == "lru" else state["freq"]
     if spec.kind == "plfua_dyn":
         # the step only feeds the sketch; a dynamic hot set gates admission
         # only, so a cached object keeps hitting after it leaves the set
-        sketch.rows_add(state["sketch"], _tables(spec, in_cache.device)[0][x])
+        sketch.rows_add(state["sketch"], _tables(spec, dev)[0][x])
         admitted = state["hot"][rows, x] | hit
     elif spec.kind == "plfua":
         admitted = state["hot"][rows, x]
     else:
         admitted = True
     want = ~hit & admitted & fill
-    need_evict = want & (count >= cap)
-    victim = _masked_argmin(key, in_cache)
-    in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
-    if spec.kind == "lfu":
-        # in-memory LFU: eviction destroys the metadata -> restart from 1
-        key[rows, victim] = torch.where(need_evict, 0, key[rows, victim])
+    key = state["last"] if spec.kind == "lru" else state["score"] if spec.kind == "gdsf" else state["freq"]
+    credit = state.get("L")
+    if budget is not None:
+        insert = budget.insert(state, rows, key, want, credit)
+    else:
+        need_evict = want & (count >= cap)
+        victim = _masked_argmin(key, in_cache)
+        if spec.kind == "gdsf":
+            # the aging credit ratchets to the evicted victim's priority
+            credit.copy_(torch.where(need_evict, key[rows, victim], credit))
+        in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
+        if spec.kind == "lfu":
+            # in-memory LFU: eviction destroys the metadata -> restart from 1
+            key[rows, victim] = torch.where(need_evict, 0, key[rows, victim])
+        insert = want
+        count += want
+        count -= _i32(need_evict)
+        if spec.kind == "plfua_dyn":
+            state["inserts"] += want
     if spec.kind == "lru":
         key[rows, x] = state["t"]
         state["t"] += 1
     else:
-        # PLFU/PLFUA: freq[x] of a non-cached object *is* the parked entry
-        key[rows, x] += hit | admitted
-    in_cache[rows, x] = in_cache[rows, x] | want
-    count += want
-    count -= _i32(need_evict)
-    if spec.kind == "plfua_dyn":
-        state["inserts"] += want
+        # PLFU/PLFUA/GDSF: freq[x] of a non-cached object *is* the parked entry
+        freq = state["freq"]
+        freq[rows, x] += hit | admitted
+        if spec.kind == "gdsf":
+            # every request touches, so x re-prices under the post-eviction
+            # credit (int32: the shift and the floor division wrap and floor
+            # as the reference's)
+            key[rows, x] = credit + (freq[rows, x] << GDSF_SHIFT) // _sz(sizes, x)
+    in_cache[rows, x] = in_cache[rows, x] | insert
     return state, hit
 
 
@@ -353,25 +516,33 @@ def refresh_hot(spec: PolicySpec, state: dict) -> dict:
     return state
 
 
-def _check_options(spec, telemetry, sizes, groups):
-    _require_ported(spec)
+def _check_options(spec, telemetry, sizes, groups, device):
+    """Raise on what is not ported (telemetry); return the sizes row as an
+    int32 tensor on ``device`` when the spec consults it, else ``None``."""
     if telemetry is not None or groups is not None:
         raise not_ported("telemetry")
-    if sizes is not None:
-        raise not_ported("bytes")
+    if sizes is None or not spec.size_aware:
+        return None
+    sizes = torch.as_tensor(sizes, dtype=torch.int32, device=device)
+    if tuple(sizes.shape) != (spec.n_objects,):
+        raise ValueError(f"sizes must have shape ({spec.n_objects},), got {tuple(sizes.shape)}")
+    return sizes
 
 
-def simulate_batch(spec, traces, telemetry=None, sizes=None, groups=None, *, state=None, device=None):
+def simulate_batch(spec, traces, telemetry=None, sizes=None, groups=None, *, cap_bytes=None, state=None,
+                   device=None):
     """Run ``(S, T)`` traces from a zero state, or from a copy of ``state``
     (batched, e.g. from :func:`state_from_numpy`). Returns ``(hits (S, T)
-    bool, final state)``. ``telemetry``, ``sizes`` and ``groups`` must be
-    ``None``: they are not ported yet.
+    bool, final state)``. ``sizes`` is the ``(N,)`` size row shared by the
+    samples (``None`` = unit sizes; consulted when ``spec.size_aware``) and
+    ``cap_bytes`` overrides ``spec.capacity_bytes``. ``telemetry`` and
+    ``groups`` must be ``None``: they are not ported yet.
 
     plfua_dyn refreshes its hot set after every whole ``effective_refresh``
     requests of this run (the reference's ``_chunked_scan``); a partial
     tail period never refreshes."""
-    _check_options(spec, telemetry, sizes, groups)
     dev = resolve_device(device)
+    sizes = _check_options(spec, telemetry, sizes, groups, dev)
     traces = torch.as_tensor(traces, device=dev)
     if traces.ndim != 2:
         raise ValueError(f"traces must be (S, T), got shape {tuple(traces.shape)}")
@@ -383,21 +554,21 @@ def simulate_batch(spec, traces, telemetry=None, sizes=None, groups=None, *, sta
     refresh = spec.effective_refresh if spec.kind == "plfua_dyn" else 0
     hits = torch.zeros((s, t), dtype=torch.bool, device=dev)
     for i in range(t):
-        state, hit = step(spec, state, traces[:, i])
+        state, hit = step(spec, state, traces[:, i], sizes=sizes, cap_bytes=cap_bytes)
         hits[:, i] = hit
         if refresh and (i + 1) % refresh == 0:
             refresh_hot(spec, state)
     return hits, state
 
 
-def simulate(spec, trace, telemetry=None, sizes=None, groups=None, *, state=None, device=None):
+def simulate(spec, trace, telemetry=None, sizes=None, groups=None, *, cap_bytes=None, state=None, device=None):
     """Run one ``(T,)`` trace. Returns ``(hits (T,) bool, final state)`` with
     the reference's unbatched shapes; ``state`` (unbatched) continues a run."""
-    _check_options(spec, telemetry, sizes, groups)
     trace = torch.as_tensor(trace)
     if state is not None:
         state = {k: v.unsqueeze(0) for k, v in state.items()}
-    hits, state = simulate_batch(spec, trace[None], state=state, device=device)
+    hits, state = simulate_batch(spec, trace[None], telemetry, sizes, groups, cap_bytes=cap_bytes, state=state,
+                                 device=device)
     return hits[0], {k: v[0] for k, v in state.items()}
 
 
@@ -409,11 +580,13 @@ def metadata_entries(spec: PolicySpec, state: dict) -> torch.Tensor:
     """Live metadata entries: cached entries, plus parked ones for the
     frequency family (lfu parks only under the fill gate; its eviction still
     zeroes the victim), plus the sketch's counters for the sketch kinds
-    (and tinylfu's doorkeeper bits); wlfu counts its window's distinct ids."""
-    _require_ported(spec)
+    (and tinylfu's doorkeeper bits); wlfu counts its window's distinct ids,
+    arc its whole directory (residents and ghosts)."""
     count = state["count"]
     if spec.kind == "lru":
         return count
+    if spec.kind == "arc":
+        return (state["lst"] != 0).sum(dim=-1)
     if spec.kind == "wlfu":
         return (state["freq"] > 0).sum(dim=-1) + count
     sketch_size = sketch.DEPTH * spec.effective_sketch_width if spec.kind in SKETCH_KINDS else 0
@@ -426,10 +599,9 @@ def metadata_entries(spec: PolicySpec, state: dict) -> torch.Tensor:
 def eviction_count(spec: PolicySpec, hits, trace, state) -> int:
     """Total evictions implied by one :func:`simulate` run (host-side): every
     admitted miss inserts, so evictions = inserts - final occupancy. The
-    sketch kinds carry the insert count in their state."""
-    _require_ported(spec)
+    sketch kinds and byte-mode runs carry the insert count in their state."""
     count = int(state["count"])
-    if spec.kind in SKETCH_KINDS:
+    if spec.kind in SKETCH_KINDS or spec.capacity_bytes:
         return int(state["inserts"]) - count
     hits = torch.as_tensor(hits).cpu().numpy()
     if spec.kind == "plfua":

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 NVCC_FLAGS = (
@@ -35,6 +36,8 @@ class Library:
 
 
 _LOADED: dict[Path, Library] = {}
+_LOCK = threading.Lock()
+_BUILDING: dict[Path, threading.Lock] = {}
 
 
 def _nvcc() -> str:
@@ -46,14 +49,22 @@ def _nvcc() -> str:
 
 def build(name: str, sources) -> Library:
     """Compile ``sources`` (unless a library of the same hash exists) and load
-    it. Safe to call from several threads at once for different names, so
-    that several libraries build in parallel."""
+    it. Safe to call from several threads at once, so that several libraries
+    build in parallel; a second call for a library being built waits for
+    it."""
     sources = [Path(s) for s in sources]
     headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
     digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
     for src in [*sources, *headers]:
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+    with _LOCK:
+        lock = _BUILDING.setdefault(path, threading.Lock())
+    with lock:
+        return _build_locked(name, sources, path)
+
+
+def _build_locked(name: str, sources: list[Path], path: Path) -> Library:
     if path in _LOADED:
         return _LOADED[path]
     log = path.with_suffix(".log")

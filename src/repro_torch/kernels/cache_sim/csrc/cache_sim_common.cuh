@@ -1,6 +1,8 @@
 // Device helpers shared by the cache_sim programs (cache_sim.cu, wlfu.cu, tinylfu.cu,
-// plfua_dyn.cu): the block-wide lexicographic argmin that picks a victim, block-wide sums,
-// and the count-min sketch's lowbias32 hashing.
+// plfua_dyn.cu, sized.cu, arc.cu): the block-wide lexicographic argmin that picks a victim
+// (over the cached ids, or over any set of ids a mask names), byte mode's bounded
+// multi-victim loop, block-wide sums, int32 arithmetic that wraps as the reference's, and
+// the count-min sketch's lowbias32 hashing.
 //
 // Every program runs one thread block per sample with blockDim.x a multiple of 32, and
 // calls these helpers from all threads of the block (each holds __syncthreads()).
@@ -32,16 +34,30 @@ __device__ __forceinline__ void warp_min(int& key, int& id) {
   }
 }
 
-// argmin of where(in_cache, key, INT_MAX) with ties to the lowest id: a non-cached id
-// competes as (INT_MAX, id), so an empty cache gives id 0, as the reference's argmin does.
-// The result is valid in thread 0 only. Every thread's reads of key and in_cache happen
-// before the block barrier inside, so thread 0 may write them once this returns.
-__device__ int block_argmin(const int* key, const unsigned char* in_cache, int n,
-                            int* s_key, int* s_id) {
+// The mask of the cached ids (in_cache[i] != 0), and the mask of the ids whose tag is
+// `tag` (arc's lists: lst[i] == tag).
+struct CachedMask {
+  const unsigned char* in_cache;
+  __device__ __forceinline__ bool operator()(int i) const { return in_cache[i] != 0; }
+};
+
+struct TagMask {
+  const unsigned char* lst;
+  unsigned char tag;
+  __device__ __forceinline__ bool operator()(int i) const { return lst[i] == tag; }
+};
+
+// argmin of where(in_set, key, INT_MAX) with ties to the lowest id: an id outside the set
+// competes as (INT_MAX, id), so an empty set gives id 0, as the reference's argmin does.
+// The result is valid in thread 0 only. Every thread's reads of key and of the mask's
+// bytes happen before the block barrier inside, so thread 0 may write them once this
+// returns.
+template <class Mask>
+__device__ int block_argmin_of(const int* key, Mask in_set, int n, int* s_key, int* s_id) {
   int best_k = INT_MAX;
   int best_i = INT_MAX;  // above every real id, so any real candidate replaces it
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int k = in_cache[i] ? key[i] : INT_MAX;
+    const int k = in_set(i) ? key[i] : INT_MAX;
     if (precedes(k, i, best_k, best_i)) {
       best_k = k;
       best_i = i;
@@ -62,6 +78,70 @@ __device__ int block_argmin(const int* key, const unsigned char* in_cache, int n
     warp_min(best_k, best_i);
   }
   return best_i;
+}
+
+// The victim among the cached ids.
+__device__ __forceinline__ int block_argmin(const int* key, const unsigned char* in_cache, int n,
+                                            int* s_key, int* s_id) {
+  return block_argmin_of(key, CachedMask{in_cache}, n, s_key, s_id);
+}
+
+// ------------------------------------------------------- int32 as the reference wraps it
+// jnp int32 arithmetic wraps; signed overflow is undefined in C++, so these go through
+// uint32_t, whose arithmetic wraps, and back.
+
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int wrap_shl(int a, int bits) {
+  return static_cast<int>(static_cast<uint32_t>(a) << bits);
+}
+
+// a // b rounded toward minus infinity (jnp's and torch's int floor division), for b > 0.
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// ------------------------------------------------------------ byte mode's victim loop
+// The reference's `_evict_bytes_loop` (its kernel's `evict_body`): evict the argmin of `key`
+// over the cached ids until an object of `size_x` bytes fits in `cap_bytes`, the cache is
+// empty, or `max_victims` victims are gone. `want_fits` (thread 0's) is "x wants in and is
+// no larger than the whole budget": an object larger than the budget evicts nothing.
+// Thread 0 owns `count`, `nbytes` and `credit`. With `destroy` (lfu) a victim's key is
+// zeroed; with `ratchet` (gdsf) the credit takes each victim's key.
+//
+// Each iteration starts with one __syncthreads_or(need): it hands every thread thread 0's
+// decision and orders thread 0's writes for the previous victim (in_cache, the zeroed key)
+// before the next argmin's reads. `need` can only turn from true to false (nbytes and
+// count only fall), so the loop stops at the first iteration without a victim: the
+// reference's remaining iterations change nothing. Called by every thread; returns the
+// number of victims.
+__device__ __forceinline__ int evict_bytes(int* key, unsigned char* in_cache, const int* sizes,
+                                           int n, bool want_fits, int size_x, int cap_bytes,
+                                           int max_victims, bool destroy, bool ratchet,
+                                           int& count, int& nbytes, int& credit, int* s_key,
+                                           int* s_id) {
+  int victims = 0;
+  for (; victims < max_victims; ++victims) {
+    const bool need = __syncthreads_or(threadIdx.x == 0 && want_fits &&
+                                       wrap_add(nbytes, size_x) > cap_bytes && count > 0) != 0;
+    if (!need) break;
+    const int v = block_argmin(key, in_cache, n, s_key, s_id);
+    if (threadIdx.x == 0) {
+      if (ratchet) credit = key[v];
+      in_cache[v] = 0;
+      if (destroy) key[v] = 0;
+      --count;
+      nbytes = wrap_sub(nbytes, sizes[v]);
+    }
+  }
+  return victims;
 }
 
 // Sum (max when `take_max`) of one int per thread, returned to every thread. `s_part`

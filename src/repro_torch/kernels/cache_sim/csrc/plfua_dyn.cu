@@ -8,12 +8,16 @@
 //   `hot[x] | hit`: an admitted miss inserts (evicting the least-freq cached id, ties to
 //   the lowest id, when full), and hits and admitted misses bump freq[x], which for a
 //   non-cached id is its parked count.
+// * Under a byte budget (a second entry point, `plfua_dyn_bytes_launch`) an admitted miss
+//   evicts least-freq cached ids until it fits, the cache is empty or `max_victims` victims
+//   are gone, and inserts only if it fits (the loop `evict_bytes` shared with sized.cu).
 // * After every whole `refresh` requests (at step (c+1)*refresh - 1; a partial tail
 //   period never refreshes) the hot set becomes the top `hot_k` ids by sketch estimate,
 //   estimate descending and ties to the lowest id, and the sketch halves.
 //
 // Design (one block per sample; thread 0 owns the step's scalars and writes; one
-// __syncthreads_or a step hands out whether an eviction is needed):
+// __syncthreads_or a step hands out whether an eviction is needed, one per victim-loop
+// iteration in byte mode):
 // * Bucket indices are lowbias32 of the id in uint32_t, computed where needed: no tables.
 // * State in device buffers: freq and in_cache (the zeroed outputs), the sketch rows
 //   (zeroed, 4 x width int32), the hot mask (one byte an id, set to the prefix
@@ -80,10 +84,12 @@ __device__ void refresh_hot(int* rows, int width, unsigned char* hot, int* est, 
   __syncthreads();
 }
 
+template <bool kBytes>
 __global__ void __launch_bounds__(kMaxThreads)
-plfua_dyn_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int capacity,
-                 int hot_k, int refresh, int width, int* __restrict__ hits,
-                 int* __restrict__ inserts, int* freq_all, unsigned char* cache_all,
+plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, int trace_len,
+                 int n_objects, int capacity, int hot_k, int refresh, int width, int cap_bytes,
+                 int max_victims, int* __restrict__ hits, int* __restrict__ inserts,
+                 long long* __restrict__ hit_bytes, int* freq_all, unsigned char* cache_all,
                  int* rows_all, unsigned char* hot_all, int* est_all) {
   __shared__ int s_key[kMaxThreads / kWarp];
   __shared__ int s_id[kMaxThreads / kWarp];
@@ -100,6 +106,8 @@ plfua_dyn_kernel(const int* __restrict__ traces, int trace_len, int n_objects, i
   __syncthreads();
 
   int count = 0;  // thread 0's
+  int nbytes = 0;  // thread 0's, as the bytes that hit (byte mode)
+  long long n_hit_bytes = 0;
   int n_hits = 0;
   int n_inserts = 0;
   int since = 0;  // every thread's: requests since the last refresh
@@ -115,21 +123,40 @@ plfua_dyn_kernel(const int* __restrict__ traces, int trace_len, int n_objects, i
       admitted = hit || hot[x] != 0;
     }
     const bool want = !hit && admitted;
-    const bool need_evict = __syncthreads_or(threadIdx.x == 0 && want && count >= capacity) != 0;
-    int victim = 0;
-    if (need_evict) victim = block_argmin(freq, in_cache, n_objects, s_key, s_id);
-    if (threadIdx.x == 0) {
-      if (need_evict) {
-        in_cache[victim] = 0;
-        --count;
+    if (kBytes) {
+      const int size_x = threadIdx.x == 0 ? sizes[x] : 0;
+      int no_credit = 0;
+      evict_bytes(freq, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x,
+                  cap_bytes, max_victims, false, false, count, nbytes, no_credit, s_key, s_id);
+      if (threadIdx.x == 0) {
+        if (admitted) freq[x] += 1;  // a hit or an admitted miss; parked counts persist
+        if (want && wrap_add(nbytes, size_x) <= cap_bytes) {
+          nbytes = wrap_add(nbytes, size_x);
+          in_cache[x] = 1;
+          ++count;
+          ++n_inserts;
+        }
+        n_hits += static_cast<int>(hit);
+        if (hit) n_hit_bytes += size_x;
       }
-      if (admitted) freq[x] += 1;  // a hit or an admitted miss; parked counts persist
-      if (want) {
-        in_cache[x] = 1;
-        ++count;
-        ++n_inserts;
+    } else {
+      const bool need_evict =
+          __syncthreads_or(threadIdx.x == 0 && want && count >= capacity) != 0;
+      int victim = 0;
+      if (need_evict) victim = block_argmin(freq, in_cache, n_objects, s_key, s_id);
+      if (threadIdx.x == 0) {
+        if (need_evict) {
+          in_cache[victim] = 0;
+          --count;
+        }
+        if (admitted) freq[x] += 1;  // a hit or an admitted miss; parked counts persist
+        if (want) {
+          in_cache[x] = 1;
+          ++count;
+          ++n_inserts;
+        }
+        n_hits += static_cast<int>(hit);
       }
-      n_hits += static_cast<int>(hit);
     }
     if (++since == refresh) {
       since = 0;
@@ -140,6 +167,7 @@ plfua_dyn_kernel(const int* __restrict__ traces, int trace_len, int n_objects, i
   if (threadIdx.x == 0) {
     hits[s] = n_hits;
     inserts[s] = n_inserts;
+    if (kBytes) hit_bytes[s] = n_hit_bytes;
   }
 }
 
@@ -154,9 +182,28 @@ extern "C" int plfua_dyn_launch(const int* traces, int* hits, int* inserts, int*
                                 int hot_k, int refresh, int width, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  plfua_dyn_kernel<<<n_samples, block_threads(n_objects), 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      traces, trace_len, n_objects, capacity, hot_k, refresh, width, hits, inserts, freq,
-      in_cache, rows, hot, est);
+  plfua_dyn_kernel<false><<<n_samples, block_threads(n_objects), 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      traces, nullptr, trace_len, n_objects, capacity, hot_k, refresh, width, 0, 0, hits,
+      inserts, nullptr, freq, in_cache, rows, hot, est);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The byte-budget variant: `sizes` is the (n_objects,) int32 size row (every size >= 1),
+// cap_bytes > 0 the budget, max_victims >= 1 the victim bound, `hit_bytes` (n_samples,)
+// int64 the bytes of the requests that hit; the rest as above.
+extern "C" int plfua_dyn_bytes_launch(const int* traces, const int* sizes, int* hits,
+                                      int* inserts, long long* hit_bytes, int* freq,
+                                      unsigned char* in_cache, int* rows,
+                                      unsigned char* hot, int* est, int n_samples, int trace_len,
+                                      int n_objects, int capacity, int hot_k, int refresh,
+                                      int width, int cap_bytes, int max_victims, int device,
+                                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plfua_dyn_kernel<true><<<n_samples, block_threads(n_objects), 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      traces, sizes, trace_len, n_objects, capacity, hot_k, refresh, width, cap_bytes,
+      max_victims, hits, inserts, hit_bytes, freq, in_cache, rows, hot, est);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core import registry
 from repro_torch.core.torch_cache import not_ported
-from repro_torch.kernels.cache_sim.cache_sim import KERNEL_KINDS, cache_sim_cuda, cache_sim_plain
+from repro_torch.kernels.cache_sim.cache_sim import cache_sim_cuda, cache_sim_plain
 
 _ALL_KINDS = registry.names(pallas=True)
 
@@ -40,17 +40,24 @@ def cache_sim(
     and tinylfu's aging window, ``refresh`` and ``hot_size`` plfua_dyn's,
     ``sketch_width`` the sketch kinds', ``doorkeeper`` tinylfu's; 0 takes the
     reference's default, and a kind ignores the options that are not its own.
-    Kinds and options not ported yet raise ``NotImplementedError``.
+    ``capacity_bytes`` > 0 sets a byte budget over ``sizes`` (an ``(N,)``
+    int32 row shared by the samples; ``None`` = unit sizes), with at most
+    ``max_victims`` evictions an insertion; as in the reference kernel, wlfu,
+    tinylfu and arc under a byte budget raise ``ValueError``, and kinds that
+    are not size-aware ignore ``sizes``. Telemetry (``telemetry_window``,
+    ``n_groups``, ``groups``) is not ported yet and raises
+    ``NotImplementedError``.
     """
-    return cache_sim_with_inserts(
+    outs = cache_sim_outputs(
         traces, kind=kind, n_objects=n_objects, capacity=capacity, hot_size=hot_size, window=window,
         refresh=refresh, sketch_width=sketch_width, doorkeeper=doorkeeper,
         telemetry_window=telemetry_window, capacity_bytes=capacity_bytes, max_victims=max_victims,
         sizes=sizes, n_groups=n_groups, groups=groups, device=device,
-    )[:3]
+    )
+    return outs["hits"], outs["freq"], outs["in_cache"]
 
 
-def cache_sim_with_inserts(
+def cache_sim_outputs(
     traces,
     *,
     kind: str,
@@ -68,15 +75,14 @@ def cache_sim_with_inserts(
     n_groups: int = 0,
     groups=None,
     device=None,
-):
-    """:func:`cache_sim` plus each sample's insert count: ``(hits, freq,
-    in_cache, inserts (S,) int32)``. The grid harness needs it, since the
-    admission kinds insert on data-dependent decisions (evictions = inserts -
-    final occupancy)."""
+) -> dict:
+    """:func:`cache_sim`'s outputs by name: ``hits``, ``freq``, ``in_cache``,
+    ``inserts``, a size-aware run's ``hit_bytes`` and arc's ``dir_size`` (see
+    :mod:`repro_torch.kernels.cache_sim.cache_sim`), the same keys on the
+    card and on the CPU. The grid harness reads evictions, byte hits and
+    arc's directory from them."""
     if kind not in _ALL_KINDS:
         raise ValueError(f"kind={kind!r} not in {_ALL_KINDS}")
-    if kind not in KERNEL_KINDS:
-        raise not_ported(kind)
     if doorkeeper < 0:
         raise ValueError(f"doorkeeper must be >= 0, got {doorkeeper}")
     if doorkeeper and kind != "tinylfu":
@@ -87,18 +93,13 @@ def cache_sim_with_inserts(
         raise ValueError(f"n_groups must be >= 0, got {n_groups}")
     if telemetry_window or n_groups or groups is not None:
         raise not_ported("telemetry")
-    if capacity_bytes < 0:
-        raise ValueError(f"capacity_bytes must be >= 0, got {capacity_bytes}")
-    if max_victims < 0:
-        raise ValueError(f"max_victims must be >= 0, got {max_victims}")
-    if max_victims and not capacity_bytes:
-        raise ValueError("max_victims is a byte-capacity (capacity_bytes) option")
-    if capacity_bytes or sizes is not None:
-        raise not_ported("bytes")
     dev = resolve_device(device)
     traces = torch.as_tensor(traces, dtype=torch.int32, device=dev).contiguous()
     run = cache_sim_cuda if traces.is_cuda else cache_sim_plain
-    return run(
+    outs = run(
         traces, kind=kind, n_objects=n_objects, capacity=capacity, hot_size=hot_size, window=window,
-        refresh=refresh, sketch_width=sketch_width, doorkeeper=doorkeeper,
+        refresh=refresh, sketch_width=sketch_width, doorkeeper=doorkeeper, capacity_bytes=capacity_bytes,
+        max_victims=max_victims, sizes=sizes,
     )
+    outs.pop("argmins", None)  # arc's search count: the kernel's own diagnostic, not part of the contract
+    return outs

@@ -3,9 +3,11 @@
 ``torch_cache`` with ``device="cpu"`` must equal ``jax_cache`` exactly on the
 hit series and on every state entry (in_cache, count, freq or lru's last/t,
 the hot mask, wlfu's ring and ptr, the sketch rows, inserts, tinylfu's seen
-and doorkeeper bloom), for the seven ported kinds, and through the fill gate,
-a traced capacity and a state handed over mid-trace. Everything compared is
-an integer or a bool, so the tolerance is exact.
+and doorkeeper bloom, gdsf's score and credit, arc's lst/stamp/p/t), for all
+nine kinds, and through the fill gate (arc's park and skip paths included), a
+traced capacity and a state handed over mid-trace. Byte mode has its own file,
+tests/test_torch_bytes.py. Everything compared is an integer or a bool, so the
+tolerance is exact.
 """
 import jax
 import jax.numpy as jnp
@@ -13,11 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro import workloads
 from repro.core import jax_cache, policies
 from repro.core import zipf as ref_zipf
 from repro_torch.core import torch_cache
 
-KINDS = ("lru", "lfu", "plfu", "plfua", "wlfu", "tinylfu", "plfua_dyn")
+KINDS = ("lru", "lfu", "plfu", "plfua", "wlfu", "tinylfu", "plfua_dyn", "gdsf", "arc")
 # small windows, refresh periods and sketches, so that the ring wraps, the
 # sketch ages and the hot set refreshes within the short traces below (the
 # mid-trace handover at 333 = 3 x 111 falls on a refresh boundary)
@@ -55,6 +58,15 @@ SWEEP = [
     ("tinylfu", 64, 9, 2, 500, dict(window=60, sketch_width=64, doorkeeper=128)),
     ("tinylfu", 40, 5, 2, 300, dict(window=1, sketch_width=33, doorkeeper=1)),
     ("wlfu", 40, 5, 2, 300, dict(window=1)),
+    # gdsf (unit sizes) and arc over the same shapes: cap = 1, cap == N, N crossing 128
+    ("gdsf", 64, 9, 3, 400, {}),
+    ("gdsf", 130, 3, 2, 500, {}),
+    ("gdsf", 16, 1, 2, 300, {}),
+    ("arc", 64, 9, 3, 400, {}),
+    ("arc", 130, 3, 2, 500, {}),
+    ("arc", 16, 1, 2, 300, {}),
+    ("arc", 128, 128, 2, 300, {}),
+    ("arc", 200, 50, 2, 600, {}),
 ]
 
 
@@ -203,8 +215,8 @@ def test_masked_argmin_ties_to_lowest_id():
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
 
 
-# gdsf and arc are not ported; wlfu, tinylfu and plfua_dyn are, but not
-# under a byte budget (ids keep the kinds' names)
+# wlfu, tinylfu and plfua_dyn under a byte budget, gdsf and arc: ported, so
+# each runs as the reference, and only an unported option (telemetry) raises
 @pytest.mark.parametrize(
     "kind,spec_kw",
     [
@@ -217,10 +229,15 @@ def test_masked_argmin_ties_to_lowest_id():
 )
 def test_unported_kinds_raise(kind, spec_kw):
     spec = torch_cache.PolicySpec(kind=kind, n_objects=16, capacity=4, window=4, **spec_kw)
+    ref_spec = jax_cache.PolicySpec(kind=kind, n_objects=16, capacity=4, window=4, **spec_kw)
+    trace = _traces(16, 1, 200, seed=12)[0]
+    sizes = np.random.default_rng(6).integers(1, 20, 16).astype(np.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_cache.init_state(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_cache.simulate(spec, np.zeros(8, np.int32), device="cpu")
+        torch_cache.simulate(spec, trace, telemetry=object(), device="cpu")
+    hits, state = torch_cache.simulate(spec, trace, sizes=sizes, device="cpu")
+    ref_hits, ref_state = jax_cache.simulate(ref_spec, jnp.asarray(trace), None, jnp.asarray(sizes))
+    np.testing.assert_array_equal(hits.numpy(), np.asarray(ref_hits))
+    _assert_state_equal(state, ref_state)
 
 
 @pytest.mark.parametrize(
@@ -233,9 +250,59 @@ def test_unported_kinds_raise(kind, spec_kw):
     ],
 )
 def test_unported_options_raise(spec_kw, call_kw):
+    """Telemetry and its groups raise; a byte budget and a sizes row (which
+    plfu, not size-aware, ignores) run as the reference."""
     spec = torch_cache.PolicySpec(kind="plfu", n_objects=16, capacity=4, **spec_kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_cache.simulate_batch(spec, np.zeros((1, 8), np.int32), device="cpu", **call_kw)
+    traces = _traces(16, 2, 100, seed=8)
+    if "telemetry" in call_kw or "groups" in call_kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            torch_cache.simulate_batch(spec, traces, device="cpu", **call_kw)
+        return
+    hits, _ = torch_cache.simulate_batch(spec, traces, device="cpu", **call_kw)
+    ref_spec = jax_cache.PolicySpec(kind="plfu", n_objects=16, capacity=4, **spec_kw)
+    ref = jax_cache.simulate_batch(ref_spec, jnp.asarray(traces), None, call_kw.get("sizes"))
+    np.testing.assert_array_equal(hits.numpy(), np.asarray(ref))
+
+
+def test_gdsf_sized_matches_jax_and_python_reference():
+    """gdsf's score under a heavy-tailed size row, object-count capacity:
+    state against the scan, hits and contents against the Python policy."""
+    n, cap = 64, 8
+    sizes = workloads.object_sizes(n, dist="pareto", corr=0.5, seed=3, median=8, max_size=64)
+    trace = _traces(n, 1, 800, seed=41)[0]
+    port_spec, ref_spec = _specs("gdsf", n, cap)
+    hits, state = torch_cache.simulate(port_spec, trace, sizes=sizes, device="cpu")
+    ref_hits, ref_state = jax_cache.simulate(ref_spec, jnp.asarray(trace), None, jnp.asarray(sizes))
+    np.testing.assert_array_equal(hits.numpy(), np.asarray(ref_hits))
+    _assert_state_equal(state, ref_state)
+    pol = policies.make_policy("gdsf", cap, n_objects=n, sizes=sizes)
+    np.testing.assert_array_equal(hits.numpy(), [pol.request(int(x)) for x in trace])
+    np.testing.assert_array_equal(state["in_cache"].numpy(), [pol.contains(i) for i in range(n)])
+
+
+def test_gdsf_int32_score_wraps_as_the_reference():
+    """A frequency whose ``<< 8`` overflows int32, and a credit near the top
+    of the range, wrap and floor exactly as jnp's int32 (a handed-over state
+    puts them there)."""
+    n, cap = 8, 2
+    port_spec, ref_spec = _specs("gdsf", n, cap)
+    sizes = np.array([3, 7, 1, 5, 2, 9, 4, 6], np.int32)
+    mid = {k: np.asarray(v) for k, v in jax_cache.init_state(ref_spec).items()}
+    mid["freq"] = np.array([2**23 + 5, 2**24 - 1, 7, 2**30, 0, 0, 0, 0], np.int32)
+    mid["L"] = np.int32(2**31 - 100)
+    trace = np.array([0, 1, 3, 2, 0, 4, 5, 1, 6, 7, 3, 0], np.int32)
+    hits, state = torch_cache.simulate(
+        port_spec, trace, sizes=sizes, state=torch_cache.state_from_numpy(port_spec, mid, device="cpu"),
+        device="cpu")
+    ref_state = {k: jnp.asarray(v) for k, v in mid.items()}
+    ref_hits = []
+    for x in trace:
+        ref_state, hit = jax_cache.step(ref_spec, ref_state, jnp.int32(x), sizes=jnp.asarray(sizes))
+        ref_hits.append(bool(hit))
+    np.testing.assert_array_equal(hits.numpy(), ref_hits)
+    _assert_state_equal(state, ref_state)
+    # id 3 was repriced twice from a count whose << 8 leaves the int32 range
+    assert int(state["freq"][3]) == 2**30 + 2
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

@@ -2,8 +2,9 @@
 
 On the CPU ``ops.cache_sim(..., device="cpu")`` runs the plain PyTorch version;
 it must equal the reference Pallas kernel in interpret mode exactly (hits,
-freq/stamps, in_cache: all integers), for the seven ported kinds, tinylfu's
-doorkeeper and plfua_dyn's refresh boundary included. On the card the ``cuda``-marked test
+freq/stamps, in_cache: all integers), for all nine kinds, tinylfu's
+doorkeeper, plfua_dyn's refresh boundary and arc's stamps included (byte mode
+is in tests/test_torch_bytes.py). On the card the ``cuda``-marked test
 holds the CUDA kernel to the plain version and to the reference on the same
 rows; it skips elsewhere, deciding inside a fixture. tests/test_torch_cuda.py
 has the card's other tests.
@@ -18,6 +19,7 @@ import torch
 
 from repro.core import jax_cache
 from repro.core import zipf as ref_zipf
+from repro.kernels.cache_sim import cache_sim as ref_cache_sim
 from repro.kernels.cache_sim import ops as ref_ops
 from repro_torch.kernels.cache_sim import cache_sim as port_kernel
 from repro_torch.kernels.cache_sim import ops
@@ -50,6 +52,12 @@ SWEEP = [
     ("tinylfu", 64, 9, 2, 500, dict(window=60, sketch_width=64, doorkeeper=128)),
     # a custom hot set larger than the default, with refreshes
     ("plfua_dyn", 64, 5, 2, 400, dict(refresh=45, sketch_width=64, hot_size=30)),
+    # gdsf (unit sizes) and arc (stamps in freq, ghosts included)
+    ("gdsf", 64, 9, 3, 400, {}),
+    ("gdsf", 130, 3, 2, 500, {}),
+    ("arc", 64, 9, 3, 400, {}),
+    ("arc", 130, 3, 2, 500, {}),
+    ("arc", 16, 1, 2, 300, {}),
 ]
 
 
@@ -100,16 +108,17 @@ def test_doorkeeper_changes_decisions():
 
 
 def test_inserts_match_the_reference_simulator():
-    """``cache_sim_with_inserts``'s fourth output is ``jax_cache``'s
-    ``state["inserts"]`` for the sketch kinds and the derived count for the
-    others."""
+    """``cache_sim_outputs``'s ``inserts`` is ``jax_cache``'s
+    ``state["inserts"]`` for the sketch kinds and byte mode, and the derived
+    count for the others."""
     n, cap = 64, 9
     traces = _traces(n, 2, 400)
     for kind, kw in (("lfu", {}), ("plfua", {}), ("wlfu", dict(window=20)),
                      ("tinylfu", dict(window=50, sketch_width=64, doorkeeper=64)),
-                     ("plfua_dyn", dict(refresh=60, sketch_width=64))):
-        *_, inserts = ops.cache_sim_with_inserts(traces, kind=kind, n_objects=n, capacity=cap,
-                                                 device="cpu", **kw)
+                     ("plfua_dyn", dict(refresh=60, sketch_width=64)), ("gdsf", {}), ("arc", {}),
+                     ("lfu", dict(capacity_bytes=5)), ("plfua_dyn", dict(refresh=60, capacity_bytes=7))):
+        inserts = ops.cache_sim_outputs(traces, kind=kind, n_objects=n, capacity=cap, device="cpu",
+                                        **kw)["inserts"]
         spec = jax_cache.PolicySpec(kind=kind, n_objects=n, capacity=cap, **kw)
         for i in range(2):
             hits, state = jax_cache.simulate(spec, jnp.asarray(traces[i]))
@@ -131,7 +140,8 @@ def test_uniform_trace_matches_reference_kernel():
 @pytest.mark.parametrize(
     "kind,kw",
     [
-        # the admission kinds run, but not with telemetry or under a byte budget
+        # telemetry raises; byte budgets, gdsf and arc run as the reference
+        # kernel, and a kind that is not size-aware ignores a sizes row
         ("wlfu", dict(window=8, sizes=np.ones(32, np.int32))),
         ("tinylfu", dict(telemetry_window=8)),
         ("plfua_dyn", dict(capacity_bytes=64)),
@@ -144,9 +154,15 @@ def test_uniform_trace_matches_reference_kernel():
     ],
 )
 def test_unported_kinds_and_options_raise(kind, kw):
-    traces = np.zeros((1, 16), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.cache_sim(traces, kind=kind, n_objects=32, capacity=4, device="cpu", **kw)
+    traces = _traces(32, 2, 120, seed=3)
+    if "telemetry_window" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ops.cache_sim(traces, kind=kind, n_objects=32, capacity=4, device="cpu", **kw)
+        return
+    ref = ref_ops.cache_sim(traces, kind=kind, n_objects=32, capacity=4, interpret=True, **kw)
+    port = ops.cache_sim(traces, kind=kind, n_objects=32, capacity=4, device="cpu", **kw)
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize(
@@ -162,6 +178,14 @@ def test_unported_kinds_and_options_raise(kind, kw):
         (dict(kind="plfua_dyn", doorkeeper=64), "doorkeeper"),
         (dict(kind="tinylfu", sketch_width=-1), "sketch_width"),
         (dict(kind="plfua_dyn", refresh=-1), "refresh"),
+        # the reference kernel runs no byte budget for wlfu, tinylfu and arc
+        (dict(kind="wlfu", window=8, capacity_bytes=64), "byte-capacity mode is not supported"),
+        (dict(kind="tinylfu", capacity_bytes=64), "byte-capacity mode is not supported"),
+        (dict(kind="arc", capacity_bytes=64), "byte-capacity mode is not supported"),
+        (dict(kind="gdsf", sizes=np.ones(31, np.int32)), r"sizes must have shape \(32,\)"),
+        (dict(kind="lfu", capacity_bytes=64, sizes=np.ones((2, 32), np.int32)), "sizes must have shape"),
+        (dict(kind="gdsf", sizes=np.zeros(32, np.int32)), "sizes must be >= 1"),
+        (dict(kind="lfu", capacity_bytes=64, max_victims=-1), "max_victims"),
     ],
 )
 def test_bad_options_raise_value_error(kw, match):
@@ -205,6 +229,7 @@ def test_kernel_matches_plain_on_card(cuda_device, kind, n, cap, s, t, kw):
     torch.cuda.synchronize()
     assert port_kernel.LAUNCHES[program] == before + 1
     want = port_kernel.cache_sim_plain(traces, kind=kind, n_objects=n, capacity=cap, **kw)
+    want = [want[k] for k in ("hits", "freq", "in_cache")]
     ref = ref_ops.cache_sim(traces_np, kind=kind, n_objects=n, capacity=cap, interpret=True, **kw)
     for a, b, r in zip(got, want, ref):
         assert a.is_cuda and a.dtype == b.dtype
@@ -225,5 +250,7 @@ def test_program_entry_matches_its_c_signature(program):
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
     assert all("*" in p or p.startswith("int ") for p in params), params
     assert list(prog.argtypes) == want
-    assert set(port_kernel.PROGRAM_OF.values()) == set(port_kernel.PROGRAMS)
+    programs = set(port_kernel.PROGRAM_OF.values()) | set(port_kernel.BYTES_PROGRAM_OF.values())
+    assert programs == set(port_kernel.PROGRAMS)
     assert set(port_kernel.PROGRAM_OF) == set(port_kernel.KERNEL_KINDS)
+    assert set(port_kernel.BYTES_PROGRAM_OF) == set(ref_cache_sim.BYTE_CAPABLE_KINDS)

@@ -33,7 +33,8 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/cache_sim/ops.py" in names
-    assert len(names) >= 15
+    assert "src/repro_torch/workloads/generators.py" in names
+    assert len(names) >= 17
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
