@@ -43,6 +43,9 @@ each (or one line per item):
              their stationary base (N = 6,000, cap = 300, 8 x 50,000, seed 33,
              6 sweeps of 6 %): each CHR and the scan cost; arc must beat lru
              and lfu on scan, as the JAX reference does at this setting.
+   profile — ``telemetry.timing.measure`` over plfua's grid row with
+             ``profile_dir``: the device's idle share between launches, from the
+             ``torch.profiler`` trace and from CUDA events.
 6. measure — each program at N = 100,000, cap = 2,000, S = 12, T = 100,000
              (``cache_sim`` through lfu, ``cache_sim/sized`` through gdsf and
              both byte programs under the byte budget of 2,000 objects of mean
@@ -50,8 +53,24 @@ each (or one line per item):
              plain version's time once at T = 20,000 (the kernel is held to it
              there), and the least time the card could take (bound: the bytes
              moved, or the operations the function needs, see ``bound``).
-7. kernels — one JSON line, an entry per program, with the trace lengths
-             of the kernel's time (``T``) and the plain version's (``plain_T``).
+7. telemetry — each program's two telemetry instances (``+telemetry`` and
+             ``+telemetry_grouped``, W = T // 16, 4 tenant groups): checks,
+             exact against the plain version, ungrouped on Zipf and grouped on
+             ``multi_tenant`` traces, at (10,000, 200) with T = 10,000 (plain
+             in the CPU workers, started with phase 3), at (100,000, 2,000) with
+             T = 5,000 (plain on the card), and W = 1 and W > T at (130, 3),
+             T = 2,010 (a partial plfua_dyn period); then the telemetry path at
+             the measured case (T = 100,000) through ``ops.cache_sim_outputs``,
+             with the launch counts set to 0 just before and read just after:
+             primary outputs equal the instance without telemetry's, the hits
+             column sums to the hit count, requests equal the window sizes, and
+             the grouped series summed over the groups equals the ungrouped;
+             then, on the multi_tenant traces, each instance's time between
+             two telemetry-off times (in turns: off, ungrouped, grouped, off)
+             and its ratio to their mean (on/off).
+8. kernels — one JSON line, an entry per kernel instance, with the trace
+             lengths of the kernel's time (``T``) and the plain version's
+             (``plain_T``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before it; without a card the script exits 1 and prints no result.
@@ -76,6 +95,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch._device import card_info  # noqa: E402
 from repro_torch.core import simulate, sketch, zipf  # noqa: E402
 from repro_torch.kernels.cache_sim import cache_sim as kernel  # noqa: E402
+from repro_torch.kernels.cache_sim import ops  # noqa: E402
+from repro_torch.telemetry import spec as telemetry_spec  # noqa: E402
 from repro_torch.telemetry import timing  # noqa: E402
 from repro_torch.workloads import generators  # noqa: E402
 
@@ -127,6 +148,20 @@ INT32_LANES_PER_SM = 64
 #: the row options of the grid: the byte-capacity catalogue, and its budget
 SIZED = dict(sizing="sized")
 BUDGET = dict(sizing="budget")
+#: telemetry: W = T // 16 (the reference's telemetry bench), 4 tenant groups on multi_tenant traces
+TEL_WINDOWS, TEL_GROUPS = 16, 4
+#: (N, cap, T) of the telemetry checks: the small one's plain runs in the CPU workers, the large
+#: one's on the card; both cut from T = 20,000 to stay in the script's time
+TEL_CHECK_CASES = ((10_000, 200, 10_000), (100_000, 2_000, 5_000))
+#: (N, cap, T, options): the window edges W = 1 and W > T, T not a multiple of plfua_dyn's refresh
+TEL_EDGE_CASE = (130, 3, 2_010, dict(window=33, refresh=50, sketch_width=96, hot_size=7))
+#: what each telemetry instance replaces: tel_update, and plfua_dyn's refresh/churn rows
+TEL_REPLACES = {program: f"{TPU_KERNEL}:238" for program in MEASURED}
+TEL_REPLACES.update({"cache_sim/plfua_dyn": f"{TPU_KERNEL}:688", "cache_sim/plfua_dyn_bytes": f"{TPU_KERNEL}:688"})
+#: the options of a call that are not PolicySpec fields
+CALL_OPTIONS = ("sizes", "telemetry_window", "n_groups", "groups")
+#: the grid row profiled for the device's idle share
+PROFILED_ROW = "plfua"
 
 
 def require(ok: bool, what: str) -> None:
@@ -213,9 +248,10 @@ class Checks:
 
     def __init__(self, pool, seed: int):
         self.pool, self.seed = pool, seed
-        self.worst = dict.fromkeys(kernel.PROGRAMS, 0)
+        self.worst = dict.fromkeys(kernel.INSTANCES, 0)
         self.pending = []
         self.count = 0
+        self.plain_ms = {}  # instance -> (ms, T) of its last plain run on the card
 
     def run(self, label: str, kind: str, n: int, cap: int, trace_len: int, traces=None, sizes_dist=None,
             budget: bool = False, **kw) -> dict:
@@ -229,8 +265,9 @@ class Checks:
             if budget:
                 kw["capacity_bytes"] = simulate.bytes_budget(sizes, cap)
         kw.update(kind=kind, n_objects=n, capacity=cap)
-        spec = kernel.spec_of(**{k: v for k, v in kw.items() if k != "sizes"})
-        program = kernel.program_of(kind, spec.capacity_bytes)
+        spec = kernel.spec_of(**{k: v for k, v in kw.items() if k not in CALL_OPTIONS})
+        program = kernel.instance_of(kernel.program_of(kind, spec.capacity_bytes), kw.get("telemetry_window", 0),
+                                     kw.get("n_groups", 0))
         got = kernel.cache_sim_cuda(torch.as_tensor(traces, device="cuda"), **kw)
         torch.cuda.synchronize()
         got = {k: v.cpu() for k, v in got.items()}
@@ -239,14 +276,18 @@ class Checks:
                 f"inserts={int(got['inserts'].sum())}")
         if "argmins" in got:
             line += f" dir_size={got['dir_size'].tolist()} argmins={int(got['argmins'].sum())}"
+        if "series" in got:
+            line += (f" telemetry_window={kw['telemetry_window']} n_groups={kw.get('n_groups', 0)} "
+                     f"series_shape={list(got['series'].shape)}")
         what = f"{label} {program} N={n} cap={cap} T={trace_len} {option_text(spec, sizes_dist)}"
         self.count += 1
         if n <= CPU_PLAIN_MAX_N:
             future = self.pool.submit(cpu_plain, traces, kw)
             self.pending.append((future, got, program, line + " plain=cpu", what, t1))
         else:
-            want = kernel.cache_sim_plain(torch.as_tensor(traces, device="cuda"), **kw)
-            self.compare(got, want, program, line + " plain=card", what, t1)
+            want, ms = cuda_ms(lambda: kernel.cache_sim_plain(torch.as_tensor(traces, device="cuda"), **kw))
+            self.plain_ms[program] = (ms, trace_len)
+            self.compare(got, want, program, line + f" plain=card plain_ms={ms}", what, t1)
         return got
 
     def compare(self, got, want, program, line, what, t1) -> None:
@@ -264,6 +305,42 @@ class Checks:
 
 def same_outputs(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in kernel.OUTPUTS)
+
+
+def tel_kinds() -> dict:
+    """Each program's kind in the telemetry phase (the measured one) with
+    its sizes: the byte programs under the lognormal budget, gdsf's object-
+    count program over the lognormal catalogue."""
+    return {program: (kind, dict(sizes_dist="lognormal", budget=True) if with_budget else
+                      dict(sizes_dist="lognormal") if kind == "gdsf" else {})
+            for program, (kind, with_budget) in MEASURED.items()}
+
+
+def run_telemetry_checks(checks: Checks, seed: int) -> None:
+    """Each program's telemetry instances against the plain version: ungrouped
+    on Zipf traces, grouped on multi_tenant traces of 4 tenants; at the small
+    case also byte mode's multi-victim evictions per group (lru under the
+    pareto budget, 2 victims at most) and gdsf's object-count program; and the
+    window edges W = 1 (grouped) and W > T."""
+    for n, cap, trace_len in TEL_CHECK_CASES:
+        w = trace_len // TEL_WINDOWS
+        grouped = dict(traces=generators.multi_tenant(n, SAMPLES, trace_len, seed=seed, n_tenants=TEL_GROUPS),
+                       telemetry_window=w, n_groups=TEL_GROUPS, groups=generators.tenant_groups(n, TEL_GROUPS))
+        for kind, extra in tel_kinds().values():
+            extra = {**grid_options(kind), **extra}
+            checks.run(f"{kind} telemetry", kind, n, cap, trace_len, telemetry_window=w, **extra)
+            checks.run(f"{kind} telemetry grouped", kind, n, cap, trace_len, **grouped, **extra)
+        if n <= CPU_PLAIN_MAX_N:
+            checks.run("lru+bytes telemetry grouped", "lru", n, cap, trace_len, sizes_dist="pareto", budget=True,
+                       max_victims=2, **grouped)
+            checks.run("gdsf telemetry grouped", "gdsf", n, cap, trace_len, **grouped)
+    n, cap, trace_len, explicit = TEL_EDGE_CASE
+    tenants = generators.multi_tenant(n, SAMPLES, trace_len, seed=seed, n_tenants=TEL_GROUPS)
+    for kind, extra in tel_kinds().values():
+        extra = {**explicit, **extra}
+        checks.run(f"{kind} telemetry W=1", kind, n, cap, trace_len, traces=tenants, telemetry_window=1,
+                   n_groups=TEL_GROUPS, groups=generators.tenant_groups(n, TEL_GROUPS), **extra)
+        checks.run(f"{kind} telemetry W>T", kind, n, cap, trace_len, telemetry_window=trace_len + 7, **extra)
 
 
 def run_checks(checks: Checks, seed: int) -> None:
@@ -311,11 +388,12 @@ def run_checks(checks: Checks, seed: int) -> None:
 
 
 # ------------------------------------------------------------------------ bound
-def bound(program: str, got: dict, spec, card, sms: int, n_sizes: int) -> dict:
+def bound(program: str, got: dict, spec, card, sms: int, n_sizes: int, n_groups_row: int = 0) -> dict:
     """The least time the card could take for the measured call: the larger of
     its bytes (inputs read once, outputs written once) over the HBM rate and
     the operations the function needs, counted from this run's outputs, over
-    the INT32 peak.
+    the INT32 peak. A telemetry instance's series is one of its outputs and
+    its group row (``n_groups_row`` ints) one of its inputs.
 
     The function's need, not the kernel's algorithm: a request costs a hit
     test and an update (2); lru's and arc's lists are recency lists whose LRU
@@ -333,7 +411,8 @@ def bound(program: str, got: dict, spec, card, sms: int, n_sizes: int) -> dict:
     n_hits = int(hits.sum())
     occupancy = int(in_cache.sum())
     evictions = int(inserts.sum()) - occupancy
-    n_bytes = requests * 4 + n_sizes * 4 + sum(a.numel() * a.element_size() for a in got.values())
+    n_bytes = (requests * 4 + (n_sizes + n_groups_row) * 4
+               + sum(a.numel() * a.element_size() for a in got.values()))
     width = spec.effective_sketch_width
     log_n = math.ceil(math.log2(n))
     heap_ops = n_hits + int(inserts.sum()) + evictions  # re-price, push, pop
@@ -370,6 +449,128 @@ def bound(program: str, got: dict, spec, card, sms: int, n_sizes: int) -> dict:
     return dict(bytes=n_bytes, operations=operations, int32_peak_ops_per_s=int32_peak, bytes_ms=bytes_ms,
                 operations_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by, scan_operations=scan_operations,
                 scan_operations_ms=scan_operations / int32_peak * 1e3, **counted)
+
+
+def profile_row(seed: int, card) -> None:
+    """``measure`` over one grid row (PROFILED_ROW's 60 cases) with a
+    ``torch.profiler`` trace: the device's idle share between the first
+    kernel's start and the last one's end, from the trace's kernels, and from
+    CUDA events (1 - the cases' device seconds over the timed call's)."""
+    t0 = time.perf_counter()
+    paper = zipf.paper_grid()
+    rows = []
+    tm = timing.measure(lambda: rows.append(simulate.run_grid(PROFILED_ROW, paper, seed=seed)),
+                        steps=len(paper) * zipf.PAPER_NUM_SAMPLES * zipf.PAPER_TRACE_LEN, repeats=1,
+                        profile_dir=Path(__file__).resolve().parent / "build" / "profile")
+    device_s = sum(r.device_s for r in rows[2])  # the timed call's cases
+    trace = tm.trace
+    require(trace is not None and trace.path.exists(), "the profiled call wrote no trace")
+    print(f"[profile {PROFILED_ROW}] cases={len(paper)} trace={trace.path} trace_kernels={trace.kernels} "
+          f"trace_busy_s={trace.busy_s} trace_span_s={trace.span_s} trace_idle_share={trace.idle_share} "
+          f"row_s={tm.execute_s} cases_device_s={device_s} events_idle_share={1 - device_s / tm.execute_s} "
+          f"card={card.label!r} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+
+def run_telemetry(traces, offs: dict, checks: Checks, card, sms: int, seed: int) -> list[dict]:
+    """The telemetry path at the measured case: each program's ungrouped
+    instance on the Zipf traces (``offs``: the measure phase's outputs
+    without telemetry on them) and on multi_tenant traces, and its grouped
+    instance on the latter, through ``ops.cache_sim_outputs``, with every
+    launch count set to 0 just before and read just after; the identities
+    the series must keep; then each instance's time on the multi_tenant
+    traces between two telemetry-off times. Returns the ``kernels`` line's
+    entries."""
+    n, cap, trace_len = MEASURE_N, MEASURE_CAP, MEASURE_LEN
+    w = trace_len // TEL_WINDOWS
+    tenants = torch.as_tensor(generators.multi_tenant(n, SAMPLES, trace_len, seed=seed, n_tenants=TEL_GROUPS),
+                              device="cuda")
+    groups = torch.as_tensor(generators.tenant_groups(n, TEL_GROUPS), device="cuda")
+    sizes = simulate.bytes_catalogue(n)
+    calls = {}
+    for program, (kind, with_budget) in MEASURED.items():
+        kw = dict(kind=kind, n_objects=n, capacity=cap, **grid_options(kind))
+        if with_budget:
+            kw.update(capacity_bytes=simulate.bytes_budget(sizes, cap))
+        if kernel.spec_of(**kw).size_aware:
+            kw["sizes"] = sizes
+        calls[program] = kw
+    flat = dict(telemetry_window=w)
+    grouped = dict(telemetry_window=w, n_groups=TEL_GROUPS, groups=groups)
+
+    t0 = time.perf_counter()
+    for instance in kernel.LAUNCHES:
+        kernel.LAUNCHES[instance] = 0
+    runs = {}
+    for program, kw in calls.items():
+        runs[program] = (ops.cache_sim_outputs(traces, **kw, **flat),
+                         ops.cache_sim_outputs(tenants, **kw, **flat),
+                         ops.cache_sim_outputs(tenants, **kw, **grouped))
+    torch.cuda.synchronize()
+    launches = dict(kernel.LAUNCHES)
+    want = {instance: 0 for instance in kernel.LAUNCHES}
+    for program in calls:
+        want[kernel.instance_of(program, w)] = 2
+        want[kernel.instance_of(program, w, TEL_GROUPS)] = 1
+    require(launches == want, f"the telemetry path launched {launches}, expected {want}")
+    print(f"[telemetry] path launches={json.dumps({k: v for k, v in launches.items() if v})} "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    entries = []
+    window_sizes = telemetry_spec.window_sizes(trace_len, w, device="cuda")
+    for program, kw in calls.items():
+        t1 = time.perf_counter()
+        zipf_flat, tenant_flat, tenant_grouped = runs[program]
+        tenant_off = kernel.cache_sim_cuda(tenants, **kw)
+        # the series is observational: the primary outputs are the instance's without telemetry
+        require(same_outputs(zipf_flat, offs[program]), f"{program}: telemetry changed the primary outputs")
+        require(same_outputs(tenant_flat, tenant_off) and same_outputs(tenant_grouped, tenant_off),
+                f"{program}: telemetry changed the primary outputs on multi_tenant traces")
+        for run in (zipf_flat, tenant_flat):
+            series = run["series"]
+            require(tuple(series.shape) == (SAMPLES, len(window_sizes), telemetry_spec.N_METRICS),
+                    f"{program}: series shape {tuple(series.shape)}")
+            require(torch.equal(series[..., 1].sum(dim=1), run["hits"].long()), f"{program}: hits column != hits")
+            require(bool((series[..., 0] == window_sizes).all()), f"{program}: requests != window sizes")
+        summed = tenant_grouped["series"].sum(dim=2, dtype=torch.int32)
+        require(torch.equal(summed, tenant_flat["series"]), f"{program}: grouped series summed over G != ungrouped")
+        occupancy = tenant_grouped["series"][:, -1, :, telemetry_spec.METRIC_INDEX["occupancy"]]
+        require(torch.equal(occupancy.sum(dim=1), tenant_off["in_cache"].sum(dim=1, dtype=torch.int32)),
+                f"{program}: the last window's occupancy != the final residents")
+
+        def timed(trace_set, **tel):
+            tm = timing.measure(kernel.cache_sim_cuda, trace_set, steps=trace_set.numel(), repeats=2, **kw, **tel)
+            return tm.execute_s * 1e3, tm.mean_execute_s * 1e3
+
+        spec = kernel.spec_of(**{k: v for k, v in kw.items() if k not in CALL_OPTIONS})
+        # in turns on the same traces: off, ungrouped, grouped, off; on/off is against the offs' mean
+        off_first, _ = timed(tenants)
+        timings = {"flat": timed(tenants, **flat), "grouped": timed(tenants, **grouped)}
+        off_last, _ = timed(tenants)
+        ref_ms = (off_first + off_last) / 2
+        # arc's search count (for its bound) is the kernel's diagnostic, which ops drops: the
+        # instance without telemetry made the same searches
+        searches = {"argmins": tenant_off["argmins"]} if "argmins" in tenant_off else {}
+        line = (f"[telemetry {program}] kind={kw['kind']} N={n} cap={cap} S={SAMPLES} T={trace_len} W={w} "
+                f"groups={TEL_GROUPS} traces=multi_tenant off_ms={off_first} off_ms_after={off_last}")
+        for instance, layout, run, n_groups_row in (
+                (kernel.instance_of(program, w), "flat", tenant_flat, 0),
+                (kernel.instance_of(program, w, TEL_GROUPS), "grouped", tenant_grouped, n)):
+            ms, mean_ms = timings[layout]
+            b = bound(program, {**run, **searches}, spec, card, sms, n if spec.size_aware else 0, n_groups_row)
+            plain_ms, plain_t = checks.plain_ms[instance]
+            line += (f" | {instance}: ms={ms} mean_ms={mean_ms} on_off={ms / ref_ms} bound_ms={b['bound_ms']} "
+                     f"bound_by={b['bound_by']} bytes={b['bytes']} plain_ms={plain_ms} plain_T={plain_t} "
+                     f"launches={launches[instance]}")
+            entries.append({
+                "name": instance, "route": "cuda",
+                "source": f"{SOURCE_DIR}/{kernel.PROGRAMS[program].source.name}",
+                "replaces": TEL_REPLACES[program], "launches": launches[instance],
+                "max_abs_err": checks.worst[instance], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+                "T": trace_len, "plain_T": plain_t,
+            })
+        print(line + f" card={card.label!r} elapsed_s={time.perf_counter() - t1:.3f}", flush=True)
+    return entries
 
 
 def ptxas_report(lib) -> list[str]:
@@ -424,6 +625,7 @@ def main() -> int:
         t0 = time.perf_counter()
         checks = Checks(pool, seed)
         run_checks(checks, seed)
+        run_telemetry_checks(checks, seed)
         print(f"[check] card phase done: {checks.count} checks, {len(checks.pending)} plain runs "
               f"still in CPU workers elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
 
@@ -437,7 +639,7 @@ def main() -> int:
         rows += [(f"{kind}+bytes", kind, BUDGET, "bytes", n100k) for kind in BYTE_KINDS if kind != "gdsf"]
         references = {label: pool.submit(cpu_grid_case, kind, opts, seed)
                       for label, kind, _, opts, cases in rows if cases is paper}
-        expected = dict.fromkeys(kernel.PROGRAMS, 0)
+        expected = dict.fromkeys(kernel.LAUNCHES, 0)
         n_requests = len(paper) * zipf.PAPER_NUM_SAMPLES * zipf.PAPER_TRACE_LEN
         grid = {}
         for program in kernel.LAUNCHES:
@@ -517,11 +719,14 @@ def main() -> int:
     print(f"[scan] N={SCAN_N} cap={SCAN_CAP} S={SCAN_SAMPLES} T={SCAN_LEN} seed={SCAN_SEED} "
           f"sweeps={json.dumps(SCAN_KW)} arc_gt_lru_and_lfu=True elapsed_s={time.perf_counter() - t0:.3f}")
 
+    # profile: the device's idle share between the launches of one grid row
+    profile_row(seed, card)
+
     # 6. measure
     traces = torch.as_tensor(zipf.sample_traces(MEASURE_N, SAMPLES, MEASURE_LEN, seed=seed), device="cuda")
     short = traces[:, :PLAIN_MEASURE_LEN].contiguous()
     sizes = simulate.bytes_catalogue(MEASURE_N)
-    entries = []
+    entries, offs = [], {}
     for program, (kind, with_budget) in MEASURED.items():
         t0 = time.perf_counter()
         kw = dict(kind=kind, n_objects=MEASURE_N, capacity=MEASURE_CAP, **grid_options(kind))
@@ -531,6 +736,7 @@ def main() -> int:
         spec = kernel.spec_of(**{k: v for k, v in kw.items() if k != "sizes"})
         tm = timing.measure(kernel.cache_sim_cuda, traces, steps=traces.numel(), repeats=5, warmup=1, **kw)
         got = kernel.cache_sim_cuda(traces, **kw)
+        offs[program] = got
         want, plain_ms = cuda_ms(lambda: kernel.cache_sim_plain(short, **kw))
         err = max_abs_err(kernel.cache_sim_cuda(short, **kw), want)
         require(err == 0, f"kernel != plain version at the measured case of {program} (T={PLAIN_MEASURE_LEN})")
@@ -551,7 +757,10 @@ def main() -> int:
             "T": MEASURE_LEN, "plain_T": PLAIN_MEASURE_LEN,
         })
 
-    # 7. kernels
+    # 7. telemetry: the telemetry path at the measured case, counted
+    entries += run_telemetry(traces, offs, checks, card, sms, seed)
+
+    # 8. kernels
     print(json.dumps({"kernels": entries}))
     print(f"[total] elapsed_s={time.perf_counter() - t_start:.3f}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

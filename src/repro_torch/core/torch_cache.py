@@ -15,8 +15,10 @@ tensors in place (the reference is pure); :func:`simulate` and
 The port covers every kind of the reference simulator: ``lru``, ``lfu``,
 ``plfu``, ``plfua``, ``wlfu``, ``tinylfu`` (with or without the doorkeeper),
 ``plfua_dyn``, ``gdsf`` and ``arc``, in object-count mode and (all but arc)
-under a byte budget over per-object ``sizes``. Telemetry raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+under a byte budget over per-object ``sizes``, with the reference's windowed
+telemetry (:class:`repro_torch.telemetry.TelemetrySpec`), ungrouped or per
+tenant group: each step's events (:func:`_step_events`) are bucketed into the
+11-metric series by :func:`telemetry_series`.
 
 plfua_dyn refreshes its hot set every ``effective_refresh`` requests counted
 from the start of the run (the reference's global-time cadence); a run
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch._device import arange, resolve_device
 from repro_torch.core import registry, sketch
+from repro_torch.telemetry import spec as telemetry_spec
 
 _I32_MAX = torch.iinfo(torch.int32).max
 
@@ -43,19 +46,10 @@ PORTED_KINDS = SPEC_KINDS
 #: kinds that carry count-min sketch rows (and an ``inserts`` counter)
 SKETCH_KINDS = registry.names(sketch=True)
 
-#: where each missing piece sits in ROADMAP.md
-_ROADMAP = {"telemetry": "ROADMAP.md module 4 (telemetry)"}
 #: GDSF's fixed-point scale, registry.GDSF_SHIFT
 GDSF_SHIFT = registry.GDSF_SHIFT
 #: arc's list tags in ``lst``: 0 = untracked
 T1, T2, B1, B2 = 1, 2, 3, 4
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for an option this slice does not cover."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: see {_ROADMAP[what]}"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -517,32 +511,119 @@ def refresh_hot(spec: PolicySpec, state: dict) -> dict:
 
 
 def _check_options(spec, telemetry, sizes, groups, device):
-    """Raise on what is not ported (telemetry); return the sizes row as an
-    int32 tensor on ``device`` when the spec consults it, else ``None``."""
-    if telemetry is not None or groups is not None:
-        raise not_ported("telemetry")
-    if sizes is None or not spec.size_aware:
-        return None
-    sizes = torch.as_tensor(sizes, dtype=torch.int32, device=device)
-    if tuple(sizes.shape) != (spec.n_objects,):
-        raise ValueError(f"sizes must have shape ({spec.n_objects},), got {tuple(sizes.shape)}")
-    return sizes
+    """The sizes row the steps consult (a size-aware spec's) and the one
+    telemetry's byte columns read (any run handed ``sizes``, as the
+    reference's), int32 on ``device``, and the ``(N,)`` group row of a
+    grouped run; each ``None`` when unused. Raises on a wrong shape."""
+    if telemetry is not None and not isinstance(telemetry, telemetry_spec.TelemetrySpec):
+        raise TypeError(f"telemetry must be a TelemetrySpec or None, got {type(telemetry).__name__}")
+
+    def row(name, values):
+        values = torch.as_tensor(values, dtype=torch.int32, device=device)
+        if tuple(values.shape) != (spec.n_objects,):
+            raise ValueError(f"{name} must have shape ({spec.n_objects},), got {tuple(values.shape)}")
+        return values
+
+    if sizes is not None and (spec.size_aware or telemetry is not None):
+        sizes = row("sizes", sizes)
+    step_sizes = sizes if spec.size_aware else None
+    tel_sizes = sizes if telemetry is not None else None
+    if telemetry is None or not telemetry.n_groups:
+        return step_sizes, tel_sizes, None
+    if groups is None:
+        raise ValueError("telemetry.n_groups > 0 requires a groups catalogue")
+    return step_sizes, tel_sizes, row("groups", groups)
+
+
+def _group_index(groups: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """The ``(N,)`` scatter index of a group row: ids outside ``[0, G)`` go
+    to a spare column ``G`` that is dropped, so they count in no group (the
+    reference's all-zero one-hot rows)."""
+    g = groups.long()
+    return torch.where((g >= 0) & (g < n_groups), g, n_groups)
+
+
+def _group_counts(mask: torch.Tensor, gidx: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """``(S, N)`` bool -> ``(S, G)`` int32: the members of each group."""
+    out = torch.zeros((mask.shape[0], n_groups + 1), dtype=torch.int32, device=mask.device)
+    out.scatter_add_(1, gidx.expand(mask.shape[0], -1), mask.to(torch.int32))
+    return out[:, :n_groups]
+
+
+def _step_events(spec: PolicySpec, before: dict, state: dict, hit, x, rows, gidx=None, n_groups=0) -> dict:
+    """The telemetry events of one applied step, from what the state held
+    before it (``before``: the count, and in a grouped run ``in_cache``) and
+    after it. A fill is a miss whose object ended up cached; the eviction
+    count is the occupancy delta plus the fill (a byte-budget step can evict
+    several victims for one insert); tinylfu's aging event is the ``seen``
+    reset. A grouped run (``gidx``, see :func:`_group_index`) also counts
+    each group's victims (the ids that left the cache: an insert only adds
+    x, so they are exactly the victims) and each group's members."""
+    in_cache = state["in_cache"]
+    fill = ~hit & in_cache[rows, x]
+    ev = {"fill": fill, "evict": before["count"] - state["count"] + fill, "count": state["count"]}
+    if gidx is not None:
+        ev["evict_g"] = _group_counts(before["in_cache"] & ~in_cache, gidx, n_groups)
+        ev["count_g"] = _group_counts(in_cache, gidx, n_groups)
+    if spec.kind == "tinylfu":
+        ev["aging"] = state["seen"] == 0
+    return ev
+
+
+def telemetry_series(spec: PolicySpec, telemetry, trace_len: int, hits, events: dict, groups_t=None,
+                     chunk_len=None) -> torch.Tensor:
+    """Bucket a run's events (``(S, T)`` per step, plfua_dyn's ``fired``/
+    ``churn`` per refresh period) into ``(S, n_windows, N_METRICS)`` int32,
+    or ``(S, n_windows, n_groups, N_METRICS)`` when ``telemetry.n_groups >
+    0`` (``groups_t``: each position's group, required then). Every position
+    is a request and every miss a fill offer (a flat cache). ``chunk_len``
+    defaults to plfua_dyn's refresh period."""
+    if chunk_len is None:
+        chunk_len = spec.effective_refresh if spec.kind == "plfua_dyn" else None
+    common = dict(hits=hits, fills=events["fill"], aging=events.get("aging"), fired=events.get("fired"),
+                  hit_bytes=events.get("hit_bytes"), miss_bytes=events.get("miss_bytes"), chunk_len=chunk_len)
+    if telemetry.n_groups:
+        if groups_t is None:
+            raise ValueError("telemetry.n_groups > 0 requires a groups catalogue")
+        return telemetry_spec.grouped_series_from_run(
+            telemetry.window, trace_len, telemetry.n_groups, groups_t, evictions_g=events["evict_g"],
+            occupancy_g=events["count_g"], churn_g=events.get("churn_g"), **common)
+    return telemetry_spec.series_from_run(
+        telemetry.window, trace_len, evictions=events["evict"], occupancy=events["count"],
+        churn=events.get("churn"), **common)
+
+
+def group_scatter_arrays(telemetry, groups, traces):
+    """(the group row's scatter index, each position's group ``(S, T)``) of
+    a grouped run, or ``(None, None)`` when grouping is off. Raises if
+    ``n_groups > 0`` but no catalogue was passed: a silent all-zero series
+    would be worse."""
+    if telemetry is None or not telemetry.n_groups:
+        return None, None
+    if groups is None:
+        raise ValueError("telemetry.n_groups > 0 requires a groups catalogue")
+    g = torch.as_tensor(groups, dtype=torch.int32, device=traces.device)
+    return _group_index(g, telemetry.n_groups), g[traces.long()]
 
 
 def simulate_batch(spec, traces, telemetry=None, sizes=None, groups=None, *, cap_bytes=None, state=None,
                    device=None):
     """Run ``(S, T)`` traces from a zero state, or from a copy of ``state``
     (batched, e.g. from :func:`state_from_numpy`). Returns ``(hits (S, T)
-    bool, final state)``. ``sizes`` is the ``(N,)`` size row shared by the
-    samples (``None`` = unit sizes; consulted when ``spec.size_aware``) and
-    ``cap_bytes`` overrides ``spec.capacity_bytes``. ``telemetry`` and
-    ``groups`` must be ``None``: they are not ported yet.
+    bool, final state)``, and with a :class:`TelemetrySpec` ``telemetry``
+    ``(hits, final state, series)``: the series is ``(S, n_windows,
+    N_METRICS)`` int32, or ``(S, n_windows, n_groups, N_METRICS)`` with
+    ``telemetry.n_groups > 0`` and an ``(N,)`` ``groups`` catalogue (ignored
+    otherwise). ``sizes`` is the ``(N,)`` size row shared by the samples
+    (``None`` = unit sizes): the steps consult it when ``spec.size_aware``,
+    and telemetry's byte columns read it whenever it is given, as the
+    reference's. ``cap_bytes`` overrides ``spec.capacity_bytes``.
 
     plfua_dyn refreshes its hot set after every whole ``effective_refresh``
     requests of this run (the reference's ``_chunked_scan``); a partial
     tail period never refreshes."""
     dev = resolve_device(device)
-    sizes = _check_options(spec, telemetry, sizes, groups, dev)
+    sizes, tel_sizes, groups = _check_options(spec, telemetry, sizes, groups, dev)
     traces = torch.as_tensor(traces, device=dev)
     if traces.ndim != 2:
         raise ValueError(f"traces must be (S, T), got shape {tuple(traces.shape)}")
@@ -553,23 +634,63 @@ def simulate_batch(spec, traces, telemetry=None, sizes=None, groups=None, *, cap
         state = {k: v.to(dev).clone() for k, v in state.items()}
     refresh = spec.effective_refresh if spec.kind == "plfua_dyn" else 0
     hits = torch.zeros((s, t), dtype=torch.bool, device=dev)
+    instrument = telemetry is not None
+    if instrument:
+        gidx, groups_t = group_scatter_arrays(telemetry, groups, traces)
+        n_groups = telemetry.n_groups
+        rows = arange(s, dev)
+        events = {}
+        if refresh:
+            n_chunks = -(-t // refresh)
+            events.update(fired=torch.zeros((s, n_chunks), dtype=torch.bool, device=dev),
+                          churn=torch.zeros((s, n_chunks), dtype=torch.int32, device=dev))
+            if gidx is not None:
+                events["churn_g"] = torch.zeros((s, n_chunks, n_groups), dtype=torch.int32, device=dev)
     for i in range(t):
+        if instrument:
+            before = {"count": state["count"].clone()}
+            if gidx is not None:
+                before["in_cache"] = state["in_cache"].clone()
         state, hit = step(spec, state, traces[:, i], sizes=sizes, cap_bytes=cap_bytes)
         hits[:, i] = hit
+        if instrument:
+            x = traces[:, i].long()
+            for k, v in _step_events(spec, before, state, hit, x, rows, gidx, n_groups).items():
+                if k not in events:
+                    events[k] = torch.empty((s, t) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
+                events[k][:, i] = v
         if refresh and (i + 1) % refresh == 0:
+            old_hot = state["hot"].clone() if instrument else None
             refresh_hot(spec, state)
-    return hits, state
+            if instrument:
+                # churn is the hot-mask difference, counted before the old mask is gone
+                c = (i + 1) // refresh - 1
+                diff = old_hot != state["hot"]
+                events["fired"][:, c] = True
+                events["churn"][:, c] = diff.sum(dim=1, dtype=torch.int32)
+                if gidx is not None:
+                    events["churn_g"][:, c] = _group_counts(diff, gidx, n_groups)
+    if not instrument:
+        return hits, state
+    if tel_sizes is not None:
+        sz = tel_sizes[traces.long()]
+        events["hit_bytes"] = torch.where(hits, sz, 0)
+        events["miss_bytes"] = torch.where(hits, 0, sz)
+    return hits, state, telemetry_series(spec, telemetry, t, hits, events, groups_t=groups_t)
 
 
 def simulate(spec, trace, telemetry=None, sizes=None, groups=None, *, cap_bytes=None, state=None, device=None):
     """Run one ``(T,)`` trace. Returns ``(hits (T,) bool, final state)`` with
-    the reference's unbatched shapes; ``state`` (unbatched) continues a run."""
+    the reference's unbatched shapes, and with ``telemetry`` ``(hits, final
+    state, series (n_windows[, n_groups], N_METRICS))``; ``state``
+    (unbatched) continues a run."""
     trace = torch.as_tensor(trace)
     if state is not None:
         state = {k: v.unsqueeze(0) for k, v in state.items()}
-    hits, state = simulate_batch(spec, trace[None], telemetry, sizes, groups, cap_bytes=cap_bytes, state=state,
-                                 device=device)
-    return hits[0], {k: v[0] for k, v in state.items()}
+    out = simulate_batch(spec, trace[None], telemetry, sizes, groups, cap_bytes=cap_bytes, state=state,
+                         device=device)
+    hits, state = out[0][0], {k: v[0] for k, v in out[1].items()}
+    return (hits, state) if telemetry is None else (hits, state, out[2][0])
 
 
 def chr_of(hits: torch.Tensor) -> torch.Tensor:

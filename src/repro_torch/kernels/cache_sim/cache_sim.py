@@ -18,7 +18,12 @@ CUDA tensor; ``cache_sim_plain`` computes the same contract with
   hit;
 * dir_size: ``(S,)`` int32 — arc's ids with a list tag (residents and
   ghosts);
-* argmins:  ``(S,)`` int32 — from the kernel only: arc's list-LRU searches.
+* argmins:  ``(S,)`` int32 — from the kernel only: arc's list-LRU searches;
+* series:   ``(S, n_windows, N_METRICS)`` int32, or ``(S, n_windows, G,
+  N_METRICS)`` with ``n_groups = G`` — only with ``telemetry_window = W``:
+  the reference's windowed telemetry (``telemetry.spec.METRICS``), the fourth
+  output of ``ops.cache_sim``. Its byte columns use the request's size in a
+  size-aware run and 1 otherwise, as the reference kernel's.
 
 Each kind runs one of six programs, each an entry point of a CUDA source:
 ``cache_sim`` (lru, lfu, plfu, plfua), ``cache_sim/wlfu``,
@@ -29,7 +34,11 @@ byte budget, from the same source as ``cache_sim/plfua_dyn``) and
 ``cache_sim/arc``. Byte mode takes an ``(N,)`` int32 size row shared by the
 samples (``None`` = unit sizes); as in the reference kernel, wlfu, tinylfu
 and arc do not run under a byte budget, and kinds that are not size-aware
-ignore ``sizes``. None of the programs records telemetry.
+ignore ``sizes``. Every program records telemetry when asked
+(``telemetry_window``, and per tenant group with ``n_groups`` and an ``(N,)``
+``groups`` row of values in ``[0, n_groups)``), as a second and third
+instance of its kernel (``csrc/telemetry.cuh``): :func:`instance_of` names
+them, and ``LAUNCHES`` counts each instance's launches.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import torch
 
 from repro_torch.core import sketch, torch_cache
 from repro_torch.kernels import _build
+from repro_torch.telemetry import spec as telemetry_spec
 
 #: kinds this kernel runs (the reference's kernel runs every registry kind)
 KERNEL_KINDS = torch_cache.PORTED_KINDS
@@ -68,23 +78,25 @@ class Program:
         return self.source.stem
 
 
+# every entry ends with the telemetry's three pointers (series, groups, resident counts)
+# among its pointers and two ints (window, n_groups) before the device and the stream
 PROGRAMS = {
     p.name: p
     for p in (
         Program("cache_sim", _CSRC / "cache_sim.cu", "cache_sim_launch",
-                (_PTR,) * 4 + (_INT,) * 7 + (_PTR,)),
+                (_PTR,) * 7 + (_INT,) * 9 + (_PTR,)),
         Program("cache_sim/wlfu", _CSRC / "wlfu.cu", "wlfu_launch",
-                (_PTR,) * 6 + (_INT,) * 6 + (_PTR,)),
+                (_PTR,) * 9 + (_INT,) * 8 + (_PTR,)),
         Program("cache_sim/tinylfu", _CSRC / "tinylfu.cu", "tinylfu_launch",
-                (_PTR,) * 7 + (_INT,) * 8 + (_PTR,)),
-        Program("cache_sim/plfua_dyn", _CSRC / "plfua_dyn.cu", "plfua_dyn_launch",
-                (_PTR,) * 8 + (_INT,) * 8 + (_PTR,)),
-        Program("cache_sim/plfua_dyn_bytes", _CSRC / "plfua_dyn.cu", "plfua_dyn_bytes_launch",
                 (_PTR,) * 10 + (_INT,) * 10 + (_PTR,)),
+        Program("cache_sim/plfua_dyn", _CSRC / "plfua_dyn.cu", "plfua_dyn_launch",
+                (_PTR,) * 11 + (_INT,) * 10 + (_PTR,)),
+        Program("cache_sim/plfua_dyn_bytes", _CSRC / "plfua_dyn.cu", "plfua_dyn_bytes_launch",
+                (_PTR,) * 13 + (_INT,) * 12 + (_PTR,)),
         Program("cache_sim/sized", _CSRC / "sized.cu", "sized_launch",
-                (_PTR,) * 8 + (_INT,) * 9 + (_PTR,)),
+                (_PTR,) * 11 + (_INT,) * 11 + (_PTR,)),
         Program("cache_sim/arc", _CSRC / "arc.cu", "arc_launch",
-                (_PTR,) * 7 + (_INT,) * 5 + (_PTR,)),
+                (_PTR,) * 10 + (_INT,) * 7 + (_PTR,)),
     )
 }
 #: the program that runs each kind in object-count mode
@@ -104,8 +116,23 @@ BYTES_PROGRAM_OF = {
 #: kinds the kernel runs under a byte budget: the reference kernel's
 BYTE_CAPABLE_KINDS = tuple(k for k in KERNEL_KINDS if k in BYTES_PROGRAM_OF)
 
-#: kernel launches per program since import (or since a caller last set them to 0)
-LAUNCHES = dict.fromkeys(PROGRAMS, 0)
+#: the suffixes of a program's telemetry instances: ungrouped and per tenant group
+TELEMETRY_SUFFIXES = ("+telemetry", "+telemetry_grouped")
+
+
+def instance_of(program: str, telemetry_window: int = 0, n_groups: int = 0) -> str:
+    """The kernel instance a launch of ``program`` runs: the program itself
+    without telemetry, else its ``+telemetry`` or ``+telemetry_grouped``
+    instance."""
+    if not telemetry_window:
+        return program
+    return program + TELEMETRY_SUFFIXES[bool(n_groups)]
+
+
+#: every kernel instance: each program without telemetry, then with it
+INSTANCES = tuple(PROGRAMS) + tuple(p + suffix for suffix in TELEMETRY_SUFFIXES for p in PROGRAMS)
+#: kernel launches per instance since import (or since a caller last set them to 0)
+LAUNCHES = dict.fromkeys(INSTANCES, 0)
 
 
 def program_of(kind: str, capacity_bytes: int = 0) -> str:
@@ -191,6 +218,37 @@ def _sizes_row(spec: torch_cache.PolicySpec, sizes, device) -> torch.Tensor | No
     return sizes
 
 
+def telemetry_options(n_objects: int, telemetry_window: int = 0, n_groups: int = 0, groups=None,
+                      device=None):
+    """Validate a call's telemetry options as the reference kernel's wrapper
+    does (``telemetry_window >= 0``; ``n_groups`` needs ``telemetry_window``
+    and ``groups``) and return ``(TelemetrySpec or None, the (N,) int32
+    group row on device or None)``. The kernel indexes its series by group,
+    so the row must have shape ``(N,)`` and values in ``[0, n_groups)``."""
+    if telemetry_window < 0:
+        raise ValueError(f"telemetry_window must be >= 0, got {telemetry_window}")
+    if n_groups < 0:
+        raise ValueError(f"n_groups must be >= 0, got {n_groups}")
+    if n_groups and not telemetry_window:
+        raise ValueError("n_groups is a telemetry option: set telemetry_window")
+    if n_groups and groups is None:
+        raise ValueError("n_groups > 0 requires a groups catalogue")
+    _in_range("telemetry_window", telemetry_window, 0)
+    _in_range("n_groups", n_groups, 0)
+    if not telemetry_window:
+        return None, None
+    telemetry = telemetry_spec.TelemetrySpec(telemetry_window, n_groups)
+    if not n_groups:
+        return telemetry, None
+    groups = torch.as_tensor(groups, dtype=torch.int32, device=device).contiguous()
+    if tuple(groups.shape) != (n_objects,):
+        raise ValueError(f"groups must have shape ({n_objects},), got {tuple(groups.shape)}")
+    lo, hi = torch.aminmax(groups)
+    if int(lo) < 0 or int(hi) >= n_groups:
+        raise ValueError(f"groups must lie in [0, {n_groups}), got [{int(lo)}, {int(hi)}]")
+    return telemetry, groups
+
+
 def _derived_inserts(traces: torch.Tensor, hits: torch.Tensor, spec: torch_cache.PolicySpec) -> torch.Tensor:
     """The object-count kinds without a sketch: every admitted miss inserts
     (arc's too: a cold miss into T1, a ghost hit into T2), and only plfua
@@ -200,73 +258,91 @@ def _derived_inserts(traces: torch.Tensor, hits: torch.Tensor, spec: torch_cache
     return (admitted - hits).to(torch.int32)
 
 
-def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torch.Tensor | None):
+def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torch.Tensor | None,
+                 telemetry: telemetry_spec.TelemetrySpec | None = None, groups: torch.Tensor | None = None):
     """The kind's program, its outputs (zeroed) with the scratch it needs, and
     the C entry's arguments before the device and the stream, on the tensors'
-    own device. The scratch (score row, tags, ring, sketch rows, bloom, hot
-    mask, estimates) is freed on return; the caching allocator hands it out
-    again only in stream order, after the launch."""
+    own device. The outputs also hold (under ``_`` names) every tensor whose
+    pointer the arguments carry besides ``traces``: the sizes and group rows
+    and the scratch (score row, tags, ring, sketch rows, bloom, hot mask,
+    estimates, per-group resident counts), so that none is freed before the
+    launch; once it has been queued the caching allocator hands them out
+    again only in stream order, after it. With ``telemetry`` the outputs gain
+    the zeroed ``series``."""
     s, t = traces.shape
     n = spec.n_objects
     dev = traces.device
     zeros = lambda *shape, dtype=torch.int32: torch.zeros(shape, dtype=dtype, device=dev)
     program = program_of(spec.kind, spec.capacity_bytes)
-    outs = dict(hits=zeros(s), freq=zeros(s, n), in_cache=zeros(s, n, dtype=torch.bool), inserts=zeros(s))
-    ptr = lambda *tensors: [a.data_ptr() for a in tensors]
+    outs = dict(hits=zeros(s), freq=zeros(s, n), in_cache=zeros(s, n, dtype=torch.bool), inserts=zeros(s),
+                _sizes=sizes, _groups=groups)
+    ptr = lambda *tensors: [0 if a is None else a.data_ptr() for a in tensors]
     hits, freq, in_cache, inserts = (outs[k] for k in OUTPUTS)
+    window, n_groups = (telemetry.window, telemetry.n_groups) if telemetry is not None else (0, 0)
+    if telemetry is not None:
+        layout = (telemetry.n_windows(t),) + ((n_groups,) if n_groups else ()) + (telemetry_spec.N_METRICS,)
+        outs["series"] = zeros(s, *layout)
+        outs["_resident"] = zeros(s, n_groups) if n_groups else None
+    tel = ptr(outs.get("series"), groups, outs.get("_resident"))
     dims = [s, t, n]
     if program == "cache_sim":
-        return program, outs, ptr(traces, hits, freq, in_cache) + dims + [
-            _KIND_CODE[spec.kind], spec.capacity, spec.effective_hot]
+        return program, outs, ptr(traces, hits, freq, in_cache) + tel + dims + [
+            _KIND_CODE[spec.kind], spec.capacity, spec.effective_hot, window, n_groups]
     if sizes is not None:
         outs["hit_bytes"] = zeros(s, dtype=torch.int64)
     if program == "cache_sim/sized":
         outs["_score"] = zeros(s, n) if spec.kind == "gdsf" else zeros(1)
         return program, outs, ptr(traces, sizes, hits, inserts, outs["hit_bytes"], freq, in_cache,
-                                  outs["_score"]) + dims + [
+                                  outs["_score"]) + tel + dims + [
             _KIND_CODE[spec.kind], spec.capacity, spec.effective_hot, spec.capacity_bytes,
-            spec.effective_max_victims if spec.capacity_bytes else 0]
+            spec.effective_max_victims if spec.capacity_bytes else 0, window, n_groups]
     if program == "cache_sim/arc":
         outs.update(dir_size=zeros(s), argmins=zeros(s), _lst=zeros(s, n, dtype=torch.uint8))
         return program, outs, ptr(traces, hits, outs["dir_size"], outs["argmins"], freq, in_cache,
-                                  outs["_lst"]) + dims + [spec.capacity]
+                                  outs["_lst"]) + tel + dims + [spec.capacity, window, n_groups]
     if program == "cache_sim/wlfu":
         outs["_ring"] = torch.full((s, spec.window), -1, dtype=torch.int32, device=dev)
-        return program, outs, ptr(traces, hits, inserts, freq, in_cache, outs["_ring"]) + dims + [
-            spec.capacity, spec.window]
+        return program, outs, ptr(traces, hits, inserts, freq, in_cache, outs["_ring"]) + tel + dims + [
+            spec.capacity, spec.window, window, n_groups]
     width = spec.effective_sketch_width
     outs["_rows"] = zeros(s, sketch.DEPTH, width)
     if program == "cache_sim/tinylfu":
         outs["_bloom"] = zeros(s, spec.doorkeeper, dtype=torch.uint8)
         return program, outs, ptr(traces, hits, inserts, freq, in_cache, outs["_rows"],
-                                  outs["_bloom"]) + dims + [
-            spec.capacity, spec.effective_window, width, spec.doorkeeper]
+                                  outs["_bloom"]) + tel + dims + [
+            spec.capacity, spec.effective_window, width, spec.doorkeeper, window, n_groups]
     outs["_hot"] = torch.empty((s, n), dtype=torch.uint8, device=dev)
     outs["_est"] = torch.empty((s, n), dtype=torch.int32, device=dev)
     scratch = ptr(outs["_rows"], outs["_hot"], outs["_est"])
     options = [spec.capacity, spec.effective_hot, spec.effective_refresh, width]
     if program == "cache_sim/plfua_dyn":
-        return program, outs, ptr(traces, hits, inserts, freq, in_cache) + scratch + dims + options
+        return program, outs, ptr(traces, hits, inserts, freq, in_cache) + scratch + tel + dims + options + [
+            window, n_groups]
     return program, outs, ptr(traces, sizes, hits, inserts, outs["hit_bytes"], freq,
-                              in_cache) + scratch + dims + options + [spec.capacity_bytes, spec.effective_max_victims]
+                              in_cache) + scratch + tel + dims + options + [
+        spec.capacity_bytes, spec.effective_max_victims, window, n_groups]
 
 
 def cache_sim_cuda(traces: torch.Tensor, *, kind: str, n_objects: int, capacity: int, hot_size: int = 0,
                    window: int = 0, refresh: int = 0, sketch_width: int = 0, doorkeeper: int = 0,
-                   capacity_bytes: int = 0, max_victims: int = 0, sizes=None) -> dict:
+                   capacity_bytes: int = 0, max_victims: int = 0, sizes=None, telemetry_window: int = 0,
+                   n_groups: int = 0, groups=None) -> dict:
     """Launch the kind's program on ``traces`` ((S, T) int32, contiguous, on
     a CUDA device) and return its outputs by name: ``hits``, ``freq``,
-    ``in_cache``, ``inserts``, a size-aware run's ``hit_bytes``, and arc's
-    ``dir_size`` and ``argmins``. Raises on anything the kernel does not take,
-    and if the launch fails."""
+    ``in_cache``, ``inserts``, a size-aware run's ``hit_bytes``, arc's
+    ``dir_size`` and ``argmins``, and with ``telemetry_window`` the
+    ``series``. Raises on anything the kernel does not take, and if the
+    launch fails."""
     if not isinstance(traces, torch.Tensor) or not traces.is_cuda:
         raise ValueError("cache_sim_cuda takes a CUDA tensor; cache_sim_plain is the CPU version")
     spec = spec_of(kind, n_objects, capacity, hot_size, window, refresh, sketch_width, doorkeeper,
                    capacity_bytes, max_victims)
     _check_traces(traces, n_objects)
     dev = traces.device
-    program, outs, args = _launch_args(spec, traces, _sizes_row(spec, sizes, dev))
+    telemetry, groups = telemetry_options(n_objects, telemetry_window, n_groups, groups, dev)
+    program, outs, args = _launch_args(spec, traces, _sizes_row(spec, sizes, dev), telemetry, groups)
     if traces.shape[0]:
+        # the arguments' tensors live in outs until the launch is queued
         built = library(program)
         err = getattr(built.lib, PROGRAMS[program].entry)(
             *args,
@@ -276,7 +352,7 @@ def cache_sim_cuda(traces: torch.Tensor, *, kind: str, n_objects: int, capacity:
         if err:
             msg = built.lib.cache_sim_error_string(err).decode()
             raise RuntimeError(f"{program} kernel launch failed: CUDA error {err} ({msg})")
-        LAUNCHES[program] += 1
+        LAUNCHES[instance_of(program, telemetry_window, n_groups)] += 1
     if program in ("cache_sim", "cache_sim/arc"):
         outs["inserts"] = _derived_inserts(traces, outs["hits"], spec)
     return {k: v for k, v in outs.items() if not k.startswith("_")}
@@ -284,7 +360,8 @@ def cache_sim_cuda(traces: torch.Tensor, *, kind: str, n_objects: int, capacity:
 
 def cache_sim_plain(traces: torch.Tensor, *, kind: str, n_objects: int, capacity: int, hot_size: int = 0,
                     window: int = 0, refresh: int = 0, sketch_width: int = 0, doorkeeper: int = 0,
-                    capacity_bytes: int = 0, max_victims: int = 0, sizes=None) -> dict:
+                    capacity_bytes: int = 0, max_victims: int = 0, sizes=None, telemetry_window: int = 0,
+                    n_groups: int = 0, groups=None) -> dict:
     """The kernel's contract computed with ``torch_cache`` on the tensor's own
     device: the CPU path of ``ops.cache_sim``, and the yardstick the kernel is
     held to on the card. The same names as :func:`cache_sim_cuda`
@@ -293,8 +370,10 @@ def cache_sim_plain(traces: torch.Tensor, *, kind: str, n_objects: int, capacity
     spec = spec_of(kind, n_objects, capacity, hot_size, window, refresh, sketch_width, doorkeeper,
                    capacity_bytes, max_victims)
     _check_traces(traces, n_objects)
+    telemetry, groups = telemetry_options(n_objects, telemetry_window, n_groups, groups, traces.device)
     sizes = _sizes_row(spec, sizes, traces.device)
-    hit_series, state = torch_cache.simulate_batch(spec, traces, sizes=sizes, device=traces.device)
+    run = torch_cache.simulate_batch(spec, traces, telemetry, sizes=sizes, groups=groups, device=traces.device)
+    hit_series, state = run[0], run[1]
     hits = hit_series.sum(dim=1, dtype=torch.int32)
     if kind == "lru":
         # the scan keeps last-access t (0 is ambiguous); the kernel keeps t + 1, 0 = never
@@ -313,5 +392,7 @@ def cache_sim_plain(traces: torch.Tensor, *, kind: str, n_objects: int, capacity
         outs["hit_bytes"] = torch.where(hit_series, sizes[traces.long()].long(), 0).sum(dim=1)
     if kind == "arc":
         outs["dir_size"] = torch_cache.metadata_entries(spec, state).to(torch.int32)
+    if telemetry is not None:
+        outs["series"] = run[2]
     return outs
 

@@ -30,11 +30,16 @@
 // * Thread 0 also writes each sample's directory size (ids with a tag) and the number of
 //   argmins it ran.
 //
+// * Telemetry (telemetry.cuh) when the template asks for it: every miss fills (a cold miss
+//   into T1, a ghost hit into T2); a resident demoted to B1/B2 or dropped from T1 is an
+//   eviction, a ghost trimmed from B1/B2 is not; the occupancy is |T1| + |T2|.
+//
 // What bounds it on this card: as cache_sim.cu, the chain of T dependent steps, each with
 // a block barrier, and an O(N) argmin from L2 per trim or demotion; a cold miss into a
 // full cache runs two.
 
 #include "cache_sim_common.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
@@ -71,10 +76,11 @@ __device__ __forceinline__ void retag(unsigned char* lst, int id, unsigned char 
   lst[id] = tag;
 }
 
+template <bool kTel, bool kGrouped>
 __global__ void __launch_bounds__(kMaxThreads)
 arc_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int capacity,
            int* __restrict__ hits, int* __restrict__ dir_size, int* __restrict__ argmins,
-           int* stamp_all, unsigned char* cache_all, unsigned char* lst_all) {
+           int* stamp_all, unsigned char* cache_all, unsigned char* lst_all, TelArgs tel_args) {
   __shared__ int s_key[kMaxThreads / kWarp];
   __shared__ int s_id[kMaxThreads / kWarp];
   __shared__ int s_plan[2];
@@ -83,6 +89,7 @@ arc_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int cap
   int* stamp = stamp_all + s * n_objects;
   unsigned char* in_cache = cache_all + s * n_objects;
   unsigned char* lst = lst_all + s * n_objects;
+  Telemetry<kTel, kGrouped> tel(tel_args, s, trace_len);
 
   ListSizes n;  // thread 0's, as the rest below
   int p = 0;
@@ -126,6 +133,9 @@ arc_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int cap
     if (plan & kTrim) {
       trimmed = block_argmin_of(stamp, TagMask{lst, (plan & kTrimB2) ? kB2 : kB1}, n_objects,
                                 s_key, s_id);
+      // warp 0 reads the first search's partial minima from s_key/s_id after its barrier;
+      // the second search must not write them before it has
+      if (plan & kEvict) __syncthreads();
     }
     if (plan & kEvict) {
       victim = block_argmin_of(stamp, TagMask{lst, (plan & kFromT1) ? kT1 : kT2}, n_objects,
@@ -144,6 +154,11 @@ arc_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int cap
       retag(lst, x, hit || ghost ? kT2 : kT1, n);
       stamp[x] = t;
       n_hits += static_cast<int>(hit);
+      if (kTel) {
+        tel.request(x, hit, !hit, 1);
+        if (plan & kEvict) tel.evict(victim);
+        tel.end_step(t, n.t1 + n.t2);
+      }
     }
   }
   __syncthreads();  // thread 0's last writes before the tags are read
@@ -161,13 +176,22 @@ arc_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int cap
 
 // Launches on `stream` and returns cudaGetLastError(). `stamp` (the freq output) and the
 // tag scratch `lst` ((n_samples, n_objects) bytes) are zeroed by the caller, as are the
-// other outputs; `dir_size` and `argmins` are (n_samples,) int32.
+// other outputs; `dir_size` and `argmins` are (n_samples,) int32. The telemetry's arguments
+// are cache_sim_launch's (`window` 0 = off).
 extern "C" int arc_launch(const int* traces, int* hits, int* dir_size, int* argmins, int* stamp,
-                          unsigned char* in_cache, unsigned char* lst, int n_samples,
-                          int trace_len, int n_objects, int capacity, int device, void* stream) {
+                          unsigned char* in_cache, unsigned char* lst, int* series,
+                          const int* groups, int* resident, int n_samples, int trace_len,
+                          int n_objects, int capacity, int window, int n_groups, int device,
+                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  arc_kernel<<<n_samples, block_threads(n_objects), 0, static_cast<cudaStream_t>(stream)>>>(
-      traces, trace_len, n_objects, capacity, hits, dir_size, argmins, stamp, in_cache, lst);
+  const TelArgs tel{series, groups, resident, window, n_groups};
+  const dim3 grid(n_samples);
+  const dim3 block(block_threads(n_objects));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  with_telemetry(tel, [&](auto on, auto grouped) {
+    arc_kernel<decltype(on)::value, decltype(grouped)::value><<<grid, block, 0, st>>>(
+        traces, trace_len, n_objects, capacity, hits, dir_size, argmins, stamp, in_cache, lst, tel);
+  });
   return static_cast<int>(cudaGetLastError());
 }

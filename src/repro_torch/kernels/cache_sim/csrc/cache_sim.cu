@@ -2,10 +2,11 @@
 //
 // Replaces the TPU kernel `_cache_sim_kernel` in
 // src/repro/kernels/cache_sim/cache_sim.py (built by `cache_sim_pallas`), for the program
-// that kernel runs for lru, lfu, plfu and plfua in object-count mode without telemetry
-// (`base_step` and the loop over the trace); wlfu.cu, tinylfu.cu and plfua_dyn.cu hold its
-// other ported programs, and cache_sim_common.cuh the helpers they share (the victim's
-// block argmin among them). It computes what that program computes, not block by block:
+// that kernel runs for lru, lfu, plfu and plfua in object-count mode (`base_step` and the
+// loop over the trace), with or without the windowed telemetry of telemetry.cuh; wlfu.cu,
+// tinylfu.cu, plfua_dyn.cu, sized.cu and arc.cu hold its other programs, and
+// cache_sim_common.cuh the helpers they share (the victim's block argmin among them). It
+// computes what that program computes, not block by block:
 //
 // * One thread block per sample. The steps of one sample are strictly sequential, so a
 //   loop over t inside the block takes the place of the TPU's in-kernel `fori_loop`.
@@ -30,6 +31,7 @@
 // the O(N) argmin are later work.
 
 #include "cache_sim_common.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
@@ -41,17 +43,20 @@ constexpr int kPlfua = 3;  // kPlfu = 2 needs no case of its own
 // before every read of step t, and every read of step t-1 before thread 0's writes of
 // step t; and it hands all threads thread 0's read of in_cache[x]. Every thread then
 // computes the step's scalars (hit, count, ...) from the same values, so the branch on
-// need_evict, which holds the reduction's barrier, is uniform.
+// need_evict, which holds the reduction's barrier, is uniform. With kTel thread 0 also
+// records the step's telemetry (telemetry.cuh).
+template <bool kTel, bool kGrouped>
 __global__ void __launch_bounds__(kMaxThreads)
 cache_sim_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int kind,
                  int capacity, int hot_size, int* __restrict__ hits, int* freq_all,
-                 unsigned char* cache_all) {
+                 unsigned char* cache_all, TelArgs tel_args) {
   __shared__ int s_key[kMaxThreads / kWarp];
   __shared__ int s_id[kMaxThreads / kWarp];
   const size_t s = blockIdx.x;
   const int* trace = traces + s * trace_len;
   int* freq = freq_all + s * n_objects;
   unsigned char* in_cache = cache_all + s * n_objects;
+  Telemetry<kTel, kGrouped> tel(tel_args, s, trace_len);
 
   int count = 0;
   int n_hits = 0;
@@ -82,6 +87,11 @@ cache_sim_kernel(const int* __restrict__ traces, int trace_len, int n_objects, i
     }
     count += static_cast<int>(want) - static_cast<int>(need_evict);
     n_hits += static_cast<int>(hit);
+    if (kTel && threadIdx.x == 0) {
+      tel.request(x, hit, want, 1);
+      if (need_evict) tel.evict(victim);
+      tel.end_step(t, count);
+    }
   }
   if (threadIdx.x == 0) hits[s] = n_hits;
 }
@@ -89,14 +99,23 @@ cache_sim_kernel(const int* __restrict__ traces, int trace_len, int n_objects, i
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) and returns cudaGetLastError(): a
-// launch the runtime rejects never runs, so the caller must check this code.
+// launch the runtime rejects never runs, so the caller must check this code. `series`,
+// `groups`, `resident`, `window` and `n_groups` are the telemetry's (TelArgs; window 0 =
+// off, n_groups 0 = ungrouped).
 extern "C" int cache_sim_launch(const int* traces, int* hits, int* freq,
-                                unsigned char* in_cache, int n_samples, int trace_len,
-                                int n_objects, int kind, int capacity, int hot_size,
+                                unsigned char* in_cache, int* series, const int* groups,
+                                int* resident, int n_samples, int trace_len, int n_objects,
+                                int kind, int capacity, int hot_size, int window, int n_groups,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cache_sim_kernel<<<n_samples, block_threads(n_objects), 0, static_cast<cudaStream_t>(stream)>>>(
-      traces, trace_len, n_objects, kind, capacity, hot_size, hits, freq, in_cache);
+  const TelArgs tel{series, groups, resident, window, n_groups};
+  const dim3 grid(n_samples);
+  const dim3 block(block_threads(n_objects));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  with_telemetry(tel, [&](auto on, auto grouped) {
+    cache_sim_kernel<decltype(on)::value, decltype(grouped)::value><<<grid, block, 0, st>>>(
+        traces, trace_len, n_objects, kind, capacity, hot_size, hits, freq, in_cache, tel);
+  });
   return static_cast<int>(cudaGetLastError());
 }

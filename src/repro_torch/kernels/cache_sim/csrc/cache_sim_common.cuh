@@ -51,7 +51,8 @@ struct TagMask {
 // competes as (INT_MAX, id), so an empty set gives id 0, as the reference's argmin does.
 // The result is valid in thread 0 only. Every thread's reads of key and of the mask's
 // bytes happen before the block barrier inside, so thread 0 may write them once this
-// returns.
+// returns. Warp 0 reads s_key/s_id after that barrier: a second call straight after this
+// one (arc's trim, then its demotion) needs a barrier between the two.
 template <class Mask>
 __device__ int block_argmin_of(const int* key, Mask in_set, int n, int* s_key, int* s_id) {
   int best_k = INT_MAX;
@@ -121,12 +122,18 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 // before the next argmin's reads. `need` can only turn from true to false (nbytes and
 // count only fall), so the loop stops at the first iteration without a victim: the
 // reference's remaining iterations change nothing. Called by every thread; returns the
-// number of victims.
+// number of victims. Thread 0 calls `on_victim(v)` for each victim (the telemetry's
+// per-group eviction count; the default does nothing).
+struct NoVictimHook {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+template <class OnVictim = NoVictimHook>
 __device__ __forceinline__ int evict_bytes(int* key, unsigned char* in_cache, const int* sizes,
                                            int n, bool want_fits, int size_x, int cap_bytes,
                                            int max_victims, bool destroy, bool ratchet,
                                            int& count, int& nbytes, int& credit, int* s_key,
-                                           int* s_id) {
+                                           int* s_id, OnVictim on_victim = OnVictim()) {
   int victims = 0;
   for (; victims < max_victims; ++victims) {
     const bool need = __syncthreads_or(threadIdx.x == 0 && want_fits &&
@@ -139,6 +146,7 @@ __device__ __forceinline__ int evict_bytes(int* key, unsigned char* in_cache, co
       if (destroy) key[v] = 0;
       --count;
       nbytes = wrap_sub(nbytes, sizes[v]);
+      on_victim(v);
     }
   }
   return victims;

@@ -29,18 +29,26 @@
 //   the set a stable sort on -est would take first, in about 2 log2(max(T, N)) passes over
 //   the scratch.
 //
+// * Telemetry (telemetry.cuh) when the template asks for it: a refresh counts in the window
+//   of its step, with the hot churn counted while the new mask is written (ungrouped by a
+//   block-wide sum, per group by atomicAdd into the series).
+//
 // What bounds it on this card: the chain of T dependent steps (4 sketch updates, a block
 // barrier, an O(N) argmin per eviction) as for cache_sim.cu; each refresh adds about
 // 4 + 2 log2 N passes over N ids, read from L2.
 
 #include "cache_sim_common.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
 // New hot mask = the top hot_k ids by estimate (descending, ties to the lowest id); then
-// the rows halve. Called by every thread; ends with a barrier.
-__device__ void refresh_hot(int* rows, int width, unsigned char* hot, int* est, int n_objects,
-                            int hot_k, int* s_part) {
+// the rows halve. Called by every thread at step t; ends with a barrier. With kTel it
+// returns the ids whose membership changed (to every thread; per group it adds them to
+// the series instead and returns 0).
+template <bool kTel, bool kGrouped>
+__device__ int refresh_hot(int* rows, int width, unsigned char* hot, int* est, int n_objects,
+                           int hot_k, int* s_part, const Telemetry<kTel, kGrouped>& tel, int t) {
   int local_max = 0;
   for (int i = threadIdx.x; i < n_objects; i += blockDim.x) {
     const int e = sketch_estimate(rows, width, i);
@@ -78,19 +86,27 @@ __device__ void refresh_hot(int* rows, int width, unsigned char* hot, int* est, 
     }
     bound = hi;
   }
+  int changed = 0;
   for (int i = threadIdx.x; i < n_objects; i += blockDim.x) {
-    hot[i] = est[i] > v_star || (est[i] == v_star && i < bound);
+    const unsigned char now = est[i] > v_star || (est[i] == v_star && i < bound);
+    if (kTel && hot[i] != now) {
+      if (kGrouped) tel.hot_changed(t, i);
+      else ++changed;
+    }
+    hot[i] = now;
   }
   __syncthreads();
+  if (kTel && !kGrouped) return block_reduce(changed, false, s_part);
+  return 0;
 }
 
-template <bool kBytes>
+template <bool kBytes, bool kTel, bool kGrouped>
 __global__ void __launch_bounds__(kMaxThreads)
 plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, int trace_len,
                  int n_objects, int capacity, int hot_k, int refresh, int width, int cap_bytes,
                  int max_victims, int* __restrict__ hits, int* __restrict__ inserts,
                  long long* __restrict__ hit_bytes, int* freq_all, unsigned char* cache_all,
-                 int* rows_all, unsigned char* hot_all, int* est_all) {
+                 int* rows_all, unsigned char* hot_all, int* est_all, TelArgs tel_args) {
   __shared__ int s_key[kMaxThreads / kWarp];
   __shared__ int s_id[kMaxThreads / kWarp];
   const size_t s = blockIdx.x;
@@ -100,6 +116,7 @@ plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, 
   int* rows = rows_all + s * kDepth * width;
   unsigned char* hot = hot_all + s * n_objects;
   int* est = est_all + s * n_objects;
+  Telemetry<kTel, kGrouped> tel(tel_args, s, trace_len);
 
   // the prior hot set: the rank prefix [0, hot_k)
   for (int i = threadIdx.x; i < n_objects; i += blockDim.x) hot[i] = i < hot_k;
@@ -126,11 +143,18 @@ plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, 
     if (kBytes) {
       const int size_x = threadIdx.x == 0 ? sizes[x] : 0;
       int no_credit = 0;
-      evict_bytes(freq, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x,
-                  cap_bytes, max_victims, false, false, count, nbytes, no_credit, s_key, s_id);
+      if (kTel) {
+        evict_bytes(freq, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x,
+                    cap_bytes, max_victims, false, false, count, nbytes, no_credit, s_key, s_id,
+                    [&tel](int v) { tel.evict(v); });
+      } else {
+        evict_bytes(freq, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x,
+                    cap_bytes, max_victims, false, false, count, nbytes, no_credit, s_key, s_id);
+      }
       if (threadIdx.x == 0) {
         if (admitted) freq[x] += 1;  // a hit or an admitted miss; parked counts persist
-        if (want && wrap_add(nbytes, size_x) <= cap_bytes) {
+        const bool insert = want && wrap_add(nbytes, size_x) <= cap_bytes;
+        if (insert) {
           nbytes = wrap_add(nbytes, size_x);
           in_cache[x] = 1;
           ++count;
@@ -138,6 +162,7 @@ plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, 
         }
         n_hits += static_cast<int>(hit);
         if (hit) n_hit_bytes += size_x;
+        if (kTel) tel.request(x, hit, insert, size_x);
       }
     } else {
       const bool need_evict =
@@ -148,6 +173,7 @@ plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, 
         if (need_evict) {
           in_cache[victim] = 0;
           --count;
+          if (kTel) tel.evict(victim);
         }
         if (admitted) freq[x] += 1;  // a hit or an admitted miss; parked counts persist
         if (want) {
@@ -156,13 +182,16 @@ plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, 
           ++n_inserts;
         }
         n_hits += static_cast<int>(hit);
+        if (kTel) tel.request(x, hit, want, 1);
       }
     }
     if (++since == refresh) {
       since = 0;
       __syncthreads();  // thread 0's sketch add of this step before the estimates
-      refresh_hot(rows, width, hot, est, n_objects, hot_k, s_key);
+      const int churn = refresh_hot(rows, width, hot, est, n_objects, hot_k, s_key, tel, t);
+      if (kTel && threadIdx.x == 0) tel.refresh(x, churn);
     }
+    if (kTel && threadIdx.x == 0) tel.end_step(t, count);
   }
   if (threadIdx.x == 0) {
     hits[s] = n_hits;
@@ -173,19 +202,38 @@ plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, 
 
 }  // namespace
 
+// Launches one instance of plfua_dyn_kernel; window 0 = no telemetry, n_groups 0 = ungrouped.
+template <bool kBytes>
+void launch_plfua_dyn(int n_samples, cudaStream_t st, const int* traces, const int* sizes,
+                      int trace_len, int n_objects, int capacity, int hot_k, int refresh,
+                      int width, int cap_bytes, int max_victims, int* hits, int* inserts,
+                      long long* hit_bytes, int* freq, unsigned char* in_cache, int* rows,
+                      unsigned char* hot, int* est, TelArgs tel) {
+  const dim3 grid(n_samples);
+  const dim3 block(block_threads(n_objects));
+  with_telemetry(tel, [&](auto on, auto grouped) {
+    plfua_dyn_kernel<kBytes, decltype(on)::value, decltype(grouped)::value><<<grid, block, 0, st>>>(
+        traces, sizes, trace_len, n_objects, capacity, hot_k, refresh, width, cap_bytes,
+        max_victims, hits, inserts, hit_bytes, freq, in_cache, rows, hot, est, tel);
+  });
+}
+
 // Launches on `stream` and returns cudaGetLastError(). `rows` is (n_samples, 4, width)
 // int32, zeroed; `hot` (n_samples, n_objects) bytes and `est` (n_samples, n_objects) int32
-// are scratch the kernel initialises; the outputs are zeroed by the caller.
+// are scratch the kernel initialises; the outputs are zeroed by the caller. The telemetry's
+// arguments are cache_sim_launch's (`window` 0 = off).
 extern "C" int plfua_dyn_launch(const int* traces, int* hits, int* inserts, int* freq,
                                 unsigned char* in_cache, int* rows, unsigned char* hot, int* est,
-                                int n_samples, int trace_len, int n_objects, int capacity,
-                                int hot_k, int refresh, int width, int device, void* stream) {
+                                int* series, const int* groups, int* resident, int n_samples,
+                                int trace_len, int n_objects, int capacity, int hot_k,
+                                int refresh, int width, int window, int n_groups, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  plfua_dyn_kernel<false><<<n_samples, block_threads(n_objects), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      traces, nullptr, trace_len, n_objects, capacity, hot_k, refresh, width, 0, 0, hits,
-      inserts, nullptr, freq, in_cache, rows, hot, est);
+  launch_plfua_dyn<false>(n_samples, static_cast<cudaStream_t>(stream), traces, nullptr,
+                          trace_len, n_objects, capacity, hot_k, refresh, width, 0, 0, hits,
+                          inserts, nullptr, freq, in_cache, rows, hot, est,
+                          TelArgs{series, groups, resident, window, n_groups});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -195,15 +243,16 @@ extern "C" int plfua_dyn_launch(const int* traces, int* hits, int* inserts, int*
 extern "C" int plfua_dyn_bytes_launch(const int* traces, const int* sizes, int* hits,
                                       int* inserts, long long* hit_bytes, int* freq,
                                       unsigned char* in_cache, int* rows,
-                                      unsigned char* hot, int* est, int n_samples, int trace_len,
-                                      int n_objects, int capacity, int hot_k, int refresh,
-                                      int width, int cap_bytes, int max_victims, int device,
-                                      void* stream) {
+                                      unsigned char* hot, int* est, int* series,
+                                      const int* groups, int* resident, int n_samples,
+                                      int trace_len, int n_objects, int capacity, int hot_k,
+                                      int refresh, int width, int cap_bytes, int max_victims,
+                                      int window, int n_groups, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  plfua_dyn_kernel<true><<<n_samples, block_threads(n_objects), 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      traces, sizes, trace_len, n_objects, capacity, hot_k, refresh, width, cap_bytes,
-      max_victims, hits, inserts, hit_bytes, freq, in_cache, rows, hot, est);
+  launch_plfua_dyn<true>(n_samples, static_cast<cudaStream_t>(stream), traces, sizes, trace_len,
+                         n_objects, capacity, hot_k, refresh, width, cap_bytes, max_victims,
+                         hits, inserts, hit_bytes, freq, in_cache, rows, hot, est,
+                         TelArgs{series, groups, resident, window, n_groups});
   return static_cast<int>(cudaGetLastError());
 }

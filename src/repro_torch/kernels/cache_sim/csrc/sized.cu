@@ -24,11 +24,15 @@
 //   before the next argmin; the loop stops at the first iteration without a victim. In
 //   object-count mode one __syncthreads_or a step hands out whether an eviction is needed.
 //
+// * Telemetry (telemetry.cuh) when the template asks for it: hit and miss bytes are the
+//   request's size; in byte mode each victim of the loop counts (`evict_bytes`' hook).
+//
 // What bounds it on this card: as cache_sim.cu, the chain of T dependent steps, each with
 // a block barrier, and an O(N) argmin from L2 per victim; byte mode runs one argmin per
 // victim, so its time follows evictions, not insertions.
 
 #include "cache_sim_common.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
@@ -38,13 +42,13 @@ constexpr int kPlfua = 3;  // kPlfu = 2 needs no case of its own
 constexpr int kGdsf = 4;
 constexpr int kGdsfShift = 8;  // registry.GDSF_SHIFT
 
-template <bool kBytes>
+template <bool kBytes, bool kTel, bool kGrouped>
 __global__ void __launch_bounds__(kMaxThreads)
 sized_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, int trace_len,
              int n_objects, int kind, int capacity, int hot_size, int cap_bytes,
              int max_victims, int* __restrict__ hits, int* __restrict__ inserts,
              long long* __restrict__ hit_bytes, int* freq_all, unsigned char* cache_all,
-             int* score_all) {
+             int* score_all, TelArgs tel_args) {
   __shared__ int s_key[kMaxThreads / kWarp];
   __shared__ int s_id[kMaxThreads / kWarp];
   const size_t s = blockIdx.x;
@@ -53,6 +57,7 @@ sized_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, int 
   unsigned char* in_cache = cache_all + s * n_objects;
   int* score = kind == kGdsf ? score_all + s * n_objects : nullptr;
   int* key = kind == kGdsf ? score : freq;
+  Telemetry<kTel, kGrouped> tel(tel_args, s, trace_len);
 
   int count = 0;  // thread 0's, as the rest below
   int nbytes = 0;
@@ -75,8 +80,15 @@ sized_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, int 
     const bool want = !hit && admitted;
     bool insert = want;
     if (kBytes) {
-      evict_bytes(key, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x, cap_bytes,
-                  max_victims, kind == kLfu, kind == kGdsf, count, nbytes, credit, s_key, s_id);
+      if (kTel) {
+        evict_bytes(key, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x,
+                    cap_bytes, max_victims, kind == kLfu, kind == kGdsf, count, nbytes, credit,
+                    s_key, s_id, [&tel](int v) { tel.evict(v); });
+      } else {
+        evict_bytes(key, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x,
+                    cap_bytes, max_victims, kind == kLfu, kind == kGdsf, count, nbytes, credit,
+                    s_key, s_id);
+      }
       insert = want && wrap_add(nbytes, size_x) <= cap_bytes;
       if (insert) nbytes = wrap_add(nbytes, size_x);
     } else {
@@ -89,6 +101,7 @@ sized_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, int 
           in_cache[victim] = 0;
           if (kind == kLfu) freq[victim] = 0;
           --count;
+          if (kTel) tel.evict(victim);
         }
       }
     }
@@ -111,6 +124,10 @@ sized_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, int 
       }
       n_hits += static_cast<int>(hit);
       if (hit) n_hit_bytes += size_x;
+      if (kTel) {
+        tel.request(x, hit, insert, size_x);
+        tel.end_step(t, count);
+      }
     }
   }
   if (threadIdx.x == 0) {
@@ -125,25 +142,29 @@ sized_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, int 
 // Launches on `stream` and returns cudaGetLastError(). `sizes` is the (n_objects,) int32
 // size row (every size >= 1); `score` is (n_samples, n_objects) int32, zeroed (read only by
 // gdsf); the outputs are zeroed by the caller, `hit_bytes` (n_samples,) int64 the bytes of
-// the requests that hit. cap_bytes > 0 selects byte mode.
+// the requests that hit. cap_bytes > 0 selects byte mode. The telemetry's arguments are
+// cache_sim_launch's (`window` 0 = off).
 extern "C" int sized_launch(const int* traces, const int* sizes, int* hits, int* inserts,
                             long long* hit_bytes, int* freq, unsigned char* in_cache, int* score,
-                            int n_samples, int trace_len, int n_objects, int kind, int capacity,
-                            int hot_size, int cap_bytes, int max_victims, int device,
+                            int* series, const int* groups, int* resident, int n_samples,
+                            int trace_len, int n_objects, int kind, int capacity, int hot_size,
+                            int cap_bytes, int max_victims, int window, int n_groups, int device,
                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_samples);
   const dim3 block(block_threads(n_objects));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cap_bytes > 0) {
-    sized_kernel<true><<<grid, block, 0, st>>>(traces, sizes, trace_len, n_objects, kind, capacity,
-                                               hot_size, cap_bytes, max_victims, hits, inserts,
-                                               hit_bytes, freq, in_cache, score);
-  } else {
-    sized_kernel<false><<<grid, block, 0, st>>>(traces, sizes, trace_len, n_objects, kind,
-                                                capacity, hot_size, cap_bytes, max_victims, hits,
-                                                inserts, hit_bytes, freq, in_cache, score);
-  }
+  const TelArgs tel{series, groups, resident, window, n_groups};
+  auto launch = [&](auto bytes) {
+    with_telemetry(tel, [&](auto on, auto grouped) {
+      sized_kernel<decltype(bytes)::value, decltype(on)::value, decltype(grouped)::value>
+          <<<grid, block, 0, st>>>(
+          traces, sizes, trace_len, n_objects, kind, capacity, hot_size, cap_bytes, max_victims,
+          hits, inserts, hit_bytes, freq, in_cache, score, tel);
+    });
+  };
+  if (cap_bytes > 0) launch(std::true_type{});
+  else launch(std::false_type{});
   return static_cast<int>(cudaGetLastError());
 }

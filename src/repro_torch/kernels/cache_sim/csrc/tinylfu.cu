@@ -23,19 +23,24 @@
 //   miss into a full cache); every thread counts `seen` itself, so the aging branch, which
 //   holds a block-wide halving pass and a barrier, is uniform across the block.
 //
+// * Telemetry (telemetry.cuh) when the template asks for it: an aging step is a refresh,
+//   in the window of the request that completed the aging window.
+//
 // What bounds it on this card: the victim's O(N) argmin runs on every miss into a full
 // cache (not only on evictions, since the duel needs the victim), and the T steps form one
 // chain of dependent steps: latency, as for cache_sim.cu.
 
 #include "cache_sim_common.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
+template <bool kTel, bool kGrouped>
 __global__ void __launch_bounds__(kMaxThreads)
 tinylfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int capacity,
                int window, int width, int bloom_bits, int* __restrict__ hits,
                int* __restrict__ inserts, int* freq_all, unsigned char* cache_all,
-               int* rows_all, unsigned char* bloom_all) {
+               int* rows_all, unsigned char* bloom_all, TelArgs tel_args) {
   __shared__ int s_key[kMaxThreads / kWarp];
   __shared__ int s_id[kMaxThreads / kWarp];
   const size_t s = blockIdx.x;
@@ -44,6 +49,7 @@ tinylfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int
   unsigned char* in_cache = cache_all + s * n_objects;
   int* rows = rows_all + s * kDepth * width;
   unsigned char* bloom = bloom_all + s * bloom_bits;
+  Telemetry<kTel, kGrouped> tel(tel_args, s, trace_len);
 
   int count = 0;  // thread 0's
   int n_hits = 0;
@@ -77,6 +83,8 @@ tinylfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int
     }
     int victim = 0;
     if (duel) victim = block_argmin(freq, in_cache, n_objects, s_key, s_id);
+    bool filled = false;
+    bool evicted = false;
     if (threadIdx.x == 0) {
       if (hit) {
         freq[x] += 1;
@@ -97,6 +105,7 @@ tinylfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int
             in_cache[victim] = 0;
             freq[victim] = 0;  // LFU semantics: the victim's count dies with it
             --count;
+            evicted = true;
           }
         }
         if (admit) {
@@ -104,7 +113,14 @@ tinylfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int
           in_cache[x] = 1;
           ++count;
           ++n_inserts;
+          filled = true;
         }
+      }
+      if (kTel) {
+        tel.request(x, hit, filled, 1);
+        if (evicted) tel.evict(victim);
+        if (age) tel.refresh(x, 0);
+        tel.end_step(t, count);
       }
     }
   }
@@ -118,15 +134,24 @@ tinylfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int
 
 // Launches on `stream` and returns cudaGetLastError(). `rows` is (n_samples, 4, width)
 // int32 and `bloom` (n_samples, bloom_bits) bytes (unused when bloom_bits == 0); they and
-// the outputs are zeroed by the caller.
+// the outputs are zeroed by the caller. The telemetry's arguments are cache_sim_launch's
+// (`tel_window` 0 = off).
 extern "C" int tinylfu_launch(const int* traces, int* hits, int* inserts, int* freq,
                               unsigned char* in_cache, int* rows, unsigned char* bloom,
-                              int n_samples, int trace_len, int n_objects, int capacity,
-                              int window, int width, int bloom_bits, int device, void* stream) {
+                              int* series, const int* groups, int* resident, int n_samples,
+                              int trace_len, int n_objects, int capacity, int window, int width,
+                              int bloom_bits, int tel_window, int n_groups, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tinylfu_kernel<<<n_samples, block_threads(n_objects), 0, static_cast<cudaStream_t>(stream)>>>(
-      traces, trace_len, n_objects, capacity, window, width, bloom_bits, hits, inserts, freq,
-      in_cache, rows, bloom);
+  const TelArgs tel{series, groups, resident, tel_window, n_groups};
+  const dim3 grid(n_samples);
+  const dim3 block(block_threads(n_objects));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  with_telemetry(tel, [&](auto on, auto grouped) {
+    tinylfu_kernel<decltype(on)::value, decltype(grouped)::value><<<grid, block, 0, st>>>(
+        traces, trace_len, n_objects, capacity, window, width, bloom_bits, hits, inserts, freq,
+        in_cache, rows, bloom, tel);
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,19 +12,22 @@
 //   -1; only thread 0 touches it. The id leaving the window at step t+1 is loaded right
 //   after step t's write, so its latency overlaps the rest of the step.
 // * Victim: the block-wide lexicographic argmin of cache_sim_common.cuh over `freq`.
+// * Telemetry (telemetry.cuh) when the template asks for it: every miss fills.
 //
 // What bounds it on this card: as cache_sim.cu, the chain of T dependent steps, each with
 // a block barrier, and N compares an eviction read from L2: latency, not bytes or
 // operations.
 
 #include "cache_sim_common.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
+template <bool kTel, bool kGrouped>
 __global__ void __launch_bounds__(kMaxThreads)
 wlfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int capacity,
             int window, int* __restrict__ hits, int* __restrict__ inserts, int* freq_all,
-            unsigned char* cache_all, int* ring_all) {
+            unsigned char* cache_all, int* ring_all, TelArgs tel_args) {
   __shared__ int s_key[kMaxThreads / kWarp];
   __shared__ int s_id[kMaxThreads / kWarp];
   const size_t s = blockIdx.x;
@@ -32,6 +35,7 @@ wlfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int ca
   int* freq = freq_all + s * n_objects;
   unsigned char* in_cache = cache_all + s * n_objects;
   int* ring = ring_all + s * window;
+  Telemetry<kTel, kGrouped> tel(tel_args, s, trace_len);
 
   int count = 0;
   int n_hits = 0;
@@ -59,6 +63,11 @@ wlfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int ca
     }
     count += static_cast<int>(!hit) - static_cast<int>(need_evict);
     n_hits += static_cast<int>(hit);
+    if (kTel && threadIdx.x == 0) {
+      tel.request(x, hit, !hit, 1);
+      if (need_evict) tel.evict(victim);
+      tel.end_step(t, count);
+    }
   }
   if (threadIdx.x == 0) {
     hits[s] = n_hits;
@@ -69,13 +78,22 @@ wlfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int ca
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(). `ring` is (n_samples, window) int32
-// filled with -1; the other outputs are zeroed by the caller.
+// filled with -1; the other outputs are zeroed by the caller. The telemetry's arguments are
+// cache_sim_launch's (`tel_window` 0 = off).
 extern "C" int wlfu_launch(const int* traces, int* hits, int* inserts, int* freq,
-                           unsigned char* in_cache, int* ring, int n_samples, int trace_len,
-                           int n_objects, int capacity, int window, int device, void* stream) {
+                           unsigned char* in_cache, int* ring, int* series, const int* groups,
+                           int* resident, int n_samples, int trace_len, int n_objects,
+                           int capacity, int window, int tel_window, int n_groups, int device,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wlfu_kernel<<<n_samples, block_threads(n_objects), 0, static_cast<cudaStream_t>(stream)>>>(
-      traces, trace_len, n_objects, capacity, window, hits, inserts, freq, in_cache, ring);
+  const TelArgs tel{series, groups, resident, tel_window, n_groups};
+  const dim3 grid(n_samples);
+  const dim3 block(block_threads(n_objects));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  with_telemetry(tel, [&](auto on, auto grouped) {
+    wlfu_kernel<decltype(on)::value, decltype(grouped)::value><<<grid, block, 0, st>>>(
+        traces, trace_len, n_objects, capacity, window, hits, inserts, freq, in_cache, ring, tel);
+  });
   return static_cast<int>(cudaGetLastError());
 }

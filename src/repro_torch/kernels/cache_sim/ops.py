@@ -5,7 +5,6 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import registry
-from repro_torch.core.torch_cache import not_ported
 from repro_torch.kernels.cache_sim.cache_sim import cache_sim_cuda, cache_sim_plain
 
 _ALL_KINDS = registry.names(pallas=True)
@@ -31,8 +30,11 @@ def cache_sim(
     device=None,
 ):
     """Batched cache-policy simulation of ``(S, T)`` traces; returns
-    ``(hits (S,) int32, freq (S, N) int32, in_cache (S, N) bool)`` (see
-    :mod:`repro_torch.kernels.cache_sim.cache_sim` for the contract).
+    ``(hits (S,) int32, freq (S, N) int32, in_cache (S, N) bool)``, and with
+    ``telemetry_window = W > 0`` a fourth output, the windowed series
+    ``(S, n_windows, N_METRICS)`` int32 (``(S, n_windows, n_groups,
+    N_METRICS)`` with ``n_groups``); see
+    :mod:`repro_torch.kernels.cache_sim.cache_sim` for the contract.
 
     Runs the CUDA kernel on the card (``device=None`` means ``cuda``) and the
     plain PyTorch version only when ``device="cpu"``. The signature is the
@@ -44,9 +46,10 @@ def cache_sim(
     int32 row shared by the samples; ``None`` = unit sizes), with at most
     ``max_victims`` evictions an insertion; as in the reference kernel, wlfu,
     tinylfu and arc under a byte budget raise ``ValueError``, and kinds that
-    are not size-aware ignore ``sizes``. Telemetry (``telemetry_window``,
-    ``n_groups``, ``groups``) is not ported yet and raises
-    ``NotImplementedError``.
+    are not size-aware ignore ``sizes``. ``telemetry_window`` must be >= 0;
+    ``n_groups`` needs ``telemetry_window`` and a ``groups`` catalogue (an
+    ``(N,)`` int32 row shared by the samples, values in ``[0, n_groups)``).
+    A telemetry call on a CUDA tensor runs the kernel's telemetry instance.
     """
     outs = cache_sim_outputs(
         traces, kind=kind, n_objects=n_objects, capacity=capacity, hot_size=hot_size, window=window,
@@ -54,6 +57,8 @@ def cache_sim(
         telemetry_window=telemetry_window, capacity_bytes=capacity_bytes, max_victims=max_victims,
         sizes=sizes, n_groups=n_groups, groups=groups, device=device,
     )
+    if telemetry_window:
+        return outs["hits"], outs["freq"], outs["in_cache"], outs["series"]
     return outs["hits"], outs["freq"], outs["in_cache"]
 
 
@@ -77,7 +82,8 @@ def cache_sim_outputs(
     device=None,
 ) -> dict:
     """:func:`cache_sim`'s outputs by name: ``hits``, ``freq``, ``in_cache``,
-    ``inserts``, a size-aware run's ``hit_bytes`` and arc's ``dir_size`` (see
+    ``inserts``, a size-aware run's ``hit_bytes``, arc's ``dir_size`` and a
+    telemetry run's ``series`` (see
     :mod:`repro_torch.kernels.cache_sim.cache_sim`), the same keys on the
     card and on the CPU. The grid harness reads evictions, byte hits and
     arc's directory from them."""
@@ -87,19 +93,15 @@ def cache_sim_outputs(
         raise ValueError(f"doorkeeper must be >= 0, got {doorkeeper}")
     if doorkeeper and kind != "tinylfu":
         raise ValueError("doorkeeper is a tinylfu-only option")
-    if telemetry_window < 0:
-        raise ValueError(f"telemetry_window must be >= 0, got {telemetry_window}")
-    if n_groups < 0:
-        raise ValueError(f"n_groups must be >= 0, got {n_groups}")
-    if telemetry_window or n_groups or groups is not None:
-        raise not_ported("telemetry")
     dev = resolve_device(device)
     traces = torch.as_tensor(traces, dtype=torch.int32, device=dev).contiguous()
+    # the plain version runs only on a CPU tensor; a CUDA tensor always launches the kernel
     run = cache_sim_cuda if traces.is_cuda else cache_sim_plain
     outs = run(
         traces, kind=kind, n_objects=n_objects, capacity=capacity, hot_size=hot_size, window=window,
         refresh=refresh, sketch_width=sketch_width, doorkeeper=doorkeeper, capacity_bytes=capacity_bytes,
-        max_victims=max_victims, sizes=sizes,
+        max_victims=max_victims, sizes=sizes, telemetry_window=telemetry_window, n_groups=n_groups,
+        groups=groups,
     )
     outs.pop("argmins", None)  # arc's search count: the kernel's own diagnostic, not part of the contract
     return outs

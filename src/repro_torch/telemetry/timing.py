@@ -8,19 +8,84 @@
   call is bracketed by CUDA events on the current stream and followed by a
   synchronise; ``execute_s`` is device time.
 
+* **profile** — with ``profile_dir``, one more untimed call runs under
+  ``torch.profiler`` after the timed ones (the counterpart of the
+  reference's ``jax.profiler.trace``), writing a Chrome trace into the
+  directory; :class:`DeviceTrace` summarises the device's kernels in it and
+  the share of their span in which no kernel ran.
+
 ``Timing.j_per_step`` prices the measured device time at the card's power
 limit (:func:`repro_torch.core.energy.device_energy_j`), an upper bound on the
-energy the card drew. Measuring needs a card: there is no CPU fallback.
+energy the card drew. Measuring needs a card: there is no CPU fallback
+(:func:`profile` alone also runs on the CPU, where it sees no device time).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 
 import torch
+from torch.autograd import DeviceType
 
 from repro_torch._device import card_info, resolve_device
 from repro_torch.core import energy
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceTrace:
+    """One profiled call: the Chrome trace written, the device kernels seen
+    in it, the time some kernel ran (the union of their intervals) and the
+    span from the first kernel's start to the last one's end."""
+
+    path: Path
+    kernels: int
+    busy_s: float
+    span_s: float
+
+    @property
+    def idle_share(self) -> float | None:
+        """The share of the kernels' span with no kernel running (``None``
+        when the trace holds no device time)."""
+        return 1.0 - self.busy_s / self.span_s if self.span_s > 0 else None
+
+
+def _busy_and_span(intervals: list[tuple[float, float]]) -> tuple[float, float]:
+    """(union length, first start to last end) of ``(start, end)`` intervals."""
+    if not intervals:
+        return 0.0, 0.0
+    intervals.sort()
+    busy, (cur_lo, cur_hi) = 0.0, intervals[0]
+    for lo, hi in intervals[1:]:
+        if lo > cur_hi:
+            busy += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    busy += cur_hi - cur_lo
+    return busy, max(hi for _, hi in intervals) - intervals[0][0]
+
+
+def profile(fn, *args, profile_dir, **kwargs) -> DeviceTrace:
+    """Run ``fn(*args, **kwargs)`` once under ``torch.profiler`` (CPU and,
+    where there is a card, CUDA activity) and write its Chrome trace to
+    ``profile_dir/trace.json``. Kernels launched by the port's own libraries
+    are traced too: CUPTI records every kernel on the device."""
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        fn(*args, **kwargs)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = out / "trace.json"
+    prof.export_chrome_trace(str(path))
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    busy_us, span_us = _busy_and_span(kernels)
+    return DeviceTrace(path=path, kernels=len(kernels), busy_s=busy_us / 1e6, span_s=span_us / 1e6)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +102,7 @@ class Timing:
     mean_execute_s: float
     power_w: float
     card: str
+    trace: DeviceTrace | None = None
 
     @property
     def steps_per_s(self) -> float:
@@ -52,12 +118,16 @@ class Timing:
         return energy.device_energy_j(self.execute_s, self.power_w) / self.steps
 
 
-def measure(fn, *args, steps: int, repeats: int = 3, warmup: int = 1, make_args=None, **kwargs) -> Timing:
+def measure(fn, *args, steps: int, repeats: int = 3, warmup: int = 1, make_args=None, profile_dir=None,
+            **kwargs) -> Timing:
     """Time ``fn(*args, **kwargs)`` on the card.
 
     ``make_args``: a thunk returning a fresh ``args`` tuple, called before the
     clock each time, for a ``fn`` that consumes or updates its inputs in
     place. ``args`` are then used only by the first call.
+
+    ``profile_dir``: when set, one more call runs under :func:`profile` after
+    the timed ones, outside the clock, and ``Timing.trace`` summarises it.
     """
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
@@ -84,6 +154,7 @@ def measure(fn, *args, steps: int, repeats: int = 3, warmup: int = 1, make_args=
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
+    trace = None if profile_dir is None else profile(fn, *prep(), profile_dir=profile_dir, **kwargs)
     return Timing(
         steps=int(steps),
         repeats=len(times),
@@ -92,4 +163,5 @@ def measure(fn, *args, steps: int, repeats: int = 3, warmup: int = 1, make_args=
         mean_execute_s=sum(times) / len(times),
         power_w=card.power_limit_w,
         card=card.label,
+        trace=trace,
     )

@@ -1,8 +1,11 @@
 """Request traces and object sizes for this slice's path.
 
-A copy of the reference package's ``workloads/generators.py`` functions that
-the port runs (``stationary``, ``scan``, ``object_sizes`` and their helper),
-bit for bit: ``tests/test_torch_workloads.py`` holds each to the original.
+A copy of the reference package's ``workloads/generators.py``, bit for bit:
+the six host scenarios (``stationary``, ``churn``, ``flash_crowd``,
+``diurnal``, ``multi_tenant``, ``scan``), the tenant catalogue
+``tenant_groups`` that matches ``multi_tenant``'s blocks, and the size
+catalogue ``object_sizes``. ``tests/test_torch_workloads.py`` holds each to
+the original.
 Every trace is a fixed-shape ``(n_samples, trace_len)`` int32 array of object
 ids in ``[0, n_objects)``, ids being initial-popularity ranks (id 0 is the
 hottest), and drops straight into ``torch_cache`` and the cache_sim kernel.
@@ -13,7 +16,17 @@ import numpy as np
 
 from repro_torch.core import zipf
 
-__all__ = ["SIZE_DISTS", "object_sizes", "scan", "stationary"]
+__all__ = [
+    "stationary",
+    "churn",
+    "flash_crowd",
+    "diurnal",
+    "multi_tenant",
+    "scan",
+    "tenant_groups",
+    "object_sizes",
+    "SIZE_DISTS",
+]
 
 #: supported per-object size distributions (byte-capacity caches)
 SIZE_DISTS = ("lognormal", "pareto")
@@ -22,6 +35,16 @@ SIZE_DISTS = ("lognormal", "pareto")
 def _rng(seed: int, sample: int) -> np.random.Generator:
     # same per-sample spreading constant as core.zipf.sample_traces
     return np.random.default_rng(seed * 7919 + sample)
+
+
+def _sample_ranks(
+    rng: np.random.Generator, n_objects: int, size: int, alpha: float
+) -> np.ndarray:
+    cdf = np.cumsum(zipf.zipf_probs(n_objects, alpha))
+    idx = np.searchsorted(cdf, rng.random(size), side="right")
+    # cumsum rounding can leave cdf[-1] a few ulps under 1.0; a draw in that
+    # sliver would index past the id space
+    return np.minimum(idx, n_objects - 1).astype(np.int32)
 
 
 def stationary(
@@ -36,6 +59,103 @@ def stationary(
     return zipf.sample_traces(
         n_objects, n_samples=n_samples, trace_len=trace_len, alpha=alpha, seed=seed
     )
+
+
+def churn(
+    n_objects: int,
+    n_samples: int = zipf.PAPER_NUM_SAMPLES,
+    trace_len: int = zipf.PAPER_TRACE_LEN,
+    *,
+    alpha: float = zipf.PAPER_ALPHA,
+    seed: int = 0,
+    n_phases: int = 5,
+    churn_frac: float = 0.3,
+) -> np.ndarray:
+    """Zipf with popularity churn: every ``trace_len/n_phases`` requests a
+    random ``churn_frac`` of the id space swaps popularity ranks.
+
+    Sampling stays rank-Zipf; a per-phase permutation maps rank -> object id,
+    so across phases a fixed id's popularity jumps. Frequency policies that
+    never forget (PLFU) and static admission (PLFUA) pay for stale metadata
+    here; windowed policies (WLFU) shine.
+    """
+    if not 0.0 <= churn_frac <= 1.0:
+        raise ValueError(f"churn_frac must be in [0, 1], got {churn_frac}")
+    phase_len = max(1, -(-trace_len // max(1, n_phases)))
+    out = np.empty((n_samples, trace_len), np.int32)
+    k = int(round(churn_frac * n_objects))
+    for s in range(n_samples):
+        rng = _rng(seed, s)
+        ranks = _sample_ranks(rng, n_objects, trace_len, alpha)
+        perm = np.arange(n_objects, dtype=np.int32)
+        for p, start in enumerate(range(0, trace_len, phase_len)):
+            if p > 0 and k >= 2:
+                moved = rng.choice(n_objects, size=k, replace=False)
+                perm[moved] = perm[rng.permutation(moved)]
+            stop = min(start + phase_len, trace_len)
+            out[s, start:stop] = perm[ranks[start:stop]]
+    return out
+
+def flash_crowd(
+    n_objects: int,
+    n_samples: int = zipf.PAPER_NUM_SAMPLES,
+    trace_len: int = zipf.PAPER_TRACE_LEN,
+    *,
+    alpha: float = zipf.PAPER_ALPHA,
+    seed: int = 0,
+    n_spikes: int = 3,
+    spike_len_frac: float = 0.05,
+    spike_intensity: float = 0.6,
+) -> np.ndarray:
+    """Stationary Zipf punctured by flash crowds: in each spike window a
+    previously-cold object (drawn from the coldest quartile) takes
+    ``spike_intensity`` of the request mass — a breaking-news/viral-video
+    event no prior-popularity hot set anticipates.
+    """
+    base = stationary(
+        n_objects, n_samples, trace_len, alpha=alpha, seed=seed
+    ).copy()
+    spike_len = max(1, int(round(spike_len_frac * trace_len)))
+    cold_lo = max(1, (3 * n_objects) // 4)
+    for s in range(n_samples):
+        rng = _rng(seed + 104_729, s)
+        population = max(1, trace_len - spike_len)
+        starts = rng.choice(population, size=min(n_spikes, population), replace=False)
+        for start in np.sort(starts):
+            hot_id = int(rng.integers(cold_lo, n_objects))
+            window = slice(start, min(start + spike_len, trace_len))
+            mask = rng.random(base[s, window].shape[0]) < spike_intensity
+            base[s, window][mask] = hot_id
+    return base
+
+def diurnal(
+    n_objects: int,
+    n_samples: int = zipf.PAPER_NUM_SAMPLES,
+    trace_len: int = zipf.PAPER_TRACE_LEN,
+    *,
+    alpha: float = zipf.PAPER_ALPHA,
+    seed: int = 0,
+    n_cycles: int = 2,
+    alpha_swing: float = 0.5,
+    n_chunks: int = 48,
+) -> np.ndarray:
+    """Diurnal cycle as skew modulation. The trace shape is fixed (unit
+    request rate), so the day/night cycle appears as the Zipf exponent
+    swinging sinusoidally in ``[alpha - swing, alpha + swing]``: peak hours
+    concentrate on head content (high alpha), off-hours flatten the tail —
+    which sweeps the *effective* working-set size the cache must hold.
+    """
+    out = np.empty((n_samples, trace_len), np.int32)
+    bounds = np.linspace(0, trace_len, n_chunks + 1).astype(int)
+    mid = 0.5 * (bounds[:-1] + bounds[1:]) / trace_len
+    alphas = alpha + alpha_swing * np.sin(2 * np.pi * n_cycles * mid)
+    alphas = np.maximum(alphas, 0.05)
+    for s in range(n_samples):
+        rng = _rng(seed + 224_737, s)
+        for (a, lo, hi) in zip(alphas, bounds[:-1], bounds[1:]):
+            if hi > lo:
+                out[s, lo:hi] = _sample_ranks(rng, n_objects, hi - lo, float(a))
+    return out
 
 
 def scan(
@@ -142,3 +262,58 @@ def object_sizes(
         out[order] = np.sort(raw)[::-1]
         raw = out
     return raw
+
+
+def multi_tenant(
+    n_objects: int,
+    n_samples: int = zipf.PAPER_NUM_SAMPLES,
+    trace_len: int = zipf.PAPER_TRACE_LEN,
+    *,
+    alpha: float = zipf.PAPER_ALPHA,
+    seed: int = 0,
+    n_tenants: int = 4,
+    weights: tuple[float, ...] | None = None,
+) -> np.ndarray:
+    """K tenants share the fleet: the id space splits into contiguous blocks,
+    each tenant runs its own Zipf(alpha) over its block, and requests draw a
+    tenant by fixed mixture weight (default: Zipf over tenants, so one tenant
+    dominates). Object id = block offset + within-tenant rank: every tenant
+    has its own head, so a single global rank-prefix hot set misallocates.
+    """
+    if n_tenants < 1 or n_tenants > n_objects:
+        raise ValueError(f"need 1 <= n_tenants <= n_objects, got {n_tenants}")
+    if weights is None:
+        w = zipf.zipf_probs(n_tenants, 1.0)
+    else:
+        if len(weights) != n_tenants:
+            raise ValueError("len(weights) must equal n_tenants")
+        w = np.asarray(weights, np.float64)
+        w = w / w.sum()
+    block = n_objects // n_tenants
+    sizes = np.full(n_tenants, block, np.int64)
+    sizes[: n_objects - block * n_tenants] += 1  # distribute the remainder
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    out = np.empty((n_samples, trace_len), np.int32)
+    for s in range(n_samples):
+        rng = _rng(seed + 350_377, s)
+        tenant = rng.choice(n_tenants, size=trace_len, p=w)
+        for t in range(n_tenants):
+            mask = tenant == t
+            cnt = int(mask.sum())
+            if cnt:
+                out[s, mask] = offsets[t] + _sample_ranks(rng, int(sizes[t]), cnt, alpha)
+    return out
+
+
+def tenant_groups(n_objects: int, n_tenants: int = 4) -> np.ndarray:
+    """The id -> tenant catalogue matching :func:`multi_tenant`'s block map:
+    object id ``i`` belongs to the tenant whose contiguous block contains it
+    (same block sizes, same remainder distribution). ``(n_objects,)`` int32
+    in ``[0, n_tenants)`` — the ``groups`` argument of the group-segmented
+    telemetry tiers (``TelemetrySpec(window, n_groups=n_tenants)``)."""
+    if n_tenants < 1 or n_tenants > n_objects:
+        raise ValueError(f"need 1 <= n_tenants <= n_objects, got {n_tenants}")
+    block = n_objects // n_tenants
+    sizes = np.full(n_tenants, block, np.int64)
+    sizes[: n_objects - block * n_tenants] += 1  # distribute the remainder
+    return np.repeat(np.arange(n_tenants, dtype=np.int32), sizes)

@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from repro import workloads
+from repro import telemetry as ref_telemetry
 from repro.core import jax_cache, policies
 from repro.core import zipf as ref_zipf
+from repro_torch import telemetry as port_telemetry
 from repro_torch.core import torch_cache
 
 KINDS = ("lru", "lfu", "plfu", "plfua", "wlfu", "tinylfu", "plfua_dyn", "gdsf", "arc")
@@ -216,7 +218,8 @@ def test_masked_argmin_ties_to_lowest_id():
 
 
 # wlfu, tinylfu and plfua_dyn under a byte budget, gdsf and arc: ported, so
-# each runs as the reference, and only an unported option (telemetry) raises
+# each runs as the reference, with telemetry too; a telemetry argument that is
+# not a TelemetrySpec raises
 @pytest.mark.parametrize(
     "kind,spec_kw",
     [
@@ -232,12 +235,16 @@ def test_unported_kinds_raise(kind, spec_kw):
     ref_spec = jax_cache.PolicySpec(kind=kind, n_objects=16, capacity=4, window=4, **spec_kw)
     trace = _traces(16, 1, 200, seed=12)[0]
     sizes = np.random.default_rng(6).integers(1, 20, 16).astype(np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="TelemetrySpec"):
         torch_cache.simulate(spec, trace, telemetry=object(), device="cpu")
     hits, state = torch_cache.simulate(spec, trace, sizes=sizes, device="cpu")
     ref_hits, ref_state = jax_cache.simulate(ref_spec, jnp.asarray(trace), None, jnp.asarray(sizes))
     np.testing.assert_array_equal(hits.numpy(), np.asarray(ref_hits))
     _assert_state_equal(state, ref_state)
+    _, _, series = torch_cache.simulate(spec, trace, port_telemetry.TelemetrySpec(16), sizes=sizes, device="cpu")
+    _, _, ref_series = jax_cache.simulate(ref_spec, jnp.asarray(trace), ref_telemetry.TelemetrySpec(16),
+                                          jnp.asarray(sizes))
+    np.testing.assert_array_equal(series.numpy(), np.asarray(ref_series))
 
 
 @pytest.mark.parametrize(
@@ -250,12 +257,14 @@ def test_unported_kinds_raise(kind, spec_kw):
     ],
 )
 def test_unported_options_raise(spec_kw, call_kw):
-    """Telemetry and its groups raise; a byte budget and a sizes row (which
-    plfu, not size-aware, ignores) run as the reference."""
+    """A telemetry argument that is not a TelemetrySpec raises; a byte
+    budget, a sizes row (which plfu, not size-aware, ignores) and a groups
+    row without grouped telemetry (ignored, as the reference ignores it) run
+    as the reference."""
     spec = torch_cache.PolicySpec(kind="plfu", n_objects=16, capacity=4, **spec_kw)
     traces = _traces(16, 2, 100, seed=8)
-    if "telemetry" in call_kw or "groups" in call_kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    if "telemetry" in call_kw:
+        with pytest.raises(TypeError, match="TelemetrySpec"):
             torch_cache.simulate_batch(spec, traces, device="cpu", **call_kw)
         return
     hits, _ = torch_cache.simulate_batch(spec, traces, device="cpu", **call_kw)

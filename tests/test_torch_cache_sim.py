@@ -140,8 +140,8 @@ def test_uniform_trace_matches_reference_kernel():
 @pytest.mark.parametrize(
     "kind,kw",
     [
-        # telemetry raises; byte budgets, gdsf and arc run as the reference
-        # kernel, and a kind that is not size-aware ignores a sizes row
+        # telemetry (grouped too), byte budgets, gdsf and arc run as the
+        # reference kernel, and a kind that is not size-aware ignores a sizes row
         ("wlfu", dict(window=8, sizes=np.ones(32, np.int32))),
         ("tinylfu", dict(telemetry_window=8)),
         ("plfua_dyn", dict(capacity_bytes=64)),
@@ -155,12 +155,9 @@ def test_uniform_trace_matches_reference_kernel():
 )
 def test_unported_kinds_and_options_raise(kind, kw):
     traces = _traces(32, 2, 120, seed=3)
-    if "telemetry_window" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ops.cache_sim(traces, kind=kind, n_objects=32, capacity=4, device="cpu", **kw)
-        return
     ref = ref_ops.cache_sim(traces, kind=kind, n_objects=32, capacity=4, interpret=True, **kw)
     port = ops.cache_sim(traces, kind=kind, n_objects=32, capacity=4, device="cpu", **kw)
+    assert len(port) == len(ref) == (4 if "telemetry_window" in kw else 3)
     for a, b in zip(port, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
@@ -254,3 +251,31 @@ def test_program_entry_matches_its_c_signature(program):
     assert programs == set(port_kernel.PROGRAMS)
     assert set(port_kernel.PROGRAM_OF) == set(port_kernel.KERNEL_KINDS)
     assert set(port_kernel.BYTES_PROGRAM_OF) == set(ref_cache_sim.BYTE_CAPABLE_KINDS)
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("gdsf", {}),
+    ("lru", dict(capacity_bytes=64)),
+    ("plfua_dyn", dict(capacity_bytes=64)),
+    ("tinylfu", dict(doorkeeper=64)),
+    ("arc", {}),
+    ("wlfu", dict(window=8)),
+    ("lfu", {}),
+])
+@pytest.mark.parametrize("n_groups", [0, 3])
+def test_launch_arguments_point_only_into_tensors_the_wrapper_holds(kind, kw, n_groups):
+    """Every pointer the C entry receives, besides the traces, belongs to a
+    tensor in the outputs (scratch under ``_`` names), so none is freed before
+    the launch is queued. A unit-size row made for the call and dropped at
+    once handed the kernel freed memory."""
+    traces = torch.zeros((2, 16), dtype=torch.int32)
+    spec = port_kernel.spec_of(kind, 32, 4, **kw)
+    telemetry, groups = port_kernel.telemetry_options(32, 4, n_groups, np.zeros(32, np.int32) if n_groups else None)
+    program, outs, args = port_kernel._launch_args(spec, traces, port_kernel._sizes_row(spec, None, "cpu"),
+                                                   telemetry, groups)
+    held = {v.data_ptr() for v in outs.values() if isinstance(v, torch.Tensor)}
+    prog = port_kernel.PROGRAMS[program]
+    pointers = [a for a, t in zip(args, prog.argtypes) if t is ctypes.c_void_p]
+    assert pointers[0] == traces.data_ptr()
+    assert all(p in held for p in pointers[1:] if p), (program, pointers, held)
+    assert ("series" in outs) == bool(telemetry)

@@ -81,6 +81,78 @@ def test_kernel_matches_plain_above_one_block(cuda_device, kind, kw):
     _assert_equal([got[k] for k in want], list(want.values()))
 
 
+# one case per program (and byte mode's multi-victim bound), above one block
+TELEMETRY_CASES = [
+    ("lfu", {}), ("plfua", {}), ("wlfu", dict(window=500)),
+    ("tinylfu", dict(window=400, doorkeeper=320)),
+    ("plfua_dyn", dict(refresh=700)), ("gdsf", dict(sizes=LOGNORMAL)), ("lru", BUDGET),
+    ("gdsf", dict(capacity_bytes=int(40 * PARETO.mean()), sizes=PARETO, max_victims=2)),
+    ("plfua_dyn", dict(refresh=700, **BUDGET)), ("arc", {}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [0, 4])
+@pytest.mark.parametrize("kind,kw", TELEMETRY_CASES)
+def test_kernel_series_matches_plain(cuda_device, kind, kw, n_groups):
+    """Each program's telemetry instance, ungrouped and per tenant group on
+    multi_tenant traces: the series equals the plain version's exactly
+    (3,000 requests, W = 230: a partial last window), its primary outputs
+    equal the instance without telemetry's, and only the telemetry
+    instance's launch count moves."""
+    n, cap, w = 5000, 40, 230
+    traces = torch.as_tensor(generators.multi_tenant(n, 4, 3000, seed=7), device=cuda_device)
+    tel = dict(telemetry_window=w, n_groups=n_groups,
+               groups=generators.tenant_groups(n, 4) if n_groups else None)
+    call = dict(kind=kind, n_objects=n, capacity=cap, **kw)
+    instance = port_kernel.instance_of(port_kernel.program_of(kind, kw.get("capacity_bytes", 0)), w, n_groups)
+    before = dict(port_kernel.LAUNCHES)
+    got = port_kernel.cache_sim_cuda(traces, **call, **tel)
+    assert port_kernel.LAUNCHES == {**before, instance: before[instance] + 1}
+    want = port_kernel.cache_sim_plain(traces, **call, **tel)
+    assert set(got) - {"argmins"} == set(want) and "series" in want
+    _assert_equal([got[k] for k in want], list(want.values()))
+    off = port_kernel.cache_sim_cuda(traces, **call)
+    for k in off:
+        assert torch.equal(off[k], got[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 701])
+def test_kernel_series_window_edges(cuda_device, w):
+    """W = 1 (a window a request, occupancy after each) and W > T (one
+    partial window) for every program, grouped, at 700 requests."""
+    n, cap = 300, 6
+    traces = torch.as_tensor(generators.multi_tenant(n, 3, 700, seed=2, n_tenants=3), device=cuda_device)
+    groups = generators.tenant_groups(n, 3)
+    sizes = generators.object_sizes(n, dist="pareto", corr=0.5, seed=11, median=16)
+    budget = dict(sizes=sizes, capacity_bytes=int(cap * sizes.mean()))
+    for kind, kw in (("lru", {}), ("wlfu", dict(window=50)), ("tinylfu", dict(window=60)),
+                     ("plfua_dyn", dict(refresh=97)), ("gdsf", budget), ("plfua_dyn", dict(refresh=97, **budget)),
+                     ("arc", {})):
+        call = dict(kind=kind, n_objects=n, capacity=cap, telemetry_window=w, n_groups=3, groups=groups, **kw)
+        got = port_kernel.cache_sim_cuda(traces, **call)
+        want = port_kernel.cache_sim_plain(traces, **call)
+        _assert_equal([got[k] for k in want], list(want.values()))
+
+
+@pytest.mark.cuda
+def test_ops_telemetry_runs_the_kernel_on_the_card(cuda_device):
+    """``ops.cache_sim`` with a CUDA tensor and telemetry launches the
+    kernel's telemetry instance (never the plain version) and returns the
+    fourth output, equal to the CPU entry point's."""
+    traces = _traces(800, 2, 1000, cuda_device)
+    groups = generators.tenant_groups(800, 4)
+    call = dict(kind="tinylfu", n_objects=800, capacity=30, telemetry_window=64, n_groups=4, groups=groups)
+    instance = port_kernel.instance_of("cache_sim/tinylfu", 64, 4)
+    before = port_kernel.LAUNCHES[instance]
+    card = ops.cache_sim(traces, **call)
+    assert port_kernel.LAUNCHES[instance] == before + 1 and len(card) == 4 and card[3].is_cuda
+    cpu = ops.cache_sim(traces.cpu(), device="cpu", **call)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.cuda
 def test_byte_mode_kernel_evicts_several_victims_for_one_insert(cuda_device):
     """Under the budget above some insertion needs two or more victims: with
@@ -141,4 +213,17 @@ def test_measure_times_the_kernel(cuda_device):
     tm = timing.measure(port_kernel.cache_sim_cuda, traces, steps=traces.numel(), repeats=2,
                         kind="lfu", n_objects=1000, capacity=20)
     assert tm.repeats == 2 and 0 < tm.execute_s <= tm.mean_execute_s
-    assert tm.power_w > 0 and tm.j_per_step > 0 and tm.card
+    assert tm.power_w > 0 and tm.j_per_step > 0 and tm.card and tm.trace is None
+
+
+@pytest.mark.cuda
+def test_measure_profile_dir_traces_the_kernel(cuda_device, tmp_path):
+    """The profiled call sees the kernel launched by the port's own library
+    (CUPTI traces every kernel), or, where the sandbox's profiler sees no
+    device activity, still writes its trace."""
+    traces = _traces(1000, 2, 5000, cuda_device)
+    tm = timing.measure(port_kernel.cache_sim_cuda, traces, steps=traces.numel(), repeats=1,
+                        profile_dir=tmp_path, kind="lfu", n_objects=1000, capacity=20)
+    assert tm.trace is not None and tm.trace.path.exists()
+    if tm.trace.kernels:
+        assert 0 < tm.trace.busy_s <= tm.trace.span_s and 0 <= tm.trace.idle_share < 1

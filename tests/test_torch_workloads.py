@@ -1,14 +1,19 @@
 """The port's copies of the workload generators against the reference's.
 
-``repro_torch.workloads.generators`` keeps its own copy of ``stationary``,
-``scan`` and ``object_sizes`` (the port imports nothing of ``repro``); each
-must give the reference's arrays bit for bit (ids, sizes and dtypes) and
-raise the reference's errors.
+``repro_torch.workloads.generators`` keeps its own copy of the six host
+scenarios (``stationary``, ``churn``, ``flash_crowd``, ``diurnal``,
+``multi_tenant``, ``scan``), ``tenant_groups`` and ``object_sizes`` (the port
+imports nothing of ``repro``); each must give the reference's arrays bit for
+bit (ids, sizes and dtypes) and raise the reference's errors, and
+``repro_torch.workloads.make_traces`` must build every scenario as the
+reference's does.
 """
 import numpy as np
 import pytest
 
+from repro import workloads as ref_workloads
 from repro.workloads import generators as ref
+from repro_torch import workloads as port_workloads
 from repro_torch.workloads import generators as port
 
 
@@ -58,9 +63,55 @@ def test_size_dists_match_reference():
         ("scan", dict(n_sweeps=-1), "n_sweeps"),
         ("scan", dict(sweep_intensity=1.5), "sweep_intensity"),
         ("scan", dict(scan_lo_frac=1.0), "scan_lo_frac"),
+        ("churn", dict(churn_frac=1.5), "churn_frac"),
+        ("multi_tenant", dict(n_tenants=0), "n_tenants"),
+        ("multi_tenant", dict(n_tenants=2, weights=(1.0,)), "weights"),
+        ("tenant_groups", dict(n_tenants=101), "n_tenants"),
     ],
 )
 def test_bad_arguments_raise_as_the_reference(fn, kw, match):
     for module in (port, ref):
         with pytest.raises(ValueError, match=match):
             getattr(module, fn)(100, **kw)
+
+
+@pytest.mark.parametrize(
+    "fn,kw",
+    [
+        ("churn", {}),
+        ("churn", dict(n_phases=3, churn_frac=0.8, alpha=0.9)),
+        ("churn", dict(churn_frac=0.0)),
+        ("flash_crowd", {}),
+        ("flash_crowd", dict(n_spikes=5, spike_len_frac=0.1, spike_intensity=0.9)),
+        ("diurnal", {}),
+        ("diurnal", dict(n_cycles=3, alpha_swing=1.2, n_chunks=7)),
+        ("multi_tenant", {}),
+        ("multi_tenant", dict(n_tenants=3, weights=(0.5, 0.3, 0.2))),
+        ("multi_tenant", dict(n_tenants=1)),
+    ],
+)
+def test_scenario_generators_match_reference(fn, kw):
+    for n, s, t, seed in ((600, 3, 5_000, 7), (101, 2, 997, 0)):
+        got = getattr(port, fn)(n, s, t, seed=seed, **kw)
+        want = getattr(ref, fn)(n, s, t, seed=seed, **kw)
+        assert got.dtype == want.dtype == np.int32 and got.shape == (s, t)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,k", [(100, 4), (103, 4), (7, 7), (50, 1)])
+def test_tenant_groups_match_reference(n, k):
+    got, want = port.tenant_groups(n, k), ref.tenant_groups(n, k)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_make_traces_matches_reference_for_every_scenario():
+    assert port_workloads.SCENARIO_NAMES == ref_workloads.SCENARIO_NAMES
+    for scenario in port_workloads.SCENARIO_NAMES:
+        got = port_workloads.make_traces(scenario, 300, 2, 1_500, seed=4)
+        want = ref_workloads.make_traces(scenario, 300, 2, 1_500, seed=4)
+        np.testing.assert_array_equal(got, want)
+    got = port_workloads.make_traces("multi_tenant", 300, 2, 800, seed=1, n_tenants=3)
+    np.testing.assert_array_equal(got, ref_workloads.make_traces("multi_tenant", 300, 2, 800, seed=1, n_tenants=3))
+    with pytest.raises(ValueError, match="unknown scenario"):
+        port_workloads.make_traces("nope", 10)
