@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
-The kernel ``cache_sim`` has seven programs, entry points of six CUDA
+Two kernels. ``cache_sim`` has seven programs, entry points of six CUDA
 sources: ``cache_sim`` (lru, lfu, plfu, plfua), ``cache_sim/wlfu``,
 ``cache_sim/tinylfu`` (with or without the doorkeeper),
 ``cache_sim/plfua_dyn``, ``cache_sim/sized`` (gdsf, and lru/lfu/plfu/plfua/
 gdsf under a byte budget), ``cache_sim/plfua_dyn_bytes`` (plfua_dyn under a
-byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``. Phases, one line
-each (or one line per item):
+byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``. ``flash_attention``
+(``csrc/flash_attention.cu``) has two instances, ``flash_attention/prefill``
+(many query rows a block) and ``flash_attention/decode`` (one row a block).
+Two main paths: the paper's grid through cache_sim, and the serving path
+(smollm-360m at full width behind the content cache, every attention call
+through the flash kernel). Phases, one line each (or one line per item):
 
 1. device  — the card's name and count, and ``nvidia-smi``'s name and power limit.
-2. build   — nvcc builds the six sources from ``src/repro_torch/.../csrc``,
-             one process each, all started together; prints ptxas's register
-             and shared-memory report for each kernel.
+2. build   — nvcc builds the six cache_sim sources and the flash source from
+             ``src/repro_torch/kernels/*/csrc``, one process each, all started
+             together; prints ptxas's register and shared-memory report for
+             each kernel.
 3. check   — each program against its plain PyTorch version, exact on hits,
              freq, in_cache, inserts and (sized runs) hit bytes, at S = 12:
              lru/lfu/plfu/plfua at T = 10,000 and (N, cap) = (100, 2),
@@ -24,9 +29,10 @@ each (or one line per item):
              window, sketch width, refresh and hot-set size; gdsf with the
              lognormal catalogue, and lru/lfu/plfu/plfua/gdsf/plfua_dyn under a byte
              budget with the lognormal and the pareto catalogue, at (10,000,
-             200) and (100,000, 2,000), T = 20,000; a max_victims=2 case whose
-             bound is hit; arc at (100, 2), (10,000, 200), (100,000, 2,000) on
-             Zipf and scan traces, its directory size included. With unit
+             200) and (100,000, 2,000) with T = 20,000; a max_victims=2 case
+             whose bound is hit; arc at (100, 2), (10,000, 200) and (100,000,
+             2,000) with T = 20,000
+             on Zipf and scan traces, its directory size included. With unit
              sizes and capacity_bytes == capacity each byte program must give
              the object-count program's outputs. The plain version runs on the
              card for N > 10,000 and in CPU worker processes, overlapping the
@@ -50,7 +56,7 @@ each (or one line per item):
              (``cache_sim`` through lfu, ``cache_sim/sized`` through gdsf and
              both byte programs under the byte budget of 2,000 objects of mean
              size): the kernel's time from CUDA events after a warm-up, the
-             plain version's time once at T = 20,000 (the kernel is held to it
+             plain version's time once at T = 10,000 (the kernel is held to it
              there), and the least time the card could take (bound: the bytes
              moved, or the operations the function needs, see ``bound``).
 7. telemetry — each program's two telemetry instances (``+telemetry`` and
@@ -68,9 +74,41 @@ each (or one line per item):
              then, on the multi_tenant traces, each instance's time between
              two telemetry-off times (in turns: off, ungrouped, grouped, off)
              and its ratio to their mean (on/off).
-8. kernels — one JSON line, an entry per kernel instance, with the trace
-             lengths of the kernel's time (``T``) and the plain version's
-             (``plain_T``).
+8. flash check — the flash kernel against its plain version (the naive
+             oracle, query rows in chunks of 1,024) on the card, TF32 off, each
+             case in float32 (atol = rtol = 2e-5) and bfloat16 (atol 1e-4,
+             rtol 2**-7: one rounding of the output): tests/test_kernels_flash.py's
+             8 SWEEP rows and its kv_len = 100 case with garbage past it; the
+             served shapes (1, 15, 5, 64): causal prefill at 2,048 and 16,384,
+             decode against a cache of 2,056 at kv_len 1, 2,049 and 2,056; a
+             D = 128 prefill (1, 24, 8, 1,024). For each served case it also
+             reads a deliberately wrong plain version (the causal bound one
+             64-key tile early; decode with one live key dropped, or one garbage
+             key let in at kv_len 1) against the same tolerance, which must
+             reject it, and prints what the former 2e-2 tolerance read for it.
+9. serve   — smollm-360m at full width (32 layers, d_model 960, 15 heads, 5 KV
+             heads, ~409 M parameters), weights from ``--seed`` through
+             ``Model.init``, bf16 compute: the reference launcher's traffic (20
+             objects, 40 requests from ``zipf.sample_trace(20, 40, seed=1)``)
+             with 2,048-token prompts, max_new = 8, cache_len = 2,056, through
+             a cold engine and one behind ``ContentCache(5, "plfua")``, then one
+             16,384-token request (past the chunk threshold, max_new = 4); the
+             flash counts set to 0 just before and read just after. Checks: cold
+             and warm tokens equal, warm computed + saved = cold computed, the
+             launches = 32 x (prefills + decode steps) by instance.
+10. serve check — one request (prompt 128, max_new = 4) on the card and on the
+             CPU (the plain path, the same weights, fed the card's tokens):
+             every step's logits within 0.125, tokens equal where the top-2
+             margin exceeds it.
+11. measure — the flash kernel at the served shapes (causal prefill 2,048;
+             decode at kv_len 2,056) with its bound, plain version and
+             ``scaled_dot_product_attention`` (timed only); the engine's
+             prefill ms and tokens/s, decode ms a token, J a generated token at
+             the power limit, and the device's idle share over one request's
+             decode (``torch.profiler``).
+12. kernels — one JSON line, an entry per kernel instance, with the trace
+             lengths of cache_sim's time (``T``) and plain version's
+             (``plain_T``) and the flash instances' shapes.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before it; without a card the script exits 1 and prints no result.
@@ -89,13 +127,19 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import serving  # noqa: E402
 from repro_torch._device import card_info  # noqa: E402
-from repro_torch.core import simulate, sketch, zipf  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import energy, simulate, sketch, zipf  # noqa: E402
 from repro_torch.kernels.cache_sim import cache_sim as kernel  # noqa: E402
 from repro_torch.kernels.cache_sim import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as flash  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
+from repro_torch.models import build  # noqa: E402
 from repro_torch.telemetry import spec as telemetry_spec  # noqa: E402
 from repro_torch.telemetry import timing  # noqa: E402
 from repro_torch.workloads import generators  # noqa: E402
@@ -115,16 +159,19 @@ ADMISSION_CHECK_CASES = (
     (100_000, 2_000, 20_000, {}),
     (130, 3, 2_000, dict(window=33, refresh=50, sketch_width=96, hot_size=7)),
 )
-SIZED_CHECK_CASES = ((10_000, 200), (100_000, 2_000))
-SIZED_CHECK_LEN = 20_000
-ARC_CHECK_CASES = ((100, 2), (10_000, 200), (100_000, 2_000))
+# (N, cap, T): the sized and arc checks
+SIZED_CHECK_CASES = ((10_000, 200, 20_000), (100_000, 2_000, 20_000))
+SIZED_CHECK_LEN = 20_000  # the max_victims and unit-size checks, at N = 10,000
+ARC_CHECK_CASES = ((100, 2, 20_000), (10_000, 200, 20_000), (100_000, 2_000, 20_000))
 # the largest N whose plain version runs in a CPU worker, not on the card
 CPU_PLAIN_MAX_N = 10_000
 CPU_WORKERS = 6
 SCAN_KW = dict(n_sweeps=6, sweep_len_frac=0.06)  # benchmarks/scan_bench.py's full setting
 SCAN_N, SCAN_CAP, SCAN_SAMPLES, SCAN_LEN, SCAN_SEED = 6_000, 300, 8, 50_000, 33
 SCAN_KINDS = (("lru", {}), ("lfu", {}), ("arc", {}), ("tinylfu", dict(doorkeeper=256)))
-MEASURE_N, MEASURE_CAP, MEASURE_LEN, PLAIN_MEASURE_LEN = 100_000, 2_000, 100_000, 20_000
+# the plain version's measured run: T cut from 20,000 to 10,000 (about 90 s) to keep the script's
+# time near what it was before the serving phases
+MEASURE_N, MEASURE_CAP, MEASURE_LEN, PLAIN_MEASURE_LEN = 100_000, 2_000, 100_000, 10_000
 # the kind (and whether under the byte budget) each program is measured through
 MEASURED = {"cache_sim": ("lfu", False), "cache_sim/wlfu": ("wlfu", False),
             "cache_sim/tinylfu": ("tinylfu", False), "cache_sim/plfua_dyn": ("plfua_dyn", False),
@@ -355,13 +402,13 @@ def run_checks(checks: Checks, seed: int) -> None:
             for extra in variants:
                 # options a kind does not take are ignored, as the reference does
                 checks.run(kind, kind, n, cap, trace_len, **{**grid_options(kind), **explicit, **extra})
-    for n, cap in SIZED_CHECK_CASES:
-        checks.run("gdsf", "gdsf", n, cap, SIZED_CHECK_LEN, sizes_dist="lognormal")
+    for n, cap, trace_len in SIZED_CHECK_CASES:
+        checks.run("gdsf", "gdsf", n, cap, trace_len, sizes_dist="lognormal")
         for dist in generators.SIZE_DISTS:
             for kind in BYTE_KINDS:
-                checks.run(f"{kind}+bytes", kind, n, cap, SIZED_CHECK_LEN, sizes_dist=dist, budget=True)
+                checks.run(f"{kind}+bytes", kind, n, cap, trace_len, sizes_dist=dist, budget=True)
     # max_victims=2 where the bound is hit: the run differs from the default bound's
-    n, cap = SIZED_CHECK_CASES[0]
+    n, cap, _ = SIZED_CHECK_CASES[0]
     traces = zipf.sample_traces(n, SAMPLES, SIZED_CHECK_LEN, seed=seed)
     capped = checks.run("gdsf+bytes", "gdsf", n, cap, SIZED_CHECK_LEN, traces=traces, sizes_dist="pareto",
                         budget=True, max_victims=2)
@@ -381,10 +428,10 @@ def run_checks(checks: Checks, seed: int) -> None:
         require(same_outputs(bytes_run, object_run), f"unit sizes: {kind} byte program != object-count program")
         print(f"[check unit-sizes {kind}] {kernel.program_of(kind, cap)} == {kernel.program_of(kind)} "
               f"N={n} cap={cap} T={SIZED_CHECK_LEN} hits={int(bytes_run['hits'].sum())}")
-    for n, cap in ARC_CHECK_CASES:
-        checks.run("arc", "arc", n, cap, SIZED_CHECK_LEN)
-        scan = generators.scan(n, SAMPLES, SIZED_CHECK_LEN, seed=SCAN_SEED, **SCAN_KW)
-        checks.run("arc scan", "arc", n, cap, SIZED_CHECK_LEN, traces=scan)
+    for n, cap, trace_len in ARC_CHECK_CASES:
+        checks.run("arc", "arc", n, cap, trace_len)
+        scan = generators.scan(n, SAMPLES, trace_len, seed=SCAN_SEED, **SCAN_KW)
+        checks.run("arc scan", "arc", n, cap, trace_len, traces=scan)
 
 
 # ------------------------------------------------------------------------ bound
@@ -573,6 +620,337 @@ def run_telemetry(traces, offs: dict, checks: Checks, card, sms: int, seed: int)
     return entries
 
 
+# -------------------------------------------------------------- serving path
+SERVE_ARCH = "smollm-360m"
+#: the reference launcher's traffic: 20 objects, 40 requests from zipf.sample_trace(20, 40, seed=1),
+#: a content cache of 5 objects under plfua
+SERVE_OBJECTS, SERVE_REQUESTS, SERVE_TRACE_SEED, SERVE_CACHE_OBJECTS, SERVE_POLICY = 20, 40, 1, 5, "plfua"
+SERVE_PROMPT, SERVE_NEW, SERVE_CACHE_LEN = 2_048, 8, 2_056
+#: one request past the full config's chunk threshold (8,192)
+LONG_PROMPT, LONG_NEW = 16_384, 4
+#: the card-vs-CPU check: one request at full width
+CHECK_PROMPT, CHECK_NEW = 128, 4
+#: its logit tolerance: 8 bf16 ulps at the logits' magnitude (|logit| < 4, ulp 2**-6 in [2, 4)).
+#: The card's kernel keeps p in f32 where the CPU path rounds it to bf16 before PV (as the
+#: reference does), and the two round bf16 matmuls differently; a 4-layer model at full width
+#: differs by 2 ulps (0.03) between the two attention roundings on the CPU.
+SERVE_LOGIT_TOL = 0.125
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:42"  # _flash_kernel
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet)
+BF16_FLOPS_PER_S = 989e12
+#: (atol, rtol) of the kernel against its plain version. Both accumulate the same f32 function
+#: (p in f32) from the same inputs: in float32 they differ by summation order; in bfloat16 by
+#: one rounding of the output, 1 bf16 ulp (rtol 2**-7 covers 1 to 2 ulps), above a floor of 1e-4
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2**-7)}
+#: the tolerance the flash check had before, printed beside each wrong version's reading
+FLASH_OLD_BF16_TOL = (2e-2, 2e-2)
+#: (B, H, KH, Sq, Skv, D, causal, kv_len): tests/test_kernels_flash.py's SWEEP, and its kv_len case
+FLASH_SWEEP = (
+    (1, 2, 2, 128, 128, 64, True, None),
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 2, 256, 256, 128, True, None),
+    (1, 2, 1, 96, 160, 64, True, None),
+    (1, 2, 2, 128, 384, 64, False, None),
+    (2, 3, 3, 64, 64, 32, True, None),
+    (1, 2, 2, 1, 512, 64, False, None),
+    (1, 16, 8, 1, 300, 128, False, None),
+    (1, 4, 4, 1, 256, 64, False, 100),
+)
+#: the served model's shapes (1, 15, 5, 64): causal prefill at 2,048 and 16,384, decode against a
+#: cache of 2,056 at kv_len 1, 2,049 and 2,056; and a D = 128 prefill
+FLASH_SERVED = (
+    (1, 15, 5, 2_048, 2_048, 64, True, None),
+    (1, 15, 5, 16_384, 16_384, 64, True, None),
+    (1, 15, 5, 1, 2_056, 64, False, 1),
+    (1, 15, 5, 1, 2_056, 64, False, 2_049),
+    (1, 15, 5, 1, 2_056, 64, False, 2_056),
+    (1, 24, 8, 1_024, 1_024, 128, True, None),
+)
+#: the wrong version's causal bound: this many keys early (one kernel tile at D = 64)
+FLASH_WRONG_SHIFT = 64
+#: the plain version's query rows a chunk (bounds its scores at 16,384 to 1 GB)
+FLASH_PLAIN_ROWS = 1_024
+
+
+def flash_inputs(b, h, kh, sq, skv, d, dtype, seed, kv_len=None):
+    """q, k, v on the card from a seeded generator; garbage (1e6) in K past kv_len."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, kh, skv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, kh, skv, d, generator=gen, device="cuda").to(dtype)
+    if kv_len is not None:
+        k[:, :, kv_len:] = 1e6
+    return q, k, v
+
+
+def flash_plain(q, k, v, *, causal, kv_len, shift=0):
+    """The plain version with the query rows in chunks of FLASH_PLAIN_ROWS
+    (which bounds the scores' memory at 16,384 rows); ``shift`` moves the
+    causal bound that many rows (a deliberately wrong version when not 0)."""
+    scale, kv_len = flash.check_inputs(q, k, v, kv_len=kv_len)
+    return torch.cat([naive_attention(q[:, :, r0:r0 + FLASH_PLAIN_ROWS], k, v, causal=causal, scale=scale,
+                                      kv_len=kv_len, q_offset=r0 + shift)
+                      for r0 in range(0, q.shape[2], FLASH_PLAIN_ROWS)], dim=2)
+
+
+def tol_ratio(got, want, tol, rows=None) -> float:
+    """The largest |got - want| / (atol + rtol |want|) (over query rows
+    ``rows`` if given): above 1 fails."""
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    if rows is not None:
+        got, want = got[:, :, rows], want[:, :, rows]
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def flash_wrong(q, k, v, causal, kv_len) -> tuple[str, torch.Tensor]:
+    """A deliberately wrong version of the case, from the plain version."""
+    if causal:
+        return f"causal bound {FLASH_WRONG_SHIFT} keys early", flash_plain(
+            q, k, v, causal=True, kv_len=kv_len, shift=-FLASH_WRONG_SHIFT)
+    if kv_len > 1:
+        return "last live key dropped", flash_plain(q, k, v, causal=False, kv_len=kv_len - 1)
+    return "one garbage key let in", flash_plain(q, k, v, causal=False, kv_len=kv_len + 1)
+
+
+def flash_checks(seed: int) -> dict:
+    """The kernel against its plain version on the card (TF32 off): the SWEEP
+    rows, the kv_len case, the served shapes and a D = 128 prefill, each in
+    float32 and bfloat16; for each served case, what a wrong version reads.
+    Returns the worst error per kernel instance."""
+    t0 = time.perf_counter()
+    worst = dict.fromkeys(flash.INSTANCES, 0.0)
+    cases = [(c, dt, c in FLASH_SERVED) for c in FLASH_SWEEP + FLASH_SERVED for dt in (torch.float32, torch.bfloat16)]
+    for i, ((b, h, kh, sq, skv, d, causal, kv_len), dtype, served) in enumerate(cases):
+        t1 = time.perf_counter()
+        q, k, v = flash_inputs(b, h, kh, sq, skv, d, dtype, seed + i, kv_len)
+        got = flash.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+        want = flash_plain(q, k, v, causal=causal, kv_len=kv_len)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        ratio = tol_ratio(got, want, tol)
+        instance = flash.instance_of(sq)
+        worst[instance] = max(worst[instance], err)
+        text = ""
+        if served:
+            what, wrong = flash_wrong(q, k, v, causal, kv_len or skv)
+            late = slice(sq // 2, sq) if causal else None
+            wrong_ratio, wrong_late = tol_ratio(wrong, want, tol), tol_ratio(wrong, want, tol, late)
+            old = FLASH_OLD_BF16_TOL if dtype == torch.bfloat16 else tol
+            text = (f" wrong_version={what!r} wrong_max_abs_err={float((wrong.float() - want.float()).abs().max())} "
+                    f"wrong_tol_ratio={wrong_ratio} wrong_tol_ratio_late_rows={wrong_late} "
+                    f"wrong_old_tol_ratio={tol_ratio(wrong, want, old)} "
+                    f"wrong_old_tol_ratio_late_rows={tol_ratio(wrong, want, old, late)} "
+                    f"mean_abs_out={float(want.float().abs().mean())}")
+            require(wrong_ratio > 1, f"the flash tolerance does not reject a wrong version ({what}) at "
+                    f"{(b, h, kh, sq, skv, d, causal, dtype, kv_len)}: ratio {wrong_ratio}")
+        print(f"[flash check] instance={instance} B={b} H={h} KH={kh} Sq={sq} Skv={skv} D={d} causal={causal} "
+              f"dtype={str(dtype).split('.')[-1]} kv_len={kv_len} max_abs_err={err} tol_ratio={ratio} "
+              f"atol={tol[0]} rtol={tol[1]} finite={bool(torch.isfinite(got).all())}{text} "
+              f"elapsed_s={time.perf_counter() - t1:.3f}", flush=True)
+        require(bool(torch.isfinite(got).all()) and ratio <= 1,
+                f"flash kernel != plain version at {(b, h, kh, sq, skv, d, causal, dtype, kv_len)}: {err}")
+    print(f"[flash check] cases={len(cases)} worst={json.dumps(worst)} tf32=off "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    return worst
+
+
+def serve_requests(vocab: int, seed: int) -> tuple[list, object]:
+    """The 40 requests of 2,048-token prompts (prompts from ``seed``, the
+    reference launcher's Zipf trace) and the one 16,384-token request."""
+    rng = np.random.default_rng(seed)
+    prompts = {i: rng.integers(0, vocab, SERVE_PROMPT).astype(np.int32) for i in range(SERVE_OBJECTS)}
+    trace = zipf.sample_trace(SERVE_OBJECTS, SERVE_REQUESTS, seed=SERVE_TRACE_SEED)
+    reqs = [serving.Request(int(x), prompts[int(x)], SERVE_NEW) for x in trace]
+    long_req = serving.Request(SERVE_OBJECTS, rng.integers(0, vocab, LONG_PROMPT).astype(np.int32), LONG_NEW)
+    return reqs, long_req
+
+
+def serve_path(model, seed: int, card) -> dict:
+    """The serving main path at full width: a cold engine and one behind the
+    content cache on the 40 requests, then the 16,384-token request, with the
+    flash kernel's counts set to 0 just before and read just after. Returns
+    the launches by instance."""
+    cfg = model.cfg
+    reqs, long_req = serve_requests(cfg.vocab_size, seed)
+    require(LONG_PROMPT > cfg.attn_chunk_threshold and LONG_PROMPT % cfg.attn_chunk_q == 0,
+            "the long request does not cross the chunk threshold")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    for instance in flash.LAUNCHES:
+        flash.LAUNCHES[instance] = 0
+    cold = serving.ServeEngine(model, SERVE_CACHE_LEN)
+    cold_out = cold.run(reqs)
+    t_cold = time.perf_counter()
+    cache = serving.ContentCache(SERVE_CACHE_OBJECTS, policy=SERVE_POLICY, n_objects=SERVE_OBJECTS)
+    warm = serving.ServeEngine(model, SERVE_CACHE_LEN, content_cache=cache)
+    warm_out = warm.run(reqs)
+    t_warm = time.perf_counter()
+    long = serving.ServeEngine(model, LONG_PROMPT + LONG_NEW)
+    long_out = long.run([long_req])
+    torch.cuda.synchronize()
+    by_instance = dict(flash.LAUNCHES)
+    launches = sum(by_instance.values())
+    t_long = time.perf_counter()
+
+    prefills = SERVE_REQUESTS + cache.stats.misses + 1
+    decode_steps = 2 * SERVE_REQUESTS * SERVE_NEW + LONG_NEW
+    require(launches == cfg.n_layers * (prefills + decode_steps),
+            f"the serving path launched the flash kernel {launches} times, expected "
+            f"{cfg.n_layers} x ({prefills} prefills + {decode_steps} decode steps)")
+    require(by_instance == {flash.INSTANCES[0]: cfg.n_layers * prefills, flash.INSTANCES[1]: cfg.n_layers * decode_steps},
+            f"launches by instance {by_instance}")
+    require([r.new_tokens for r in cold_out] == [r.new_tokens for r in warm_out],
+            "the content cache changed the generated tokens")
+    require(warm.stats.prefill_tokens_computed + warm.stats.prefill_tokens_saved == cold.stats.prefill_tokens_computed,
+            "warm computed + saved != cold computed")
+    require(warm.stats.prefill_tokens_saved > 0 and cache.stats.hits > 0, "the content cache never hit")
+    for req, r in zip(reqs + [long_req], cold_out + long_out):
+        require(len(r.new_tokens) == req.max_new and all(0 <= x < cfg.vocab_size for x in r.new_tokens),
+                f"bad tokens for object {r.obj_id}: {r.new_tokens}")
+    report = warm.report()
+    print(f"[serve] arch={cfg.name} n_params={model.n_params} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} compute={cfg.compute_dtype} requests={SERVE_REQUESTS} objects={SERVE_OBJECTS} "
+          f"prompt={SERVE_PROMPT} max_new={SERVE_NEW} cache_len={SERVE_CACHE_LEN} policy={SERVE_POLICY} "
+          f"cache_objects={SERVE_CACHE_OBJECTS} chr={cache.stats.chr} tokens_saved={warm.stats.prefill_tokens_saved} "
+          f"cold_computed={cold.stats.prefill_tokens_computed} report={json.dumps(report)} "
+          f"cold_wall_s={t_cold - t0:.3f} warm_wall_s={t_warm - t_cold:.3f} card={card.label!r}", flush=True)
+    print(f"[serve long] prompt={LONG_PROMPT} (> attn_chunk_threshold={cfg.attn_chunk_threshold}) max_new={LONG_NEW} "
+          f"tokens={long_out[0].new_tokens} wall_s={t_long - t_warm:.3f}", flush=True)
+    print(f"[serve] path launches={launches} by_instance={json.dumps(by_instance)} = {cfg.n_layers} layers x "
+          f"({prefills} prefills + {decode_steps} decode steps) cold_eq_warm=True "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    return by_instance
+
+
+def greedy_logits(model, tokens: np.ndarray, cache_len: int, forced=None) -> tuple[list, list]:
+    """One request through prefill and CHECK_NEW decode steps: the logits of
+    each step and the greedy tokens (``forced``: feed these tokens instead)."""
+    logits, cache = model.prefill({"tokens": tokens[None, :]}, cache_len)
+    steps = [logits[0, -1].float().cpu()]
+    fed = []
+    for t in range(CHECK_NEW):
+        nxt = int(steps[-1].argmax()) if forced is None else forced[t]
+        fed.append(nxt)
+        logits, cache = model.decode_step(cache, torch.tensor([[nxt]], device=model.device), len(tokens) + t)
+        steps.append(logits[0].float().cpu())
+    return steps, fed
+
+
+def serve_check(model, seed: int) -> dict:
+    """One request at full width on the card (the kernel) and on the CPU (the
+    plain path, the same weights, fed the card's tokens): prefill's and each
+    decode step's logits within SERVE_LOGIT_TOL, and the greedy tokens equal
+    wherever the top-2 margin exceeds it."""
+    t0 = time.perf_counter()
+    tokens = np.random.default_rng(seed + 1).integers(0, model.cfg.vocab_size, CHECK_PROMPT).astype(np.int32)
+    card_steps, fed = greedy_logits(model, tokens, CHECK_PROMPT + CHECK_NEW)
+    cpu_model = build(model.cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_steps, _ = greedy_logits(cpu_model, tokens, CHECK_PROMPT + CHECK_NEW, forced=fed)
+    errs, compared = [], 0
+    for a, b in zip(card_steps, cpu_steps):
+        errs.append(float((a - b).abs().max()))
+        top2 = b.topk(2).values
+        if float(top2[0] - top2[1]) > SERVE_LOGIT_TOL:
+            compared += 1
+            require(int(a.argmax()) == int(b.argmax()), "card and CPU pick different tokens at a clear margin")
+    print(f"[serve check] prompt={CHECK_PROMPT} max_new={CHECK_NEW} card_tokens={fed} max_abs_err_by_step={errs} "
+          f"tolerance={SERVE_LOGIT_TOL} max_abs_logit={float(max(s.abs().max() for s in cpu_steps))} "
+          f"tokens_compared={compared} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    require(max(errs) <= SERVE_LOGIT_TOL and all(math.isfinite(e) for e in errs),
+            f"card logits differ from the CPU's by {max(errs)} > {SERVE_LOGIT_TOL}")
+    return dict(errs=errs)
+
+
+def events_ms(fn, repeats: int) -> float:
+    """Mean device ms of ``fn`` over ``repeats`` calls between two CUDA events,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def flash_bound(h, kh, sq, kv_len, d, causal, elem_bytes) -> dict:
+    """The least time for one call: bytes (q and o once, the live K/V rows
+    once) over the HBM rate against 4 D flops a live (row, key) pair over the
+    bf16 tensor-core rate."""
+    pairs = sum(min(kv_len, r + 1) for r in range(sq)) if causal else sq * kv_len
+    flops = 4 * d * h * pairs
+    n_bytes = elem_bytes * d * (2 * h * sq + 2 * kh * kv_len)
+    bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return dict(flops=flops, bytes=n_bytes, bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def flash_measure(seed: int, worst: dict, by_instance: dict) -> list[dict]:
+    """The kernel at the served shapes (causal prefill at 2,048; decode at
+    kv_len 2,056), its plain version and SDPA (timed only, never called by
+    the port), with CUDA events; the ``kernels`` line's flash entries."""
+    entries = []
+    shapes = {flash.INSTANCES[0]: (1, 15, 5, SERVE_PROMPT, SERVE_PROMPT, 64, True, None),
+              flash.INSTANCES[1]: (1, 15, 5, 1, SERVE_CACHE_LEN, 64, False, SERVE_CACHE_LEN)}
+    for instance, (b, h, kh, sq, skv, d, causal, kv_len) in shapes.items():
+        q, k, v = flash_inputs(b, h, kh, sq, skv, d, torch.bfloat16, seed)
+        kernel_ms = events_ms(lambda: flash.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len), 50)
+        plain_ms = events_ms(lambda: flash.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len), 5)
+        library_ms = events_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True), 50)
+        bnd = flash_bound(h, kh, sq, kv_len or skv, d, causal, q.element_size())
+        print(f"[flash measure] instance={instance} B={b} H={h} KH={kh} Sq={sq} Skv={skv} kv_len={kv_len or skv} "
+              f"D={d} causal={causal} dtype=bfloat16 ms={kernel_ms} plain_ms={plain_ms} sdpa_ms={library_ms} "
+              f"bound_ms={bnd['bound_ms']} bound_by={bnd['bound_by']} flops={bnd['flops']} bytes={bnd['bytes']} "
+              f"tflops={bnd['flops'] / kernel_ms / 1e9} gb_per_s={bnd['bytes'] / kernel_ms / 1e6}", flush=True)
+        entries.append({
+            "name": instance, "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+            "launches": by_instance[instance], "max_abs_err": worst[instance], "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": library_ms,
+            "shape": [b, h, kh, sq, skv, d], "kv_len": kv_len or skv, "causal": causal,
+        })
+    return entries
+
+
+def serve_measure(model, seed: int, card) -> None:
+    """The engine's numbers on the card: a request's prefill (device ms and
+    tokens/s), its decode (ms a token, as the engine runs it: argmax, host
+    sync, decode step), J a generated token at the card's power limit, and
+    the device's idle share over one request's decode (torch.profiler)."""
+    t0 = time.perf_counter()
+    reqs, _ = serve_requests(model.cfg.vocab_size, seed)
+    tokens = torch.as_tensor(reqs[0].tokens, device="cuda")[None, :]
+    prefill_ms = events_ms(lambda: model.prefill({"tokens": tokens}, SERVE_CACHE_LEN), 3)
+    logits, cache = model.prefill({"tokens": tokens}, SERVE_CACHE_LEN)
+    first = logits[:, -1, :].clone()
+    del logits
+
+    def decode_request():
+        nxt_logits = first
+        for t in range(SERVE_NEW):
+            nxt = torch.argmax(nxt_logits, dim=-1)
+            int(nxt[0])  # the engine's host read of each token
+            nxt_logits, _ = model.decode_step(cache, nxt[:, None], SERVE_PROMPT + t)
+
+    tm = timing.measure(decode_request, steps=SERVE_NEW, repeats=3,
+                        profile_dir=Path(__file__).resolve().parent / "build" / "profile_decode")
+    decode_ms = tm.execute_s * 1e3 / SERVE_NEW
+    request_j = energy.device_energy_j((prefill_ms + decode_ms * SERVE_NEW) / 1e3, card.power_limit_w)
+    trace = tm.trace
+    print(f"[serve measure] prompt={SERVE_PROMPT} prefill_ms={prefill_ms} prefill_tokens_per_s="
+          f"{SERVE_PROMPT / prefill_ms * 1e3} decode_ms_per_token={decode_ms} decode_tokens_per_s={1e3 / decode_ms} "
+          f"decode_j_per_token={tm.j_per_step} request_j_per_generated_token={request_j / SERVE_NEW} "
+          f"decode_trace_kernels={trace.kernels} decode_busy_s={trace.busy_s} decode_span_s={trace.span_s} "
+          f"decode_idle_share={trace.idle_share} power_limit_w={card.power_limit_w} card={card.label!r} "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+
 def ptxas_report(lib) -> list[str]:
     """One ``kernel: usage`` item per kernel the library holds."""
     out, name = [], None
@@ -610,15 +988,18 @@ def main() -> int:
     # the CPU workers: plain runs of the small checks and the grid's CPU references
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init) as pool:
-        # 2. build: one nvcc per source, all started together (programs of one source share its build)
+        # 2. build: one nvcc per source, all started together (programs of one source share its
+        # build), the flash kernel's among them
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(kernel.PROGRAMS)) as threads:
+        with concurrent.futures.ThreadPoolExecutor(len(kernel.PROGRAMS) + 1) as threads:
+            flash_lib = threads.submit(flash.library)
             built = {lib.path: lib for lib in threads.map(kernel.library, kernel.PROGRAMS)}
+            built[flash_lib.result().path] = flash_lib.result()
         for lib in built.values():
             report = ptxas_report(lib)
             require(bool(report), f"ptxas printed no register report for {lib.path.name}")
             print(f"[build] library={lib.path.name} ptxas={report}")
-        print(f"[build] sources={len(built)} programs={len(kernel.PROGRAMS)} "
+        print(f"[build] sources={len(built)} programs={len(kernel.PROGRAMS)} + flash_attention "
               f"elapsed_s={time.perf_counter() - t0:.3f}")
 
         # 3. check: every program == its plain version, exactly
@@ -759,8 +1140,28 @@ def main() -> int:
 
     # 7. telemetry: the telemetry path at the measured case, counted
     entries += run_telemetry(traces, offs, checks, card, sms, seed)
+    del traces, short, offs
 
-    # 8. kernels
+    # 8. flash check: the attention kernel against its plain version, f32 products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = flash_checks(seed)
+
+    # 9. serve: smollm-360m at full width behind the content cache, every attention call on the kernel
+    t0 = time.perf_counter()
+    model = build(get_config(SERVE_ARCH), device="cuda").init(torch.Generator(device="cuda").manual_seed(seed))
+    print(f"[serve] model built and initialised from seed {seed}: {model.n_params} parameters "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    by_instance = serve_path(model, seed, card)
+
+    # 10. serve check: the card against the plain path on the CPU, the same weights
+    serve_check(model, seed)
+
+    # 11. measure: the kernel at the served shapes beside its bound, plain version and SDPA; the engine
+    entries += flash_measure(seed, worst, by_instance)
+    serve_measure(model, seed, card)
+
+    # 12. kernels
     print(json.dumps({"kernels": entries}))
     print(f"[total] elapsed_s={time.perf_counter() - t_start:.3f}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -11,6 +11,9 @@ computed host-side in numpy uint32, whose products wrap exactly as the
 reference's do, so nothing is emulated and nothing overflows; the CUDA
 kernels compute the same indices from the id in ``uint32_t``.
 
+``CountMinSketch`` and ``BloomFilter`` are the stateful numpy versions the
+pure-Python reference policies (:mod:`repro_torch.core.policies`) use.
+
 The row operations act on batched torch tensors: ``rows`` is ``(S, DEPTH,
 W)`` int32, a bloom is ``(S, M)`` bool, and index arguments are ``(S,
 DEPTH)`` / ``(S, BLOOM_DEPTH)`` (one request per sample). The updates are in
@@ -25,6 +28,8 @@ from repro_torch._device import arange
 
 __all__ = [
     "BLOOM_DEPTH",
+    "BloomFilter",
+    "CountMinSketch",
     "DEPTH",
     "bloom_contains",
     "bloom_set",
@@ -140,3 +145,58 @@ def bloom_set(bits: torch.Tensor, bidx: torch.Tensor) -> None:
 def bloom_contains(bits: torch.Tensor, bidx: torch.Tensor) -> torch.Tensor:
     """Membership ``(S,)``: all addressed bits set."""
     return bits[_samples(bits), bidx].all(dim=-1)
+
+
+# --------------------------------------------------------- numpy convenience
+class CountMinSketch:
+    """Stateful numpy sketch used by the pure-Python reference policies."""
+
+    depth = DEPTH
+
+    def __init__(self, width: int):
+        if width < 1:
+            raise ValueError(f"width must be >= 1, got {width}")
+        self.width = int(width)
+        self.rows = np.zeros((DEPTH, self.width), dtype=np.int32)
+
+    def _idx(self, x: int) -> np.ndarray:
+        return bucket_table(np.asarray(x), self.width)
+
+    def add(self, x: int) -> None:
+        self.rows[np.arange(DEPTH), self._idx(x)] += 1
+
+    def estimate(self, x: int) -> int:
+        return int(self.rows[np.arange(DEPTH), self._idx(x)].min())
+
+    def estimate_all(self, n_objects: int) -> np.ndarray:
+        """(n_objects,) estimates — the dynamic-PLFUA refresh input."""
+        table = bucket_table(np.arange(n_objects), self.width)
+        return self.rows[np.arange(DEPTH), table].min(axis=-1)
+
+    def halve(self) -> None:
+        self.rows >>= 1
+
+
+class BloomFilter:
+    """Stateful numpy doorkeeper used by the pure-Python reference policies:
+    a plain ``(m_bits,)`` bool array, the layout the simulators carry."""
+
+    depth = BLOOM_DEPTH
+
+    def __init__(self, m_bits: int):
+        if m_bits < 1:
+            raise ValueError(f"m_bits must be >= 1, got {m_bits}")
+        self.m_bits = int(m_bits)
+        self.bits = np.zeros((self.m_bits,), dtype=bool)
+
+    def _idx(self, x: int) -> np.ndarray:
+        return bloom_table(np.asarray(x), self.m_bits)
+
+    def add(self, x: int) -> None:
+        self.bits[self._idx(x)] = True
+
+    def contains(self, x: int) -> bool:
+        return bool(self.bits[self._idx(x)].all())
+
+    def clear(self) -> None:
+        self.bits[:] = False

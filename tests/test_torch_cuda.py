@@ -1,4 +1,4 @@
-"""The CUDA kernel and the grid harness on the card, against the plain version.
+"""The CUDA kernels, the grid harness and the engine on the card, against the plain versions.
 
 Every test here is marked ``cuda`` and skips where there is no card; the check
 happens in a fixture when a test runs, never while the module is imported. The
@@ -6,9 +6,10 @@ file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-``tests/test_torch_cache_sim.py`` holds the kernel to the plain version and to
-the JAX reference on the small shapes. Everything compared is an integer, so
-the tolerance is exact.
+``tests/test_torch_cache_sim.py`` holds the cache_sim kernel to the plain
+version and to the JAX reference on the small shapes. Everything cache_sim
+compares is an integer, so the tolerance is exact; the flash kernel's
+tolerances are stated at its tests below.
 """
 import numpy as np
 import pytest
@@ -227,3 +228,111 @@ def test_measure_profile_dir_traces_the_kernel(cuda_device, tmp_path):
     assert tm.trace is not None and tm.trace.path.exists()
     if tm.trace.kernels:
         assert 0 < tm.trace.busy_s <= tm.trace.span_s and 0 <= tm.trace.idle_share < 1
+
+
+# ------------------------------------------------------------ flash attention
+# (B, H, KH, Sq, Skv, D, causal, dtype, kv_len): tests/test_kernels_flash.py's
+# SWEEP, its kv_len case, and the served model's shapes at a shorter context
+# in both dtypes
+FLASH_CASES = [
+    (1, 2, 2, 128, 128, 64, True, torch.float32, None),
+    (2, 4, 2, 128, 128, 64, True, torch.float32, None),
+    (1, 8, 2, 256, 256, 128, True, torch.bfloat16, None),
+    (1, 2, 1, 96, 160, 64, True, torch.float32, None),
+    (1, 2, 2, 128, 384, 64, False, torch.float32, None),
+    (2, 3, 3, 64, 64, 32, True, torch.bfloat16, None),
+    (1, 2, 2, 1, 512, 64, False, torch.float32, None),
+    (1, 16, 8, 1, 300, 128, False, torch.bfloat16, None),
+    (1, 4, 4, 1, 256, 64, False, torch.float32, 100),
+    (2, 4, 2, 9, 40, 16, True, torch.float32, 30),
+] + [(1, 15, 5, sq, skv, 64, sq > 1, dtype, kv_len)
+     for sq, skv, kv_len in ((520, 520, None), (1, 530, 1), (1, 530, 517))
+     for dtype in (torch.bfloat16, torch.float32)]
+#: (atol, rtol) of the kernel against its plain version
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2**-7)}
+
+
+@pytest.fixture
+def exact_f32():
+    """f32 products in full f32 on the card while the plain version runs (TF32 off)."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal,dtype,kv_len", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda_device, exact_f32, b, h, kh, sq, skv, d, causal, dtype, kv_len):
+    """The kernel against its plain version on the card, garbage past kv_len
+    included. Both accumulate the same f32 function (p in f32) from the same
+    inputs: 2e-5 in float32 (summation order; TF32 off), and in bfloat16 one
+    rounding of the output, 1 to 2 ulps: rtol 2**-7 with an absolute floor
+    of 1e-4."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * 7 + skv)
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn(b, kh, skv, d, generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn(b, kh, skv, d, generator=gen, device=cuda_device).to(dtype)
+    if kv_len is not None:
+        k[:, :, kv_len:] = 1e6
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {**before, fa.instance_of(sq): before[fa.instance_of(sq)] + 1}
+    want = fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    atol, rtol = FLASH_TOL[dtype]
+    assert got.is_cuda and got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_ops_launches_or_raises_on_the_card(cuda_device):
+    """ops.flash_attention on CUDA tensors runs the kernel (counted) and
+    raises on what it does not take: an unsupported head dim, tensors on two
+    devices."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    q = torch.randn(1, 2, 8, 64, device=cuda_device)
+    before = sum(fa.LAUNCHES.values())
+    flash_ops.flash_attention(q, q, q)
+    assert sum(fa.LAUNCHES.values()) == before + 1
+    odd = torch.randn(1, 2, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_ops.flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(q, q.cpu(), q)
+    assert sum(fa.LAUNCHES.values()) == before + 1
+
+
+@pytest.mark.cuda
+def test_reduced_engine_on_the_card_matches_cpu(cuda_device, exact_f32):
+    """The reduced smollm-360m (float32) served on the card, every attention
+    call through the kernel, gives the CPU run's tokens and stats; the kernel
+    runs once a layer a prefill and a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import build
+    from repro_torch.serving import ContentCache, Request, ServeEngine
+
+    cfg = get_config("smollm-360m").reduced()
+    card = build(cfg, device=cuda_device).init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = build(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(0)
+    # 8 and 16 tokens take the dense branch on the CPU, 32 the chunked one
+    prompts = {i: rng.integers(0, cfg.vocab_size, (8, 16, 32)[i % 3]).astype(np.int32) for i in range(20)}
+    reqs = [Request(int(x), prompts[int(x)], max_new=4) for x in zipf.sample_trace(20, 30, seed=1)]
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        engine = ServeEngine(model, cache_len=40, content_cache=ContentCache(5, policy="plfua", n_objects=20))
+        before = sum(fa.LAUNCHES.values())
+        runs[name] = ([r.new_tokens for r in engine.run(reqs)], engine.report(), sum(fa.LAUNCHES.values()) - before)
+    (card_tokens, card_report, launches), (cpu_tokens, cpu_report, cpu_launches) = runs["card"], runs["cpu"]
+    assert card_tokens == cpu_tokens
+    assert {k: v for k, v in card_report.items() if k != "mgmt_time_s"} == \
+        {k: v for k, v in cpu_report.items() if k != "mgmt_time_s"}
+    prefills = card_report["cache_misses"]
+    assert cpu_launches == 0 and launches == cfg.n_layers * (prefills + card_report["decode_tokens"])

@@ -1,0 +1,205 @@
+"""The port's flash attention (plain PyTorch path) against the reference kernel.
+
+On the CPU ``ops.flash_attention`` runs the plain version
+(``ref.naive_attention``). It is held to the reference's Pallas kernel in
+interpret mode and to the reference's oracle on the same inputs, made with
+numpy from a seed: over the ``SWEEP`` rows of tests/test_kernels_flash.py,
+``kv_len`` masking with garbage past it, block-shape invariance and the
+causality property. Tolerances are the reference test's: 2e-5 in float32
+(summation order), 2e-2 in bfloat16 (the output's rounding). The CUDA kernel
+itself is tested on the card in tests/test_torch_cuda.py.
+"""
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as ref_flash
+from repro.kernels.flash_attention.ref import naive_attention as ref_naive
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import naive_attention
+
+SWEEP = [
+    # (B, H, KH, Sq, Skv, D, causal, dtype)
+    (1, 2, 2, 128, 128, 64, True, "float32"),
+    (2, 4, 2, 128, 128, 64, True, "float32"),
+    (1, 8, 2, 256, 256, 128, True, "bfloat16"),
+    (1, 2, 1, 96, 160, 64, True, "float32"),
+    (1, 2, 2, 128, 384, 64, False, "float32"),
+    (2, 3, 3, 64, 64, 32, True, "bfloat16"),
+    (1, 2, 2, 1, 512, 64, False, "float32"),
+    (1, 16, 8, 1, 300, 128, False, "bfloat16"),
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(shape_q, shape_kv, dtype, seed):
+    """The same q, k, v for both packages: f32 normals from numpy, rounded to
+    ``dtype`` by each package (both round to nearest even). Each package gets
+    its own copy of the arrays: no buffer is shared between the two."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in (shape_q, shape_kv, shape_kv)]
+    port = [torch.tensor(a).to(_TORCH[dtype]) for a in arrays]
+    ref = [jnp.array(a, copy=True).astype(dtype) for a in arrays]
+    return port, ref
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal,dtype", SWEEP)
+def test_plain_matches_reference_kernel_and_oracle(b, h, kh, sq, skv, d, causal, dtype):
+    (q, k, v), (jq, jk, jv) = _inputs((b, h, sq, d), (b, kh, skv, d), dtype, seed=sq * 1000 + skv)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and tuple(got.shape) == (b, h, sq, d)
+    kernel = ref_flash(jq, jk, jv, causal=causal, interpret=True)
+    oracle = ref_naive(jq, jk, jv, causal=causal)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(kernel), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
+
+
+def _float64_attention(q, k, v, causal, kv_len=None):
+    """The function in float64 from the same inputs: a yardstick for the
+    plain path's own f32 rounding."""
+    q, k, v = (x.double() for x in (q, k, v))
+    group = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / q.shape[-1] ** 0.5
+    col = torch.arange(k.shape[2])
+    live = col[None, :] < (k.shape[2] if kv_len is None else kv_len)
+    if causal:
+        live = live & (col[None, :] <= torch.arange(q.shape[2])[:, None])
+    return torch.einsum("bhqk,bhkd->bhqd", s.masked_fill(~live, float("-inf")).softmax(-1), v).numpy()
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal", [row[:7] for row in SWEEP if row[7] == "float32"])
+def test_plain_f32_is_within_rounding_of_float64(b, h, kh, sq, skv, d, causal):
+    """The plain path, the yardstick the card's kernel is held to, stays
+    within f32 rounding of the function computed in float64: 4e-6, where it
+    measures at most 9.3e-7 here (a fifth of the reference test's 2e-5)."""
+    (q, k, v), _ = _inputs((b, h, sq, d), (b, kh, skv, d), "float32", seed=sq * 1000 + skv)
+    got = _np(ops.flash_attention(q, k, v, causal=causal))
+    np.testing.assert_allclose(got, _float64_attention(q, k, v, causal), atol=4e-6, rtol=4e-6)
+
+
+def test_first_sweep_row_with_shared_buffers_stays_within_rounding():
+    """Regression for a failure seen in 2 of 7 runs under ``pytest -n 3``:
+    the first SWEEP row (seed 128,128), its inputs shared between numpy,
+    torch and JAX as these tests first made them, gave port outputs off by
+    up to 6e-5 at row 1. Here the port's output must stay within f32 rounding
+    of the float64 function on every call, before and after the reference
+    kernel reads the same buffers, and equal its first call bit for bit."""
+    rng = np.random.default_rng(128 * 1000 + 128)
+    arrays = [rng.standard_normal((1, 2, 128, 64)).astype(np.float32) for _ in range(3)]
+    port = [torch.from_numpy(a) for a in arrays]
+    ref = [jnp.asarray(a) for a in arrays]
+    truth = _float64_attention(*port, causal=True)
+    first = _np(ops.flash_attention(*port, causal=True))
+    for _ in range(8):
+        got = _np(ops.flash_attention(*port, causal=True))
+        np.testing.assert_allclose(got, truth, atol=4e-6, rtol=4e-6)
+        np.testing.assert_array_equal(got, first)
+        kernel = np.asarray(ref_flash(*ref, causal=True, interpret=True))
+        np.testing.assert_allclose(kernel, truth, atol=2e-5, rtol=2e-5)
+
+
+def test_kv_len_masking_ignores_garbage():
+    """Padded KV cache: only the first kv_len entries participate."""
+    (q, k, v), (jq, jk, jv) = _inputs((1, 4, 1, 64), (1, 4, 256, 64), "float32", seed=0)
+    out = ops.flash_attention(q, k, v, causal=False, kv_len=100)
+    ref = ref_flash(jq, jk, jv, causal=False, kv_len=100, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+    short = naive_attention(q, k[:, :, :100], v[:, :, :100], causal=False)
+    np.testing.assert_allclose(_np(out), _np(short), atol=2e-5, rtol=2e-5)
+    k2 = k.clone()
+    k2[:, :, 100:] = 1e6
+    np.testing.assert_allclose(_np(ops.flash_attention(q, k2, v, causal=False, kv_len=100)), _np(out), atol=1e-6)
+
+
+def test_block_shape_invariance():
+    """The output does not depend on block_q/block_k."""
+    (q, k, v), _ = _inputs((1, 2, 256, 64), (1, 2, 256, 64), "float32", seed=1)
+    outs = [_np(ops.flash_attention(q, k, v, causal=True, block_q=bq, block_k=bk))
+            for bq, bk in [(64, 64), (128, 128), (256, 128), (64, 256)]]
+    for o in outs[1:]:
+        np.testing.assert_allclose(o, outs[0], atol=2e-5, rtol=2e-5)
+
+
+def test_causality_property():
+    """Perturbing future keys/values does not change past outputs."""
+    (q, k, v), _ = _inputs((1, 2, 128, 64), (1, 2, 128, 64), "float32", seed=2)
+    base = _np(ops.flash_attention(q, k, v, causal=True))
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 64:] += 3.0
+    v2[:, :, 64:] -= 2.0
+    pert = _np(ops.flash_attention(q, k2, v2, causal=True))
+    np.testing.assert_allclose(pert[:, :, :64], base[:, :, :64], atol=1e-6)
+    assert np.abs(pert[:, :, 64:] - base[:, :, 64:]).max() > 1e-3
+
+
+@pytest.mark.parametrize("causal,kv_len", [(True, None), (True, 150), (False, 77)])
+def test_rows_in_chunks_equal_one_pass(causal, kv_len):
+    """The oracle over query rows in chunks, each at its ``q_offset`` (how
+    chip_smoke bounds the plain version's memory), gives the one-pass result."""
+    (q, k, v), _ = _inputs((1, 3, 200, 32), (1, 1, 200, 32), "float32", seed=3)
+    whole = fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    chunked = torch.cat([naive_attention(q[:, :, r0:r0 + 64], k, v, causal=causal, kv_len=kv_len, q_offset=r0)
+                         for r0 in range(0, 200, 64)], dim=2)
+    np.testing.assert_allclose(_np(chunked), _np(whole), atol=1e-6)
+
+
+def test_transposed_views_keep_their_layout():
+    """The model's (B, S, H, D) tensors go in as transposed views; the output
+    comes back in q's layout."""
+    (q, k, v), _ = _inputs((1, 40, 6, 16), (1, 40, 2, 16), "float32", seed=4)
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    want = naive_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(), causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(d=48), "head dim 48"),
+    (dict(kv_len=0), "kv_len must be >= 1"),
+    (dict(kh=3), "not a multiple"),
+    (dict(k_dtype=torch.bfloat16), "share a dtype"),
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(block_q=0), "block_q"),
+])
+def test_refuses_what_the_kernel_does_not_take(change, match):
+    d, kh = change.get("d", 64), change.get("kh", 2)
+    dtype = change.get("dtype", torch.float32)
+    q = torch.zeros(1, 4, 8, d, dtype=dtype)
+    k = torch.zeros(1, kh, 8, d, dtype=change.get("k_dtype", dtype))
+    v = torch.zeros(1, kh, 8, d, dtype=change.get("k_dtype", dtype))
+    with pytest.raises(ValueError, match=match):
+        ops.flash_attention(q, k, v, kv_len=change.get("kv_len"), block_q=change.get("block_q", 128))
+
+
+def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
+    """The wrapper launches on CUDA tensors or raises: no fallback, and the
+    CPU path launches nothing."""
+    q = torch.zeros(1, 2, 4, 64)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(q, q, q)
+    ops.flash_attention(q, q, q)
+    assert fa.LAUNCHES == before
+
+
+def test_launch_signature_matches_the_c_entry():
+    """The ctypes argument types, one for one, are the C entry's parameters
+    (4 pointers, 12 int64 strides, 8 ints, the float scale, 3 ints, the
+    stream): a mismatch would cut a pointer or shift every argument."""
+    src = fa.SOURCE.read_text()
+    decl = src[src.index('extern "C" int flash_attention_launch('):]
+    params = decl[decl.index("(") + 1:decl.index(")")].split(",")
+    c_types = {"const void*": fa._PTR, "void*": fa._PTR, "long long": fa._LONG, "int": fa._INT,
+               "float": ctypes.c_float}
+    assert [c_types[" ".join(p.split()[:-1])] for p in params] == list(fa.ARGTYPES)

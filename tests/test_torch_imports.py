@@ -34,7 +34,14 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/cache_sim/ops.py" in names
     assert "src/repro_torch/workloads/generators.py" in names
-    assert len(names) >= 17
+    # the serving slice: the flash kernel's wrapper and entry point, the model,
+    # the engine and its launcher
+    for entry in ("kernels/flash_attention/ops.py", "kernels/flash_attention/flash_attention.py",
+                  "models/model.py", "models/convert.py", "serving/engine.py", "serving/content_cache.py",
+                  "serving/scheduler.py", "core/policies.py", "configs/__init__.py", "launch/serve.py"):
+        assert f"src/repro_torch/{entry}" in names, entry
+    assert (ROOT / "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu").is_file()
+    assert len(names) >= 40
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -1,0 +1,210 @@
+"""The port's configs and dense models against the reference's, on the CPU.
+
+Configs are pinned field for field. Models: the reference's weights (its
+``init`` from ``PRNGKey(0)``) are carried into a port ``Model`` with
+``convert.params_from_jax``; both then run ``apply``, ``prefill`` (the dense
+attention branch at a 12-token prompt, the chunked one at 48 tokens: the
+reduced configs switch at 16) and 3 ``decode_step``s on the same tokens.
+Tolerances: float32 1e-5 on logits of magnitude below 1 (summation order
+only); bfloat16 2e-2, a few bf16 ulps at that magnitude (the two frameworks
+round bf16 matmuls, activations and the logits at different points).
+Greedy tokens are compared where the top-2 margin exceeds twice the
+tolerance (each of the two logits may move by the tolerance). Each package
+gets its own copy of every input array: no buffer is shared between the two.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.models import build as ref_build
+from repro.models import common as ref_common
+from repro_torch import configs
+from repro_torch.models import build, common
+from repro_torch.models.convert import params_from_jax, port_arrays
+from repro_torch.models.model import lm_specs
+
+DENSE = ("smollm-360m", "granite-3-2b", "phi4-mini-3.8b", "mistral-large-123b")
+OTHERS = tuple(a for a in configs.ARCH_IDS if a not in DENSE)
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_configs_pinned_field_for_field(arch):
+    ref, port = ref_configs.get_config(arch), configs.get_config(arch)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
+    for layer in range(ref.n_layers):
+        assert port.moe_at(layer) == ref.moe_at(layer) and port.attn_at(layer) == ref.attn_at(layer)
+    assert port.applicable_shapes() == ref.applicable_shapes()
+
+
+def test_registry_and_shapes_pinned():
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
+    assert {k: dataclasses.asdict(v) for k, v in configs.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in ref_configs.SHAPES.items()}
+    assert dataclasses.asdict(configs.get_shape("decode_32k")) == dataclasses.asdict(ref_configs.get_shape("decode_32k"))
+    with pytest.raises(ValueError, match="unknown arch"):
+        configs.get_config("gpt-2")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_n_params_equal_at_full_config(arch):
+    """The spec trees count the reference's parameters at the published
+    widths (smollm-360m: about 409 M), and a built model holds them."""
+    cfg, ref_cfg = configs.get_config(arch), ref_configs.get_config(arch)
+    assert common.count_params(lm_specs(cfg)) == ref_build(ref_cfg).n_params
+    model = build(cfg.reduced(), device="cpu")
+    assert model.n_params == ref_build(ref_cfg.reduced()).n_params == sum(p.numel() for p in model.parameters())
+    if arch == "smollm-360m":
+        assert 400e6 < ref_build(ref_cfg).n_params < 420e6
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_build_refuses_unported_families(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP module 12"):
+        build(configs.get_config(arch).reduced(), device="cpu")
+
+
+def _pair(arch, compute_dtype, **over):
+    ref_cfg = dataclasses.replace(ref_configs.get_config(arch).reduced(), compute_dtype=compute_dtype, **over)
+    cfg = dataclasses.replace(configs.get_config(arch).reduced(), compute_dtype=compute_dtype, **over)
+    ref_model = ref_build(ref_cfg)
+    params = ref_model.init(jax.random.PRNGKey(0))
+    model = params_from_jax(build(cfg, device="cpu"), jax.tree_util.tree_map(np.asarray, params))
+    return ref_model, params, model
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+def _greedy_equal_where_clear(port_logits, ref_logits, tol):
+    ref_logits = np.asarray(ref_logits, np.float32)
+    top2 = np.sort(ref_logits, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 2 * tol
+    got = port_logits.float().numpy().argmax(-1)
+    np.testing.assert_array_equal(got[clear], ref_logits.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prompt", [12, 48])
+def test_forward_prefill_decode_match_reference(arch, compute_dtype, prompt):
+    ref_model, params, model = _pair(arch, compute_dtype)
+    tol = TOL[compute_dtype]
+    tokens = np.random.default_rng(prompt).integers(0, model.cfg.vocab_size, (2, prompt)).astype(np.int32)
+    cache_len = prompt + 4
+    _close(model.apply({"tokens": tokens}), ref_model.apply(params, {"tokens": jnp.asarray(tokens)}), tol)
+    ref_logits, ref_cache = jax.jit(lambda p, t: ref_model.prefill(p, {"tokens": t}, cache_len))(
+        params, jnp.asarray(tokens))
+    logits, cache = model.prefill({"tokens": tokens}, cache_len)
+    _close(logits, ref_logits, tol)
+    for name in ("k", "v"):
+        _close(cache[name].float(), ref_cache["blocks"]["0"][name], tol)
+    decode = jax.jit(ref_model.decode_step)
+    nxt = np.array(jnp.argmax(ref_logits[:, -1], -1), np.int32)[:, None]
+    for t in range(3):
+        ref_logits, ref_cache = decode(params, ref_cache, jnp.asarray(nxt), jnp.int32(prompt + t))
+        logits, cache = model.decode_step(cache, nxt, prompt + t)
+        _close(logits, ref_logits, tol)
+        _greedy_equal_where_clear(logits, ref_logits, tol)
+        nxt = np.array(jnp.argmax(ref_logits, -1), np.int32)[:, None]
+    for name in ("k", "v"):
+        _close(cache[name].float(), ref_cache["blocks"]["0"][name], tol)
+
+
+def test_decode_past_the_cache_clamps_like_dynamic_update_slice():
+    """At pos >= cache_len the reference writes K/V at the last slot and every
+    column is live; the port gives the same logits and cache."""
+    ref_model, params, model = _pair("smollm-360m", "float32")
+    tokens = np.arange(10, dtype=np.int32)[None, :] % model.cfg.vocab_size
+    ref_logits, ref_cache = ref_model.prefill(params, {"tokens": jnp.asarray(tokens)}, 10)
+    logits, cache = model.prefill({"tokens": tokens}, 10)
+    nxt = np.array([[3]], np.int32)
+    for pos in (10, 11, 25):
+        ref_logits, ref_cache = ref_model.decode_step(params, ref_cache, jnp.asarray(nxt), jnp.int32(pos))
+        logits, cache = model.decode_step(cache, nxt, pos)
+        _close(logits, ref_logits, TOL["float32"])
+        _close(cache["k"], ref_cache["blocks"]["0"]["k"], TOL["float32"])
+
+
+def test_init_follows_the_specs():
+    """Model.init: normal x 0.02 weights, ones for the norms, from a
+    torch.Generator; the same seed gives the same weights."""
+    cfg = configs.get_config("smollm-360m").reduced()
+    a = build(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+    b = build(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(pa, pb), name
+        if name.endswith(("ln1", "ln2", "ln_f")):
+            assert torch.equal(pa, torch.ones_like(pa))
+        else:
+            assert 0.015 < float(pa.std()) < 0.025, name
+
+
+def test_compute_copies_follow_parameter_changes():
+    """bf16 compute copies are made once and made again after a parameter changes."""
+    cfg = dataclasses.replace(configs.get_config("smollm-360m").reduced(), compute_dtype="bfloat16")
+    model = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    first = model.params()
+    assert model.params() is first and first["embed"].dtype == torch.bfloat16
+    with torch.no_grad():
+        model.ln_f.mul_(2.0)
+    assert model.params() is not first
+    assert torch.equal(model.params()["ln_f"], torch.full_like(first["ln_f"], 2.0))
+
+
+def test_port_arrays_unstack_the_layers_axis():
+    cfg = configs.get_config("smollm-360m").reduced()
+    tree = {"embed": np.zeros((cfg.vocab_size, cfg.d_model)),
+            "stack": {"blocks": {"0": {"ln1": np.arange(cfg.n_layers)[:, None] * np.ones((1, cfg.d_model))}}}}
+    arrays = port_arrays(cfg, tree)
+    assert [float(arrays[f"layers.{i}.ln1"][0]) for i in range(cfg.n_layers)] == list(range(cfg.n_layers))
+    model = build(cfg, device="cpu")
+    with pytest.raises(ValueError, match="parameter trees differ"):
+        params_from_jax(model, tree)
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0), (True, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_attention_paths_match_reference(causal, q_offset, dtype):
+    """chunked_attention and naive_causal_attention with the reference's bf16
+    rounding points (p cast to V's type before PV)."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((2, 32, 6, 16), (2, 48, 2, 16), (2, 48, 2, 16)))
+    tq, tk, tv = (torch.tensor(a).to(getattr(torch, dtype)) for a in (q, k, v))
+    jq, jk, jv = (jnp.array(a).astype(dtype) for a in (q, k, v))
+    tol = TOL[dtype]
+    got = common.chunked_attention(tq, tk, tv, causal=causal, chunk_q=16, chunk_k=16, q_offset=q_offset)
+    want = ref_common.chunked_attention(jq, jk, jv, causal=causal, chunk_q=16, chunk_k=16, q_offset=q_offset)
+    _close(got.float(), want, tol)
+    got = common.naive_causal_attention(tq, tk, tv, causal=causal, q_offset=q_offset)
+    want = ref_common.naive_causal_attention(jq, jk, jv, causal=causal, q_offset=q_offset)
+    _close(got.float(), want, tol)
+
+
+@pytest.mark.parametrize("pos", [0, 20, 47, 60])
+def test_plain_decode_attention_matches_reference(pos):
+    rng = np.random.default_rng(pos)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((2, 1, 6, 16), (2, 48, 2, 16), (2, 48, 2, 16)))
+    got = common.decode_attention(*(torch.tensor(a) for a in (q, k, v)), pos)
+    want = ref_common.decode_attention(*(jnp.array(a) for a in (q, k, v)), jnp.int32(pos))
+    _close(got, want, TOL["float32"])
+
+
+def test_norm_and_rope_match_reference():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    pos = np.arange(5, dtype=np.int32)[None, :].repeat(2, 0)
+    for dtype in ("float32", "bfloat16"):
+        got = common.rope(torch.tensor(x).to(getattr(torch, dtype)), torch.tensor(pos), 1e6)
+        want = ref_common.rope(jnp.array(x).astype(dtype), jnp.array(pos), 1e6)
+        _close(got.float(), want, TOL[dtype])
+    g = rng.standard_normal(16).astype(np.float32)
+    _close(common.rms_norm(torch.tensor(x), torch.tensor(g)), ref_common.rms_norm(jnp.array(x), jnp.array(g)),
+           TOL["float32"])

@@ -1,0 +1,289 @@
+"""The port's serving layer against the reference's, on the CPU.
+
+* ``core.policies`` (the copy that drives the content cache): every registry
+  kind makes the reference's decisions exactly — the same hit sequence and
+  the same resident set after every request — on Zipf traces, in object-count
+  and byte mode.
+* ``ContentCache``: the reference's semantics tests, mirrored.
+* ``ServeEngine`` on the reduced smollm-360m with the reference's weights
+  (``convert.params_from_jax``), against the reference engine on the same
+  requests: the same tokens, stats, ``report()`` keys and counts, and
+  ``window_series``. The reduced config computes in float32, where the two
+  engines' logits differ by about 1e-7, far below the top-2 margins.
+* The engine's own properties: a hit generates what a cold run does, the
+  paper's CHR ordering, the scheduler, and a stored payload that stays
+  bit-unchanged when a hit decodes from it.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.core import policies as ref_policies
+from repro.core import zipf
+from repro.models import build as ref_build
+from repro.serving import ContentCache as RefContentCache
+from repro.serving import Request as RefRequest
+from repro.serving import ServeEngine as RefServeEngine
+from repro.telemetry import TelemetrySpec as RefTelemetrySpec
+from repro_torch.configs import get_config
+from repro_torch.core import policies, registry
+from repro_torch.models import build
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serving import ContentCache, Request, Scheduler, SchedulerConfig, ServeEngine
+from repro_torch.telemetry import TelemetrySpec
+from repro_torch.telemetry.spec import METRIC_INDEX
+
+# (kind, make_policy options): every registry kind, tinylfu's doorkeeper, and
+# plfua_dyn with a refresh that fires several times in the trace
+POLICY_CASES = [(kind, {}) for kind in registry.names(reference=True)] + [
+    ("tinylfu", dict(doorkeeper=256)),
+    ("plfua_dyn", dict(refresh=150, sketch_width=64)),
+    ("wlfu", dict(window=100)),
+]
+
+
+# byte mode for every kind but arc, which has none (both raise)
+SIZED_CASES = [(kind, kw, sized) for kind, kw in POLICY_CASES for sized in (False, True)
+               if not (sized and kind == "arc")]
+
+
+@pytest.mark.parametrize("kind,kw,sized", SIZED_CASES)
+def test_policies_make_the_reference_decisions(kind, kw, sized):
+    n, cap = 120, 12
+    trace = zipf.sample_trace(n, 1500, seed=9)
+    extra = dict(n_objects=n, **kw)
+    if sized:
+        sizes = np.random.default_rng(2).integers(1, 9, n)
+        extra.update(sizes=sizes, capacity_bytes=int(cap * sizes.mean()), max_victims=3)
+    port = policies.make_policy(kind, cap, **extra)
+    ref = ref_policies.make_policy(kind, cap, **extra)
+    for t, x in enumerate(trace.tolist()):
+        assert port.request(x) == ref.request(x), (kind, t)
+        if t % 50 == 0 or t == len(trace) - 1:
+            assert {i for i in range(n) if port.contains(i)} == {i for i in range(n) if ref.contains(i)}, (kind, t)
+    assert port.metadata_entries == ref.metadata_entries
+
+
+def test_policy_names_and_errors_match_reference():
+    assert policies.POLICY_NAMES == ref_policies.POLICY_NAMES
+    for make in (policies.make_policy, ref_policies.make_policy):
+        with pytest.raises(ValueError, match="byte"):
+            make("arc", 4, sizes=np.ones(10, np.int64), capacity_bytes=4)
+    with pytest.raises(ValueError, match="plfua_dyn requires n_objects"):
+        policies.make_policy("plfua_dyn", 4)
+    with pytest.raises(ValueError, match="unknown policy"):
+        policies.make_policy("mru", 4)
+
+
+# ------------------------------------------------------------ content cache
+def test_content_cache_hit_miss_accounting():
+    c = ContentCache(capacity=2, policy="lfu")
+    assert c.lookup(1) is None
+    c.offer(1, "payload-1")
+    assert c.lookup(1) == "payload-1"
+    assert c.stats.hits == 1 and c.stats.misses == 1
+    assert c.stats.mgmt_time_s > 0
+
+
+def test_content_cache_eviction_syncs_payloads():
+    c = ContentCache(capacity=2, policy="lfu")
+    for i in (1, 2):
+        c.lookup(i)
+        c.offer(i, f"p{i}")
+    c.lookup(1)
+    c.lookup(3)
+    c.offer(3, "p3")  # evicts 2 (min freq)
+    assert len(c) == 2
+    assert c.lookup(2) is None
+    assert c.lookup(1) == "p1"
+
+
+def test_plfua_content_cache_rejects_cold():
+    c = ContentCache(capacity=4, policy="plfua", n_objects=100)
+    c.lookup(50)
+    assert not c.offer(50, "x")
+    c.lookup(3)
+    assert c.offer(3, "y")
+
+
+def test_content_cache_byte_accounting_tracks_live_payloads():
+    c = ContentCache(capacity=3, policy="lfu", size_of=len)
+    rng = np.random.default_rng(0)
+    for _ in range(300):
+        obj = int(rng.integers(0, 10))
+        if c.lookup(obj) is None:
+            c.offer(obj, "x" * int(rng.integers(1, 50)))
+        assert c.stats.bytes_stored == sum(len(p) for p in c._payloads.values())
+    assert c.stats.evictions > 0
+    c2 = ContentCache(capacity=2, policy="lfu", size_of=len)
+    c2.lookup(1)
+    c2.offer(1, "abc")
+    c2.lookup(1)
+    c2.offer(1, "defgh")
+    assert c2.stats.bytes_stored == 5
+
+
+# ------------------------------------------------------------------- engine
+@pytest.fixture(scope="module")
+def engines():
+    """The reference's reduced smollm-360m and the port's, with the same weights."""
+    ref_model = ref_build(ref_get_config("smollm-360m").reduced())
+    params = ref_model.init(jax.random.PRNGKey(0))
+    model = params_from_jax(build(get_config("smollm-360m").reduced(), device="cpu"),
+                            jax.tree_util.tree_map(np.asarray, params))
+    return ref_model, params, model
+
+
+def _requests(n_objects=20, n_requests=40, prompt_len=8, seed=0, cls=Request):
+    rng = np.random.default_rng(seed)
+    trace = zipf.sample_trace(n_objects, n_requests, seed=seed)
+    prompts = {i: rng.integers(0, 200, size=prompt_len).astype(np.int32) for i in range(n_objects)}
+    return [cls(obj_id=int(x), tokens=prompts[int(x)], max_new=4) for x in trace]
+
+
+@pytest.mark.parametrize("policy,kw", [("plfua", {}), ("lru", {}), ("tinylfu", {}), ("plfua_dyn", dict(n_objects=20)),
+                                       ("gdsf", dict(sizes=np.arange(2, 22), capacity_bytes=60))])
+def test_engine_matches_reference_engine(engines, policy, kw):
+    ref_model, params, model = engines
+    kw = {"n_objects": 20, **kw}
+    ref = RefServeEngine(ref_model, params, cache_len=16, content_cache=RefContentCache(5, policy=policy, **kw),
+                         telemetry=RefTelemetrySpec(7))
+    port = ServeEngine(model, cache_len=16, content_cache=ContentCache(5, policy=policy, **kw),
+                       telemetry=TelemetrySpec(7))
+    ref_out = ref.run(_requests(seed=4, cls=RefRequest))
+    out = port.run(_requests(seed=4))
+    assert [dataclasses.astuple(r) for r in out] == [dataclasses.astuple(r) for r in ref_out]
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+    ref_report, report = ref.report(), port.report()
+    assert set(report) == set(ref_report)
+    for key in report:
+        if key != "mgmt_time_s":  # host CPU time, measured
+            assert report[key] == ref_report[key], key
+    np.testing.assert_array_equal(port.window_series().numpy(), np.asarray(ref.window_series()))
+
+
+def test_engine_cached_generation_identical(engines):
+    """A content-cache hit produces exactly the generation a cold run does."""
+    model = engines[2]
+    reqs = _requests()
+    cold = ServeEngine(model, cache_len=16)
+    warm = ServeEngine(model, cache_len=16, content_cache=ContentCache(capacity=8, policy="plfu"))
+    out_cold, out_warm = cold.run(reqs), warm.run(reqs)
+    for a, b in zip(out_cold, out_warm):
+        assert a.new_tokens == b.new_tokens, (a.obj_id, a.new_tokens, b.new_tokens)
+    assert warm.stats.prefill_tokens_saved > 0
+    assert (warm.stats.prefill_tokens_computed + warm.stats.prefill_tokens_saved
+            == cold.stats.prefill_tokens_computed)
+
+
+def test_engine_policy_chr_ordering(engines):
+    """Paper ordering at the serving layer: PLFU >= LFU on a Zipf workload."""
+    model = engines[2]
+    reqs = _requests(n_objects=30, n_requests=120, seed=3)
+    chrs = {}
+    for policy in ("lfu", "plfu", "plfua"):
+        eng = ServeEngine(model, cache_len=16, content_cache=ContentCache(capacity=5, policy=policy, n_objects=30))
+        eng.run(reqs)
+        chrs[policy] = eng.content.stats.chr
+    assert chrs["plfu"] >= chrs["lfu"] - 0.02
+    assert chrs["plfua"] >= chrs["plfu"] - 0.02
+
+
+def test_scheduler_batches_and_deadlines(engines):
+    eng = ServeEngine(engines[2], cache_len=16)
+    sched = Scheduler(eng, SchedulerConfig(max_batch=4, deadline_s=1e9))
+    for r in _requests(n_requests=10):
+        sched.submit(r)
+    assert len(sched.drain()) == 10
+    assert sched.stats.batches == 3  # 4 + 4 + 2
+    sched2 = Scheduler(eng, SchedulerConfig(max_batch=4, deadline_s=-1.0))
+    for r in _requests(n_requests=5):
+        sched2.submit(r, now=0.0)
+    assert sched2.drain() == []
+    assert sched2.stats.dropped == 5
+
+
+def test_hit_leaves_the_stored_payload_unchanged(engines):
+    """Decode writes K/V in place; a hit decodes on a copy, so the payload in
+    the content cache is bit-unchanged for the next hit."""
+    model = engines[2]
+    cache = ContentCache(capacity=4, policy="lru")
+    eng = ServeEngine(model, cache_len=16, content_cache=cache)
+    req = _requests(n_requests=1)[0]
+    first = eng.generate(req)
+    stored_cache, pos, logits = cache._payloads[req.obj_id]
+    snapshot = {k: v.clone() for k, v in stored_cache.items()}, logits.clone()
+    second = eng.generate(req)
+    third = eng.generate(req)
+    assert second.prefill_skipped and third.prefill_skipped
+    assert first.new_tokens == second.new_tokens == third.new_tokens
+    for name, tensor in stored_cache.items():
+        assert torch.equal(tensor, snapshot[0][name]), name
+    assert torch.equal(logits, snapshot[1]) and pos == len(req.tokens)
+
+
+def test_engine_copies_the_kv_cache_only_when_the_content_cache_holds_it(engines, monkeypatch):
+    """Decode writes in place: a miss the policy does not admit decodes on
+    prefill's own KV cache, with no copy; an admitted miss decodes on a copy,
+    so the stored payload stays what prefill gave."""
+    model = engines[2]
+    prefilled, decoded = [], []
+    prefill, decode_step = model.prefill, model.decode_step
+
+    def prefill_spy(batch, cache_len):
+        out = prefill(batch, cache_len)
+        prefilled.append(out[1])
+        return out
+
+    def decode_spy(cache, tokens, pos):
+        decoded.append(cache)
+        return decode_step(cache, tokens, pos)
+
+    monkeypatch.setattr(model, "prefill", prefill_spy)
+    monkeypatch.setattr(model, "decode_step", decode_spy)
+    content = ContentCache(capacity=4, policy="plfua", n_objects=20)  # admits the hot set, ids 0-7
+    eng = ServeEngine(model, cache_len=16, content_cache=content)
+    tokens = np.arange(1, 9, dtype=np.int32)
+    eng.generate(Request(15, tokens, max_new=2))
+    assert 15 not in content._payloads and decoded[0] is prefilled[0]
+    eng.generate(Request(1, tokens, max_new=2))
+    stored = content._payloads[1][0]
+    assert stored is prefilled[1] and decoded[2] is not stored
+    _, fresh = prefill({"tokens": torch.as_tensor(tokens)[None, :]}, 16)
+    for name in stored:
+        assert torch.equal(stored[name], fresh[name]), name
+
+
+def test_engine_sized_window_series_roundtrip(engines):
+    """A sized content cache reports real byte traffic in window_series."""
+    model = engines[2]
+    n_objects = 20
+    sizes = np.arange(2, 2 + n_objects, dtype=np.int64)
+    reqs = _requests(n_objects=n_objects, n_requests=30, seed=11)
+    eng = ServeEngine(model, cache_len=16, telemetry=TelemetrySpec(8),
+                      content_cache=ContentCache(capacity=8, policy="gdsf", n_objects=n_objects, sizes=sizes,
+                                                 capacity_bytes=64))
+    eng.run(reqs)
+    series = eng.window_series()
+    req_w, hit_w = series[:, METRIC_INDEX["requests"]], series[:, METRIC_INDEX["hits"]]
+    hb_w, mb_w = series[:, METRIC_INDEX["hit_bytes"]], series[:, METRIC_INDEX["miss_bytes"]]
+    assert int(req_w.sum()) == len(reqs)
+    assert int(hb_w.sum()) > int(hit_w.sum()) > 0
+    assert int(hb_w.sum() + mb_w.sum()) == sum(int(sizes[r.obj_id]) for r in reqs)
+
+
+def test_engine_report_and_errors(engines):
+    model = engines[2]
+    eng = ServeEngine(model, cache_len=16, content_cache=ContentCache(capacity=8, policy="plfu"))
+    eng.run(_requests(n_requests=20))
+    rep = eng.report()
+    assert rep["mgmt_time_s"] > 0 and rep["cache_hits"] + rep["cache_misses"] == 20
+    assert "mgmt_time_s" not in ServeEngine(model, cache_len=16).report()
+    with pytest.raises(ValueError, match="telemetry requires a content cache"):
+        ServeEngine(model, cache_len=16, telemetry=TelemetrySpec(4))
+    with pytest.raises(ValueError, match="without telemetry"):
+        eng.window_series()
