@@ -10,7 +10,9 @@ sources: ``cache_sim`` (lru, lfu, plfu, plfua), ``cache_sim/wlfu``,
 gdsf under a byte budget), ``cache_sim/plfua_dyn_bytes`` (plfua_dyn under a
 byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``. ``flash_attention``
 (``csrc/flash_attention.cu``) has two instances, ``flash_attention/prefill``
-(many query rows a block) and ``flash_attention/decode`` (one row a block).
+(bf16: wgmma on TMA-staged tiles of 128 query rows; f32: CUDA cores) and
+``flash_attention/decode`` (a kv head's query rows a block, its keys split over
+blocks and merged by the last one).
 Two main paths: the paper's grid through cache_sim, and the serving path
 (smollm-360m at full width behind the content cache, every attention call
 through the flash kernel). Phases, one line each (or one line per item):
@@ -19,7 +21,8 @@ through the flash kernel). Phases, one line each (or one line per item):
 2. build   — nvcc builds the six cache_sim sources and the flash source from
              ``src/repro_torch/kernels/*/csrc``, one process each, all started
              together; prints ptxas's register and shared-memory report for
-             each kernel.
+             each kernel, and the count of HGMMA (wgmma) instructions in each
+             bf16 prefill kernel's SASS (``cuobjdump``), which must be > 0.
 3. check   — each program against its plain PyTorch version, exact on hits,
              freq, in_cache, inserts and (sized runs) hit bytes, at S = 12:
              lru/lfu/plfu/plfua at T = 10,000 and (N, cap) = (100, 2),
@@ -79,13 +82,15 @@ through the flash kernel). Phases, one line each (or one line per item):
              case in float32 (atol = rtol = 2e-5) and bfloat16 (atol 1e-4,
              rtol 2**-7: one rounding of the output): tests/test_kernels_flash.py's
              8 SWEEP rows and its kv_len = 100 case with garbage past it; the
-             served shapes (1, 15, 5, 64): causal prefill at 2,048 and 16,384,
-             decode against a cache of 2,056 at kv_len 1, 2,049 and 2,056; a
-             D = 128 prefill (1, 24, 8, 1,024). For each served case it also
-             reads a deliberately wrong plain version (the causal bound one
-             64-key tile early; decode with one live key dropped, or one garbage
-             key let in at kv_len 1) against the same tolerance, which must
-             reject it, and prints what the former 2e-2 tolerance read for it.
+             edges of the prefill tiles and the decode splits (tests/test_torch_cuda.py's
+             FLASH_EDGES); the served shapes (1, 15, 5, 64): causal prefill at
+             2,048 and 16,384, decode against a cache of 2,056 at kv_len 1,
+             2,049 and 2,056; a D = 128 prefill (1, 24, 8, 1,024). For each
+             served case it also reads deliberately wrong plain versions (the
+             causal bound one 64-key tile early, and in bf16 p rounded to bf16
+             before P V; decode with one live key dropped, or one garbage key
+             let in at kv_len 1) against the same tolerance, which must reject each,
+             and prints what the former 2e-2 tolerance read for them.
 9. serve   — smollm-360m at full width (32 layers, d_model 960, 15 heads, 5 KV
              heads, ~409 M parameters), weights from ``--seed`` through
              ``Model.init``, bf16 compute: the reference launcher's traffic (20
@@ -102,10 +107,14 @@ through the flash kernel). Phases, one line each (or one line per item):
              margin exceeds it.
 11. measure — the flash kernel at the served shapes (causal prefill 2,048;
              decode at kv_len 2,056) with its bound, plain version and
-             ``scaled_dot_product_attention`` (timed only); the engine's
+             ``scaled_dot_product_attention`` (timed only), each timed on the
+             device with the host ahead (``torch.cuda._sleep`` holds the
+             device until all 50 calls are queued) beside the host's µs a
+             call and the old back-to-back figure; the prefill at 16,384 and
+             the decode's grid (blocks, rows a block) too; the engine's
              prefill ms and tokens/s, decode ms a token, J a generated token at
-             the power limit, and the device's idle share over one request's
-             decode (``torch.profiler``).
+             the power limit, and the device's busy time and idle share over
+             one prefill and one request's decode (``torch.profiler``).
 12. kernels — one JSON line, an entry per kernel instance, with the trace
              lengths of cache_sim's time (``T``) and plain version's
              (``plain_T``) and the flash instances' shapes.
@@ -120,6 +129,7 @@ import concurrent.futures
 import json
 import math
 import multiprocessing
+import shutil
 import subprocess
 import sys
 import time
@@ -639,13 +649,20 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:42"  # _flash_kernel
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet)
 BF16_FLOPS_PER_S = 989e12
+#: torch.cuda._sleep's cycles a second: the H100's top SM clock (1,980 MHz), so a sleep is at least as
+#: long as asked
+SLEEP_CYCLES_PER_S = 1.98e9
+#: the least sleep before timed calls: room for the host's jitter when few calls are queued
+SLEEP_MIN_S = 0.02
 #: (atol, rtol) of the kernel against its plain version. Both accumulate the same f32 function
 #: (p in f32) from the same inputs: in float32 they differ by summation order; in bfloat16 by
 #: one rounding of the output, 1 bf16 ulp (rtol 2**-7 covers 1 to 2 ulps), above a floor of 1e-4
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2**-7)}
 #: the tolerance the flash check had before, printed beside each wrong version's reading
 FLASH_OLD_BF16_TOL = (2e-2, 2e-2)
-#: (B, H, KH, Sq, Skv, D, causal, kv_len): tests/test_kernels_flash.py's SWEEP, and its kv_len case
+#: (B, H, KH, Sq, Skv, D, causal, kv_len): tests/test_kernels_flash.py's SWEEP, its kv_len case, and
+#: the edges of the prefill's 128-row, 64-key tiles and of the decode splits (tests/test_torch_cuda.py's
+#: FLASH_EDGES)
 FLASH_SWEEP = (
     (1, 2, 2, 128, 128, 64, True, None),
     (2, 4, 2, 128, 128, 64, True, None),
@@ -656,6 +673,17 @@ FLASH_SWEEP = (
     (1, 2, 2, 1, 512, 64, False, None),
     (1, 16, 8, 1, 300, 128, False, None),
     (1, 4, 4, 1, 256, 64, False, 100),
+    (1, 4, 2, 17, 17, 64, True, None),
+    (1, 4, 2, 100, 100, 64, True, None),
+    (1, 4, 2, 100, 160, 64, True, 130),
+    (1, 4, 4, 200, 90, 64, False, None),
+    (1, 16, 2, 150, 150, 64, True, None),
+    (1, 4, 2, 130, 130, 16, True, None),
+    (1, 4, 2, 130, 200, 128, False, 180),
+    (1, 15, 5, 1, 530, 64, False, 40),
+    (1, 15, 5, 1, 48, 64, False, None),
+    (8, 32, 32, 1, 300, 64, False, None),
+    (2, 16, 2, 16, 700, 16, True, 650),
 )
 #: the served model's shapes (1, 15, 5, 64): causal prefill at 2,048 and 16,384, decode against a
 #: cache of 2,056 at kv_len 1, 2,049 and 2,056; and a D = 128 prefill
@@ -684,13 +712,30 @@ def flash_inputs(b, h, kh, sq, skv, d, dtype, seed, kv_len=None):
     return q, k, v
 
 
-def flash_plain(q, k, v, *, causal, kv_len, shift=0):
+def bf16_p_attention(q, k, v, *, causal, scale, kv_len, q_offset):
+    """A deliberately wrong version: ``naive_attention`` with p rounded to
+    bf16 before P V, as one bf16 wgmma operand would take it."""
+    group = q.shape[1] // k.shape[1]
+    kq, vq = (torch.repeat_interleave(x, group, dim=1).float() for x in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * scale
+    col = torch.arange(k.shape[2], device=q.device)[None, :]
+    live = col < kv_len
+    if causal:
+        live = live & (col <= q_offset + torch.arange(q.shape[2], device=q.device)[:, None])
+    s = torch.where(live, s, torch.tensor(-1e30, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pv = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vq)
+    return (pv / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def flash_plain(q, k, v, *, causal, kv_len, shift=0, attention=naive_attention):
     """The plain version with the query rows in chunks of FLASH_PLAIN_ROWS
     (which bounds the scores' memory at 16,384 rows); ``shift`` moves the
-    causal bound that many rows (a deliberately wrong version when not 0)."""
+    causal bound that many rows, and ``attention=bf16_p_attention`` rounds p
+    (deliberately wrong versions)."""
     scale, kv_len = flash.check_inputs(q, k, v, kv_len=kv_len)
-    return torch.cat([naive_attention(q[:, :, r0:r0 + FLASH_PLAIN_ROWS], k, v, causal=causal, scale=scale,
-                                      kv_len=kv_len, q_offset=r0 + shift)
+    return torch.cat([attention(q[:, :, r0:r0 + FLASH_PLAIN_ROWS], k, v, causal=causal, scale=scale,
+                                kv_len=kv_len, q_offset=r0 + shift)
                       for r0 in range(0, q.shape[2], FLASH_PLAIN_ROWS)], dim=2)
 
 
@@ -704,14 +749,19 @@ def tol_ratio(got, want, tol, rows=None) -> float:
     return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
-def flash_wrong(q, k, v, causal, kv_len) -> tuple[str, torch.Tensor]:
-    """A deliberately wrong version of the case, from the plain version."""
+def flash_wrong(q, k, v, causal, kv_len) -> list[tuple[str, torch.Tensor]]:
+    """Deliberately wrong versions of the case, from the plain version (p
+    rounded to bf16: in bf16, where it is the single-operand design's error)."""
     if causal:
-        return f"causal bound {FLASH_WRONG_SHIFT} keys early", flash_plain(
-            q, k, v, causal=True, kv_len=kv_len, shift=-FLASH_WRONG_SHIFT)
+        wrong = [(f"causal bound {FLASH_WRONG_SHIFT} keys early",
+                  flash_plain(q, k, v, causal=True, kv_len=kv_len, shift=-FLASH_WRONG_SHIFT))]
+        if q.dtype == torch.bfloat16:
+            wrong.append(("p rounded to bf16",
+                          flash_plain(q, k, v, causal=True, kv_len=kv_len, attention=bf16_p_attention)))
+        return wrong
     if kv_len > 1:
-        return "last live key dropped", flash_plain(q, k, v, causal=False, kv_len=kv_len - 1)
-    return "one garbage key let in", flash_plain(q, k, v, causal=False, kv_len=kv_len + 1)
+        return [("last live key dropped", flash_plain(q, k, v, causal=False, kv_len=kv_len - 1))]
+    return [("one garbage key let in", flash_plain(q, k, v, causal=False, kv_len=kv_len + 1))]
 
 
 def flash_checks(seed: int) -> dict:
@@ -734,18 +784,18 @@ def flash_checks(seed: int) -> dict:
         instance = flash.instance_of(sq)
         worst[instance] = max(worst[instance], err)
         text = ""
-        if served:
-            what, wrong = flash_wrong(q, k, v, causal, kv_len or skv)
+        for what, wrong in (flash_wrong(q, k, v, causal, kv_len or skv) if served else []):
             late = slice(sq // 2, sq) if causal else None
             wrong_ratio, wrong_late = tol_ratio(wrong, want, tol), tol_ratio(wrong, want, tol, late)
             old = FLASH_OLD_BF16_TOL if dtype == torch.bfloat16 else tol
-            text = (f" wrong_version={what!r} wrong_max_abs_err={float((wrong.float() - want.float()).abs().max())} "
-                    f"wrong_tol_ratio={wrong_ratio} wrong_tol_ratio_late_rows={wrong_late} "
-                    f"wrong_old_tol_ratio={tol_ratio(wrong, want, old)} "
-                    f"wrong_old_tol_ratio_late_rows={tol_ratio(wrong, want, old, late)} "
-                    f"mean_abs_out={float(want.float().abs().mean())}")
+            text += (f" wrong_version={what!r} wrong_max_abs_err={float((wrong.float() - want.float()).abs().max())} "
+                     f"wrong_tol_ratio={wrong_ratio} wrong_tol_ratio_late_rows={wrong_late} "
+                     f"wrong_old_tol_ratio={tol_ratio(wrong, want, old)} "
+                     f"wrong_old_tol_ratio_late_rows={tol_ratio(wrong, want, old, late)}")
             require(wrong_ratio > 1, f"the flash tolerance does not reject a wrong version ({what}) at "
                     f"{(b, h, kh, sq, skv, d, causal, dtype, kv_len)}: ratio {wrong_ratio}")
+        if served:
+            text += f" mean_abs_out={float(want.float().abs().mean())}"
         print(f"[flash check] instance={instance} B={b} H={h} KH={kh} Sq={sq} Skv={skv} D={d} causal={causal} "
               f"dtype={str(dtype).split('.')[-1]} kv_len={kv_len} max_abs_err={err} tol_ratio={ratio} "
               f"atol={tol[0]} rtol={tol[1]} finite={bool(torch.isfinite(got).all())}{text} "
@@ -880,6 +930,33 @@ def events_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
+def device_ms(fn, repeats: int) -> dict:
+    """``fn``'s device time with the host ahead of the device: after a
+    warm-up, ``torch.cuda._sleep`` holds the stream while the host queues
+    ``repeats`` calls between two CUDA events, so the events time the
+    kernels alone and not the host's work between launches. Also the host's
+    µs a call (the queueing, timed once back to back), the old back-to-back
+    figure (events around calls the host issues as the device runs them),
+    and whether the host stayed ahead (the first event still pending when
+    the last call was queued)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    host_us = (time.perf_counter() - t0) / repeats * 1e6
+    back_to_back = events_ms(fn, repeats)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(max(3 * repeats * host_us * 1e-6, SLEEP_MIN_S) * SLEEP_CYCLES_PER_S))
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    return dict(ms=start.elapsed_time(end) / repeats, host_us=host_us, back_to_back_ms=back_to_back, ahead=ahead)
+
+
 def flash_bound(h, kh, sq, kv_len, d, causal, elem_bytes) -> dict:
     """The least time for one call: bytes (q and o once, the live K/V rows
     once) over the HBM rate against 4 D flops a live (row, key) pair over the
@@ -892,23 +969,40 @@ def flash_bound(h, kh, sq, kv_len, d, causal, elem_bytes) -> dict:
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def flash_measure(seed: int, worst: dict, by_instance: dict) -> list[dict]:
+def flash_measure(seed: int, worst: dict, by_instance: dict, sms: int) -> list[dict]:
     """The kernel at the served shapes (causal prefill at 2,048; decode at
     kv_len 2,056), its plain version and SDPA (timed only, never called by
-    the port), with CUDA events; the ``kernels`` line's flash entries."""
+    the port), device times with the host ahead; the prefill at 16,384 too
+    (the kernel and SDPA only).
+    Returns the ``kernels`` line's flash entries (the served shapes)."""
     entries = []
-    shapes = {flash.INSTANCES[0]: (1, 15, 5, SERVE_PROMPT, SERVE_PROMPT, 64, True, None),
-              flash.INSTANCES[1]: (1, 15, 5, 1, SERVE_CACHE_LEN, 64, False, SERVE_CACHE_LEN)}
-    for instance, (b, h, kh, sq, skv, d, causal, kv_len) in shapes.items():
+    shapes = [(flash.INSTANCES[0], (1, 15, 5, SERVE_PROMPT, SERVE_PROMPT, 64, True, None)),
+              (flash.INSTANCES[1], (1, 15, 5, 1, SERVE_CACHE_LEN, 64, False, SERVE_CACHE_LEN)),
+              (flash.INSTANCES[0], (1, 15, 5, LONG_PROMPT, LONG_PROMPT, 64, True, None))]
+    for instance, (b, h, kh, sq, skv, d, causal, kv_len) in shapes:
         q, k, v = flash_inputs(b, h, kh, sq, skv, d, torch.bfloat16, seed)
-        kernel_ms = events_ms(lambda: flash.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len), 50)
-        plain_ms = events_ms(lambda: flash.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len), 5)
-        library_ms = events_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True), 50)
+        kernel = device_ms(lambda: flash.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len), 50)
+        library = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True), 50)
+        require(kernel["ahead"] and library["ahead"], f"the host fell behind the device timing {instance} at Sq={sq}")
+        kernel_ms, library_ms = kernel["ms"], library["ms"]
+        # the plain version at the kernels line's shapes only
+        plain_ms = events_ms(lambda: flash_plain(q, k, v, causal=causal, kv_len=kv_len), 5) if sq <= SERVE_PROMPT else None
         bnd = flash_bound(h, kh, sq, kv_len or skv, d, causal, q.element_size())
+        grid = ""
+        if instance == flash.INSTANCES[1]:
+            row_groups, n_split, split_keys = flash.decode_plan(b, h, kh, sq, kv_len or skv, sms)
+            blocks = b * kh * row_groups * n_split
+            require(blocks > b * h, f"the decode runs {blocks} blocks, not more than B * H = {b * h}")
+            grid = (f" blocks={blocks} (B*KH={b * kh} x row_groups={row_groups} x splits={n_split} of "
+                    f"{split_keys} keys) rows_a_block={h // kh * sq} (B*H={b * h})")
         print(f"[flash measure] instance={instance} B={b} H={h} KH={kh} Sq={sq} Skv={skv} kv_len={kv_len or skv} "
-              f"D={d} causal={causal} dtype=bfloat16 ms={kernel_ms} plain_ms={plain_ms} sdpa_ms={library_ms} "
+              f"D={d} causal={causal} dtype=bfloat16 ms={kernel_ms} host_us={kernel['host_us']} "
+              f"back_to_back_ms={kernel['back_to_back_ms']} plain_ms={plain_ms} sdpa_ms={library_ms} "
+              f"sdpa_host_us={library['host_us']} sdpa_back_to_back_ms={library['back_to_back_ms']} "
               f"bound_ms={bnd['bound_ms']} bound_by={bnd['bound_by']} flops={bnd['flops']} bytes={bnd['bytes']} "
-              f"tflops={bnd['flops'] / kernel_ms / 1e9} gb_per_s={bnd['bytes'] / kernel_ms / 1e6}", flush=True)
+              f"tflops={bnd['flops'] / kernel_ms / 1e9} gb_per_s={bnd['bytes'] / kernel_ms / 1e6}{grid}", flush=True)
+        if sq == LONG_PROMPT:
+            continue  # printed only: the kernels line holds the served shapes
         entries.append({
             "name": instance, "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "launches": by_instance[instance], "max_abs_err": worst[instance], "ms": kernel_ms, "plain_ms": plain_ms,
@@ -919,14 +1013,18 @@ def flash_measure(seed: int, worst: dict, by_instance: dict) -> list[dict]:
 
 
 def serve_measure(model, seed: int, card) -> None:
-    """The engine's numbers on the card: a request's prefill (device ms and
-    tokens/s), its decode (ms a token, as the engine runs it: argmax, host
-    sync, decode step), J a generated token at the card's power limit, and
-    the device's idle share over one request's decode (torch.profiler)."""
+    """The engine's numbers on the card: a request's prefill (ms between CUDA
+    events around the call, and tokens/s), its decode (ms a token, as the
+    engine runs it: argmax, host sync, decode step), J a generated token at
+    the card's power limit, and the device's busy time and idle share over
+    one prefill and over one request's decode (torch.profiler)."""
     t0 = time.perf_counter()
     reqs, _ = serve_requests(model.cfg.vocab_size, seed)
     tokens = torch.as_tensor(reqs[0].tokens, device="cuda")[None, :]
     prefill_ms = events_ms(lambda: model.prefill({"tokens": tokens}, SERVE_CACHE_LEN), 3)
+    # the device's busy time and idle share over one prefill: is the host or the device its bound?
+    prefill_trace = timing.profile(model.prefill, {"tokens": tokens}, SERVE_CACHE_LEN,
+                                   profile_dir=Path(__file__).resolve().parent / "build" / "profile_prefill")
     logits, cache = model.prefill({"tokens": tokens}, SERVE_CACHE_LEN)
     first = logits[:, -1, :].clone()
     del logits
@@ -944,11 +1042,31 @@ def serve_measure(model, seed: int, card) -> None:
     request_j = energy.device_energy_j((prefill_ms + decode_ms * SERVE_NEW) / 1e3, card.power_limit_w)
     trace = tm.trace
     print(f"[serve measure] prompt={SERVE_PROMPT} prefill_ms={prefill_ms} prefill_tokens_per_s="
-          f"{SERVE_PROMPT / prefill_ms * 1e3} decode_ms_per_token={decode_ms} decode_tokens_per_s={1e3 / decode_ms} "
+          f"{SERVE_PROMPT / prefill_ms * 1e3} prefill_trace_kernels={prefill_trace.kernels} "
+          f"prefill_busy_s={prefill_trace.busy_s} prefill_span_s={prefill_trace.span_s} "
+          f"prefill_idle_share={prefill_trace.idle_share} "
+          f"decode_ms_per_token={decode_ms} decode_tokens_per_s={1e3 / decode_ms} "
           f"decode_j_per_token={tm.j_per_step} request_j_per_generated_token={request_j / SERVE_NEW} "
           f"decode_trace_kernels={trace.kernels} decode_busy_s={trace.busy_s} decode_span_s={trace.span_s} "
           f"decode_idle_share={trace.idle_share} power_limit_w={card.power_limit_w} card={card.label!r} "
           f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+
+def hgmma_counts(lib) -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each bf16 prefill kernel of
+    the flash library (``cuobjdump --dump-sass``), by kernel name."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib.path)], check=True, capture_output=True,
+                          text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if "prefill_tc_kernel" in name:
+                counts[name] = 0
+        elif name in counts and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def ptxas_report(lib) -> list[str]:
@@ -999,6 +1117,10 @@ def main() -> int:
             report = ptxas_report(lib)
             require(bool(report), f"ptxas printed no register report for {lib.path.name}")
             print(f"[build] library={lib.path.name} ptxas={report}")
+        hgmma = hgmma_counts(flash_lib.result())
+        require(len(hgmma) == len(flash.HEAD_DIMS) and all(n > 0 for n in hgmma.values()),
+                f"a bf16 prefill kernel without wgmma in its SASS: {hgmma}")
+        print(f"[build] flash bf16 prefill HGMMA instructions by kernel: {json.dumps(hgmma)}")
         print(f"[build] sources={len(built)} programs={len(kernel.PROGRAMS)} + flash_attention "
               f"elapsed_s={time.perf_counter() - t0:.3f}")
 
@@ -1158,7 +1280,7 @@ def main() -> int:
     serve_check(model, seed)
 
     # 11. measure: the kernel at the served shapes beside its bound, plain version and SDPA; the engine
-    entries += flash_measure(seed, worst, by_instance)
+    entries += flash_measure(seed, worst, by_instance, sms)
     serve_measure(model, seed, card)
 
     # 12. kernels

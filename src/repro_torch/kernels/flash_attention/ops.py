@@ -13,10 +13,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
 
     CUDA tensors launch the kernel; CPU tensors run the plain version. There is
     no other path. ``block_q`` and ``block_k`` are the reference's tile sizes:
-    they must be positive and do not change the output; the kernel's tiles
-    follow the head dim (``128 / P`` query rows and ``128 / P`` keys a tile,
-    ``P = max(1, D / 32)`` threads a row), so they do not change its tiling
-    either.
+    they must be positive and do not change the output, nor the kernel's
+    tiling, which is its own: in bf16, prefill runs wgmma on TMA-staged tiles
+    of 128 query rows and 64 keys; in f32, the CUDA cores take ``128 / P``
+    rows and keys a tile (``P = max(1, D / 32)`` threads a row); decode (at
+    most 16 query rows) takes a kv head's query rows a block and splits its
+    live keys over blocks so that they fill the SMs.
     """
     for name, value in (("block_q", block_q), ("block_k", block_k)):
         if int(value) < 1:

@@ -232,8 +232,24 @@ def test_measure_profile_dir_traces_the_kernel(cuda_device, tmp_path):
 
 # ------------------------------------------------------------ flash attention
 # (B, H, KH, Sq, Skv, D, causal, dtype, kv_len): tests/test_kernels_flash.py's
-# SWEEP, its kv_len case, and the served model's shapes at a shorter context
-# in both dtypes
+# SWEEP, its kv_len case, the served model's shapes at a shorter context in
+# both dtypes, and the edges of the prefill's 128-row, 64-key tiles and of the
+# decode splits, in both dtypes
+FLASH_EDGES = [
+    (1, 4, 2, 17, 17, 64, True, None),      # prefill rows not a multiple of the query tile
+    (1, 4, 2, 100, 100, 64, True, None),
+    (1, 4, 2, 100, 160, 64, True, 130),     # causal with kv_len < Skv, Sq != Skv
+    (1, 4, 4, 200, 90, 64, False, None),    # Sq > Skv, GQA group 1
+    (1, 16, 2, 150, 150, 64, True, None),   # GQA group 8
+    (1, 4, 2, 130, 130, 16, True, None),    # D = 16
+    (1, 4, 2, 130, 200, 128, False, 180),   # D = 128: two 64-column boxes a row
+    (1, 15, 5, 1, 2_056, 64, False, 1),     # decode: kv_len 1
+    (1, 15, 5, 1, 530, 64, False, 40),      # kv_len below one split's keys: one split
+    (1, 15, 5, 1, 2_056, 64, False, 2_049), # kv_len not a multiple of the 27 splits
+    (1, 15, 5, 1, 48, 64, False, None),     # Skv below one split's keys: one split
+    (8, 32, 32, 1, 300, 64, False, None),   # more kv heads than SMs: one split
+    (2, 16, 2, 16, 700, 16, True, 650),     # 128 rows of a kv head: 4 row groups, causal
+]
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True, torch.float32, None),
     (2, 4, 2, 128, 128, 64, True, torch.float32, None),
@@ -247,7 +263,8 @@ FLASH_CASES = [
     (2, 4, 2, 9, 40, 16, True, torch.float32, 30),
 ] + [(1, 15, 5, sq, skv, 64, sq > 1, dtype, kv_len)
      for sq, skv, kv_len in ((520, 520, None), (1, 530, 1), (1, 530, 517))
-     for dtype in (torch.bfloat16, torch.float32)]
+     for dtype in (torch.bfloat16, torch.float32)] + [
+    (*case[:7], dtype, case[7]) for case in FLASH_EDGES for dtype in (torch.bfloat16, torch.float32)]
 #: (atol, rtol) of the kernel against its plain version
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2**-7)}
 
@@ -287,11 +304,58 @@ def test_flash_kernel_matches_plain(cuda_device, exact_f32, b, h, kh, sq, skv, d
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+def _flash_inputs(b, h, kh, sq, skv, d, dtype, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, n, s, d, generator=gen, device=device).to(dtype)
+            for n, s in ((h, sq), (kh, skv), (kh, skv))]
+
+
+@pytest.mark.cuda
+def test_flash_decode_twice_in_a_row_resets_its_merge_counters(cuda_device):
+    """Two decode launches in a row on one stream, at the served shape (27
+    splits merged by the last block of each kv head): the second finds its
+    counters at 0 and gives the first's output bit for bit, and both leave
+    every counter at 0."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v = _flash_inputs(1, 15, 5, 1, 2_056, 64, torch.bfloat16, 5, cuda_device)
+    first = fa.flash_attention_cuda(q, k, v, causal=False, kv_len=2_000)
+    second = fa.flash_attention_cuda(q, k, v, causal=False, kv_len=2_000)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(second, first, rtol=0, atol=0)
+    want = fa.flash_attention_plain(q, k, v, causal=False, kv_len=2_000)
+    torch.testing.assert_close(first.float(), want.float(), atol=1e-4, rtol=2**-7)
+    assert fa._COUNTERS and all(int(c.abs().sum()) == 0 for c in fa._COUNTERS.values())
+
+
+@pytest.mark.cuda
+def test_flash_tolerance_rejects_p_rounded_to_bf16(cuda_device, exact_f32):
+    """At (1, 15, 5, 520) bf16 causal, the kernel (p as a bf16 pair into the
+    tensor cores) passes the bf16 tolerance against the plain version (p in
+    f32), and a deliberately wrong plain version that rounds p to bf16 before
+    P V fails it: the tolerance tells the two designs apart."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v = _flash_inputs(1, 15, 5, 520, 520, 64, torch.bfloat16, 520 * 7 + 520, cuda_device)
+    want = fa.flash_attention_plain(q, k, v, causal=True).float()
+    kq, vq = (x.repeat_interleave(3, dim=1).float() for x in (k, v))
+    s = (q.float() @ kq.transpose(-1, -2)) / 8.0
+    s = s.masked_fill(torch.ones(520, 520, dtype=torch.bool, device=cuda_device).triu(1), -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    wrong = ((p.to(torch.bfloat16).float() @ vq) / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+    got = fa.flash_attention_cuda(q, k, v, causal=True).float()
+
+    def ratio(x):
+        return float(((x - want).abs() / (1e-4 + 2**-7 * want.abs())).max())
+
+    assert ratio(got) <= 1 < ratio(wrong)
+
+
 @pytest.mark.cuda
 def test_flash_ops_launches_or_raises_on_the_card(cuda_device):
     """ops.flash_attention on CUDA tensors runs the kernel (counted) and
     raises on what it does not take: an unsupported head dim, tensors on two
-    devices."""
+    devices, a bf16 row stride that the kernel's 16-byte reads cannot take."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
@@ -304,6 +368,9 @@ def test_flash_ops_launches_or_raises_on_the_card(cuda_device):
         flash_ops.flash_attention(odd, odd, odd)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention_cuda(q, q.cpu(), q)
+    odd_rows = torch.randn(1, 2, 8, 68, device=cuda_device).to(torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16 bytes at a time"):
+        flash_ops.flash_attention(odd_rows, odd_rows, odd_rows)
     assert sum(fa.LAUNCHES.values()) == before + 1
 
 

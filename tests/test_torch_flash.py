@@ -195,11 +195,108 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
 
 def test_launch_signature_matches_the_c_entry():
     """The ctypes argument types, one for one, are the C entry's parameters
-    (4 pointers, 12 int64 strides, 8 ints, the float scale, 3 ints, the
-    stream): a mismatch would cut a pointer or shift every argument."""
+    (4 pointers, 12 int64 strides, 8 ints, the float scale, 4 ints, the
+    decode scratch and counters, the device, the stream): a mismatch would cut
+    a pointer or shift every argument."""
     src = fa.SOURCE.read_text()
     decl = src[src.index('extern "C" int flash_attention_launch('):]
     params = decl[decl.index("(") + 1:decl.index(")")].split(",")
     c_types = {"const void*": fa._PTR, "void*": fa._PTR, "long long": fa._LONG, "int": fa._INT,
                "float": ctypes.c_float}
     assert [c_types[" ".join(p.split()[:-1])] for p in params] == list(fa.ARGTYPES)
+
+
+# (B, H, KH, Sq, kv_end, SMs): the served decode (kv_len 1, 2,049, 2,056, the
+# 16,384-token request's), GQA group 8 with 16 rows (row groups), more kv heads
+# than SMs, a kv_len below one split's keys, and a long cache on few blocks
+PLAN_CASES = [
+    (1, 15, 5, 1, 1, 132), (1, 15, 5, 1, 2_049, 132), (1, 15, 5, 1, 2_056, 132), (1, 15, 5, 1, 16_388, 132),
+    (2, 16, 2, 16, 650, 132), (8, 32, 32, 1, 300, 132), (1, 15, 5, 1, 40, 132), (1, 1, 1, 1, 20_000, 132),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,kv_end,sms", PLAN_CASES)
+def test_decode_plan_covers_the_live_keys_once(b, h, kh, sq, kv_end, sms):
+    """The decode splits cover [0, kv_end) once each and none is empty; there
+    are as many as fill the SMs, at most one per DECODE_MIN_SPLIT_KEYS keys
+    and at most DECODE_MAX_SPLITS; a block holds at most DECODE_BLOCK_ROWS
+    query rows of one kv head."""
+    row_groups, n_split, split_keys = fa.decode_plan(b, h, kh, sq, kv_end, sms)
+    starts = [i * split_keys for i in range(n_split)]
+    ends = [min(s0 + split_keys, kv_end) for s0 in starts]
+    assert starts[0] == 0 and ends[-1] == kv_end and all(e > s0 for s0, e in zip(starts, ends))
+    assert all(e == s1 for e, s1 in zip(ends, starts[1:]))
+    assert row_groups * fa.DECODE_BLOCK_ROWS >= (h // kh) * sq > (row_groups - 1) * fa.DECODE_BLOCK_ROWS
+    want = -(-sms // (b * kh * row_groups))
+    assert n_split == min(want, -(-kv_end // fa.DECODE_MIN_SPLIT_KEYS), fa.DECODE_MAX_SPLITS)
+
+
+def test_decode_plan_at_the_served_shape():
+    """smollm-360m's decode (1, 15, 5) against a cache of 2,056 on 132 SMs: 27
+    splits of 77 keys, 5 x 27 = 135 blocks (more than B * H = 15), each block
+    the 3 query heads of one kv head; kv_len 1 runs one block a kv head."""
+    assert fa.decode_plan(1, 15, 5, 1, 2_056, 132) == (1, 27, 77)
+    assert fa.decode_plan(1, 15, 5, 1, 1, 132) == (1, 1, 1)
+    with pytest.raises(ValueError, match="live key"):
+        fa.decode_plan(1, 15, 5, 1, 0, 132)
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("make,why", [
+    # the model's (B, S, H, D) projections and its (B, S, KH, D) cache, as transposed views
+    (lambda: _bf16(1, 2_048, 15, 64).transpose(1, 2), None),
+    (lambda: _bf16(1, 2_056, 5, 64).transpose(1, 2), None),
+    (lambda: _bf16(1, 8, 24, 128).transpose(1, 2), None),
+    (lambda: _bf16(2, 3, 64, 32), None),
+    # a dim of one element may have any stride
+    (lambda: _bf16(1, 1, 5, 16).as_strided((1, 1, 5, 16), (7, 3, 16, 1)), None),
+    (lambda: _bf16(4 * 64 * 64 + 1)[1:].view(1, 4, 64, 64), "base address"),
+    (lambda: _bf16(1, 4, 64, 68)[..., :64], "stride of dim 2 is 136 bytes"),
+    (lambda: torch.zeros(1, 2, 8, 66)[..., :64], "stride of dim 2 is 264 bytes"),
+])
+def test_layout_check_takes_the_model_layouts_and_refuses_misaligned_ones(make, why):
+    """The 16-byte reads' layout check (TMA for the bf16 prefill, vector
+    copies for decode), on CPU tensors: the model's views pass; a misaligned
+    base or a row stride that is not a multiple of 16 bytes raises."""
+    a = make()
+    assert (fa.layout_error(a) is None) == (why is None)
+    if why is None:
+        fa.check_layouts(q=a)
+    else:
+        assert why in fa.layout_error(a)
+        with pytest.raises(ValueError, match="q cannot be read 16 bytes at a time"):
+            fa.check_layouts(q=a)
+
+
+def _attention_with_p(q, k, v, p_as):
+    """Causal attention with f32 scores and softmax, P V with p as the kernel
+    designs could feed the tensor cores: ``"bf16"`` (one bf16 rounding of p)
+    or ``"hi_lo"`` (p as bf16(p) + bf16(p - bf16(p)), two products summed in
+    f32); the output rounded to q's dtype once."""
+    b, h, sq, d = q.shape
+    group = h // k.shape[1]
+    kq, vq = (x.repeat_interleave(group, dim=1).float() for x in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) / d ** 0.5
+    s = s.masked_fill(torch.ones(sq, k.shape[2], dtype=torch.bool).triu(1), -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    pv = hi @ vq if p_as == "bf16" else hi @ vq + (p - hi).to(torch.bfloat16).float() @ vq
+    return (pv / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def test_bf16_tolerance_tells_one_rounding_of_p_from_hi_lo():
+    """At the served widths (1, 15, 5) with 520 causal rows in bf16, the
+    kernel's tolerance against the plain version (p in f32; atol 1e-4, rtol
+    2**-7: one rounding of the output) rejects p rounded once to bf16 before
+    P V (12.99 here) and takes the kernel's design, p as a bf16 pair (0.90)."""
+    (q, k, v), _ = _inputs((1, 15, 520, 64), (1, 5, 520, 64), "bfloat16", seed=0)
+    want = naive_attention(q, k, v, causal=True).float()
+
+    def ratio(got):
+        return float(((got.float() - want).abs() / (1e-4 + 2**-7 * want.abs())).max())
+
+    assert ratio(_attention_with_p(q, k, v, "bf16")) > 1
+    assert ratio(_attention_with_p(q, k, v, "hi_lo")) <= 1
