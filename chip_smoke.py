@@ -8,7 +8,10 @@ sources: ``cache_sim`` (lru, lfu, plfu, plfua), ``cache_sim/wlfu``,
 ``cache_sim/tinylfu`` (with or without the doorkeeper),
 ``cache_sim/plfua_dyn``, ``cache_sim/sized`` (gdsf, and lru/lfu/plfu/plfua/
 gdsf under a byte budget), ``cache_sim/plfua_dyn_bytes`` (plfua_dyn under a
-byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``. ``flash_attention``
+byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``; ``cache_sim`` and
+``cache_sim/sized`` take their victims from a heap of the residents in shared
+memory (``kernel.heap_plan`` says where a call puts its heap slots and rows),
+the others from a block-wide scan. ``flash_attention``
 (``csrc/flash_attention.cu``) has two instances, ``flash_attention/prefill``
 (bf16: wgmma on TMA-staged tiles of 128 query rows; f32: CUDA cores) and
 ``flash_attention/decode`` (a kv head's query rows a block, its keys split over
@@ -35,7 +38,10 @@ through the flash kernel). Phases, one line each (or one line per item):
              200) and (100,000, 2,000) with T = 20,000; a max_victims=2 case
              whose bound is hit; arc at (100, 2), (10,000, 200) and (100,000,
              2,000) with T = 20,000
-             on Zipf and scan traces, its directory size included. With unit
+             on Zipf and scan traces, its directory size included; lfu and gdsf
+             at the grid's largest heap (100,000, 25,000) on a scan trace of
+             36,000 requests that fills it and evicts about 5,000 times a
+             sample. Each heap program's line names its heap plan. With unit
              sizes and capacity_bytes == capacity each byte program must give
              the object-count program's outputs. The plain version runs on the
              card for N > 10,000 and in CPU worker processes, overlapping the
@@ -61,7 +67,9 @@ through the flash kernel). Phases, one line each (or one line per item):
              size): the kernel's time from CUDA events after a warm-up, the
              plain version's time once at T = 10,000 (the kernel is held to it
              there), and the least time the card could take (bound: the bytes
-             moved, or the operations the function needs, see ``bound``).
+             moved, or the operations the function needs, see ``bound``); the
+             µs a request of a sample's chain, and for the heap programs the
+             heap's slots and where its slots and rows lie.
 7. telemetry — each program's two telemetry instances (``+telemetry`` and
              ``+telemetry_grouped``, W = T // 16, 4 tenant groups): checks,
              exact against the plain version, ungrouped on Zipf and grouped on
@@ -173,6 +181,10 @@ ADMISSION_CHECK_CASES = (
 SIZED_CHECK_CASES = ((10_000, 200, 20_000), (100_000, 2_000, 20_000))
 SIZED_CHECK_LEN = 20_000  # the max_victims and unit-size checks, at N = 10,000
 ARC_CHECK_CASES = ((100, 2, 20_000), (10_000, 200, 20_000), (100_000, 2_000, 20_000))
+#: (N, cap, T, scan options): the grid's largest heap (25,000 slots, 200,000 B of shared
+#: memory), filled by one sweep over 95 % of the trace and then evicting about 5,000 times a sample
+HEAP_CHECK_CASE = (100_000, 25_000, 36_000, dict(n_sweeps=1, sweep_len_frac=0.95))
+HEAP_CHECK_KINDS = ("lfu", "gdsf")
 # the largest N whose plain version runs in a CPU worker, not on the card
 CPU_PLAIN_MAX_N = 10_000
 CPU_WORKERS = 6
@@ -261,6 +273,18 @@ def catalogue(dist: str, n: int) -> np.ndarray:
     return generators.object_sizes(n, dist=dist, corr=0.5, seed=11, median=64)
 
 
+def plan_text(spec, sizes=None) -> str:
+    """Where a heap program's call puts its heap slots and rows ('' for the
+    other programs)."""
+    if kernel.program_of(spec.kind, spec.capacity_bytes) not in kernel.HEAP_PROGRAMS:
+        return ""
+    size_range = (1, 1) if sizes is None else (int(np.min(sizes)), int(np.max(sizes)))
+    plan = kernel.heap_plan(spec, size_range)
+    heap = f"shared,device_past={plan.shared_slots}" if plan.can_move else "shared"
+    return (f" heap_slots={plan.slots} heap={heap} rows={'shared' if plan.rows_shared else 'device'} "
+            f"shared_bytes={plan.shared_bytes}")
+
+
 def option_text(spec, sizes_dist: str | None = None) -> str:
     """The options a kind runs with, after the defaults are filled in."""
     kind, opts = spec.kind, {}
@@ -329,8 +353,8 @@ class Checks:
         torch.cuda.synchronize()
         got = {k: v.cpu() for k, v in got.items()}
         line = (f"[check {label}] program={program} n_objects={n} capacity={cap} T={trace_len} "
-                f"options={option_text(spec, sizes_dist)} hits={int(got['hits'].sum())} "
-                f"inserts={int(got['inserts'].sum())}")
+                f"options={option_text(spec, sizes_dist)}{plan_text(spec, kw.get('sizes'))} "
+                f"hits={int(got['hits'].sum())} inserts={int(got['inserts'].sum())}")
         if "argmins" in got:
             line += f" dir_size={got['dir_size'].tolist()} argmins={int(got['argmins'].sum())}"
         if "series" in got:
@@ -404,6 +428,13 @@ def run_checks(checks: Checks, seed: int) -> None:
     for n, cap in BASE_CHECK_CASES:
         for kind in BASE_KINDS:
             checks.run(kind, kind, n, cap, BASE_CHECK_LEN)
+    n, cap, trace_len, scan_kw = HEAP_CHECK_CASE
+    scan = generators.scan(n, SAMPLES, trace_len, seed=seed, **scan_kw)
+    for kind in HEAP_CHECK_KINDS:
+        got = checks.run(f"{kind} largest heap", kind, n, cap, trace_len, traces=scan)
+        evictions = int(got["inserts"].sum()) - int(got["in_cache"].sum())
+        require(evictions >= 1_000 * SAMPLES and int(got["in_cache"].sum()) == cap * SAMPLES,
+                f"the largest-heap check of {kind} did not fill the heap and evict: {evictions} evictions")
     for n, cap, trace_len, explicit in ADMISSION_CHECK_CASES:
         for kind in ADMISSION_KINDS:
             variants = [{}]
@@ -1246,8 +1277,10 @@ def main() -> int:
         b = bound(program, got, spec, card, sms, MEASURE_N if spec.size_aware else 0)
         kernel_ms = tm.execute_s * 1e3
         print(f"[measure {program}] kind={kind} N={MEASURE_N} cap={MEASURE_CAP} S={SAMPLES} T={MEASURE_LEN} "
-              f"options={option_text(spec, 'lognormal' if spec.size_aware else None)} "
+              f"options={option_text(spec, 'lognormal' if spec.size_aware else None)}"
+              f"{plan_text(spec, kw.get('sizes'))} "
               f"kernel_ms={kernel_ms} kernel_mean_ms={tm.mean_execute_s * 1e3} repeats={tm.repeats} "
+              f"us_per_request={kernel_ms * 1e3 / MEASURE_LEN} "
               f"plain_ms={plain_ms} plain_T={PLAIN_MEASURE_LEN} {' '.join(f'{k}={v}' for k, v in b.items())} "
               f"(peak = {sms} SMs x {INT32_LANES_PER_SM} lanes x {card.max_sm_clock_mhz} MHz) "
               f"j_per_request={tm.j_per_step} max_abs_err={err} card={card.label!r} "

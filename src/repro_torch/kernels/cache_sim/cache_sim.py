@@ -84,7 +84,7 @@ PROGRAMS = {
     p.name: p
     for p in (
         Program("cache_sim", _CSRC / "cache_sim.cu", "cache_sim_launch",
-                (_PTR,) * 7 + (_INT,) * 9 + (_PTR,)),
+                (_PTR,) * 9 + (_INT,) * 12 + (_PTR,)),
         Program("cache_sim/wlfu", _CSRC / "wlfu.cu", "wlfu_launch",
                 (_PTR,) * 9 + (_INT,) * 8 + (_PTR,)),
         Program("cache_sim/tinylfu", _CSRC / "tinylfu.cu", "tinylfu_launch",
@@ -94,7 +94,7 @@ PROGRAMS = {
         Program("cache_sim/plfua_dyn_bytes", _CSRC / "plfua_dyn.cu", "plfua_dyn_bytes_launch",
                 (_PTR,) * 13 + (_INT,) * 12 + (_PTR,)),
         Program("cache_sim/sized", _CSRC / "sized.cu", "sized_launch",
-                (_PTR,) * 11 + (_INT,) * 11 + (_PTR,)),
+                (_PTR,) * 12 + (_INT,) * 14 + (_PTR,)),
         Program("cache_sim/arc", _CSRC / "arc.cu", "arc_launch",
                 (_PTR,) * 10 + (_INT,) * 7 + (_PTR,)),
     )
@@ -115,6 +115,62 @@ BYTES_PROGRAM_OF = {
 }
 #: kinds the kernel runs under a byte budget: the reference kernel's
 BYTE_CAPABLE_KINDS = tuple(k for k in KERNEL_KINDS if k in BYTES_PROGRAM_OF)
+
+#: the programs whose victims come from a heap of the residents (the others scan for them)
+HEAP_PROGRAMS = ("cache_sim", "cache_sim/sized")
+#: dynamic shared memory a block can have on Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+SHARED_BYTES = 232_448
+_SLOT_BYTES = 8  # a heap slot: (key, id) packed in 64 bits
+_ROW_BYTES = 8  # an id's entries in the rows: its slot (pos) and its count (freq)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeapPlan:
+    """Where a heap program keeps its heap and rows, per sample: ``slots``
+    bounds the ids the cache can ever hold; the heap lies in shared memory,
+    which holds ``shared_slots`` slots, and a heap that outgrows them moves
+    to an ``(S, slots)`` device buffer (none where every slot fits); with
+    ``rows_shared`` the per-id rows (pos, freq) lie in shared memory beside
+    the slots, else in ``(S, N)`` device buffers."""
+
+    slots: int
+    shared_slots: int
+    rows_shared: bool
+    n_objects: int
+
+    @property
+    def shared_bytes(self) -> int:
+        """The block's dynamic shared memory (the kernel's own count)."""
+        return self.shared_slots * _SLOT_BYTES + self.rows_shared * self.n_objects * _ROW_BYTES
+
+    @property
+    def can_move(self) -> bool:
+        """Whether the heap can outgrow shared memory (and needs the device buffer)."""
+        return self.slots > self.shared_slots
+
+
+def heap_plan(spec: torch_cache.PolicySpec, size_range: tuple[int, int] | None = None) -> HeapPlan:
+    """The heap program's layout for ``spec`` (``size_range``: the smallest
+    and largest size of a byte-mode run's row). The slots bound the cached
+    ids exactly: lru's stamps and the counts stay below INT_MAX, so the
+    cache holds ``max(capacity, 1)`` ids (one with ``capacity`` <= 0), or in
+    byte mode at most ``cap_bytes // min(sizes)`` unless ``cap_bytes +
+    max(sizes)`` can wrap; gdsf's scores can reach INT_MAX, where the
+    reference's victim may be an id that is not cached and the cache may
+    outgrow its count, so gdsf takes N. The heap takes shared memory first;
+    the rows join it only if both fit."""
+    n = spec.n_objects
+    if spec.kind == "gdsf":
+        slots = n
+    elif spec.capacity_bytes:
+        lo, hi = size_range
+        slots = n if spec.capacity_bytes + hi > _I32_MAX else min(n, spec.capacity_bytes // lo)
+    else:
+        slots = min(n, max(spec.capacity, 1))
+    if (slots * _SLOT_BYTES + n * _ROW_BYTES) <= SHARED_BYTES:
+        return HeapPlan(slots, slots, True, n)
+    return HeapPlan(slots, min(slots, SHARED_BYTES // _SLOT_BYTES), False, n)
+
 
 #: the suffixes of a program's telemetry instances: ungrouped and per tenant group
 TELEMETRY_SUFFIXES = ("+telemetry", "+telemetry_grouped")
@@ -200,22 +256,24 @@ def _check_traces(traces: torch.Tensor, n_objects: int) -> None:
             raise ValueError(f"trace ids must lie in [0, {n_objects}), got [{int(lo)}, {int(hi)}]")
 
 
-def _sizes_row(spec: torch_cache.PolicySpec, sizes, device) -> torch.Tensor | None:
+def _sizes_row(spec: torch_cache.PolicySpec, sizes, device) -> tuple[torch.Tensor | None, tuple[int, int] | None]:
     """The ``(N,)`` int32 size row a size-aware spec runs with (unit sizes for
-    ``None``), contiguous on ``device``; ``None`` for a spec that ignores
-    sizes, as the reference kernel ignores them. Raises on a wrong shape and
-    on a size below 1 (gdsf divides by it)."""
+    ``None``), contiguous on ``device``, and its (smallest, largest) size;
+    ``(None, None)`` for a spec that ignores sizes, as the reference kernel
+    ignores them. Raises on a wrong shape and on a size below 1 (gdsf
+    divides by it)."""
     if not spec.size_aware:
-        return None
+        return None, None
     n = spec.n_objects
     if sizes is None:
-        return torch.ones(n, dtype=torch.int32, device=device)
+        return torch.ones(n, dtype=torch.int32, device=device), (1, 1)
     sizes = torch.as_tensor(sizes, dtype=torch.int32, device=device).contiguous()
     if tuple(sizes.shape) != (n,):
         raise ValueError(f"sizes must have shape ({n},), got {tuple(sizes.shape)}")
-    if n and int(sizes.min()) < 1:
+    lo, hi = (int(v) for v in torch.aminmax(sizes))
+    if lo < 1:
         raise ValueError("sizes must be >= 1")
-    return sizes
+    return sizes, (lo, hi)
 
 
 def telemetry_options(n_objects: int, telemetry_window: int = 0, n_groups: int = 0, groups=None,
@@ -259,16 +317,19 @@ def _derived_inserts(traces: torch.Tensor, hits: torch.Tensor, spec: torch_cache
 
 
 def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torch.Tensor | None,
-                 telemetry: telemetry_spec.TelemetrySpec | None = None, groups: torch.Tensor | None = None):
+                 telemetry: telemetry_spec.TelemetrySpec | None = None, groups: torch.Tensor | None = None,
+                 size_range: tuple[int, int] | None = None):
     """The kind's program, its outputs (zeroed) with the scratch it needs, and
     the C entry's arguments before the device and the stream, on the tensors'
     own device. The outputs also hold (under ``_`` names) every tensor whose
     pointer the arguments carry besides ``traces``: the sizes and group rows
-    and the scratch (score row, tags, ring, sketch rows, bloom, hot mask,
-    estimates, per-group resident counts), so that none is freed before the
-    launch; once it has been queued the caching allocator hands them out
-    again only in stream order, after it. With ``telemetry`` the outputs gain
-    the zeroed ``series``."""
+    and the scratch (the heap programs' slot row and device heap,
+    tags, ring, sketch rows, bloom, hot mask, estimates, per-group resident
+    counts), so that none is freed before the launch; once it has been
+    queued the caching allocator hands them out again only in stream order,
+    after it. With ``telemetry`` the outputs gain the zeroed ``series``. A
+    heap program lays out its heap by :func:`heap_plan` (``size_range`` is
+    ``_sizes_row``'s)."""
     s, t = traces.shape
     n = spec.n_objects
     dev = traces.device
@@ -285,17 +346,22 @@ def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torc
         outs["_resident"] = zeros(s, n_groups) if n_groups else None
     tel = ptr(outs.get("series"), groups, outs.get("_resident"))
     dims = [s, t, n]
+    if program in HEAP_PROGRAMS:
+        plan = heap_plan(spec, size_range)
+        outs["_pos"] = None if plan.rows_shared else torch.empty((s, n), dtype=torch.int32, device=dev)
+        outs["_heap"] = torch.empty((s, plan.slots), dtype=torch.int64, device=dev) if plan.can_move else None
+        heap = ptr(outs["_pos"], outs["_heap"])
+        layout = [plan.slots, plan.shared_slots, int(plan.rows_shared), window, n_groups]
     if program == "cache_sim":
-        return program, outs, ptr(traces, hits, freq, in_cache) + tel + dims + [
-            _KIND_CODE[spec.kind], spec.capacity, spec.effective_hot, window, n_groups]
+        return program, outs, ptr(traces, hits, freq, in_cache) + heap + tel + dims + [
+            _KIND_CODE[spec.kind], spec.capacity, spec.effective_hot] + layout
     if sizes is not None:
         outs["hit_bytes"] = zeros(s, dtype=torch.int64)
     if program == "cache_sim/sized":
-        outs["_score"] = zeros(s, n) if spec.kind == "gdsf" else zeros(1)
-        return program, outs, ptr(traces, sizes, hits, inserts, outs["hit_bytes"], freq, in_cache,
-                                  outs["_score"]) + tel + dims + [
+        return program, outs, ptr(traces, sizes, hits, inserts, outs["hit_bytes"], freq,
+                                  in_cache) + heap + tel + dims + [
             _KIND_CODE[spec.kind], spec.capacity, spec.effective_hot, spec.capacity_bytes,
-            spec.effective_max_victims if spec.capacity_bytes else 0, window, n_groups]
+            spec.effective_max_victims if spec.capacity_bytes else 0] + layout
     if program == "cache_sim/arc":
         outs.update(dir_size=zeros(s), argmins=zeros(s), _lst=zeros(s, n, dtype=torch.uint8))
         return program, outs, ptr(traces, hits, outs["dir_size"], outs["argmins"], freq, in_cache,
@@ -340,7 +406,8 @@ def cache_sim_cuda(traces: torch.Tensor, *, kind: str, n_objects: int, capacity:
     _check_traces(traces, n_objects)
     dev = traces.device
     telemetry, groups = telemetry_options(n_objects, telemetry_window, n_groups, groups, dev)
-    program, outs, args = _launch_args(spec, traces, _sizes_row(spec, sizes, dev), telemetry, groups)
+    sizes, size_range = _sizes_row(spec, sizes, dev)
+    program, outs, args = _launch_args(spec, traces, sizes, telemetry, groups, size_range)
     if traces.shape[0]:
         # the arguments' tensors live in outs until the launch is queued
         built = library(program)
@@ -371,7 +438,7 @@ def cache_sim_plain(traces: torch.Tensor, *, kind: str, n_objects: int, capacity
                    capacity_bytes, max_victims)
     _check_traces(traces, n_objects)
     telemetry, groups = telemetry_options(n_objects, telemetry_window, n_groups, groups, traces.device)
-    sizes = _sizes_row(spec, sizes, traces.device)
+    sizes, _ = _sizes_row(spec, sizes, traces.device)
     run = torch_cache.simulate_batch(spec, traces, telemetry, sizes=sizes, groups=groups, device=traces.device)
     hit_series, state = run[0], run[1]
     hits = hit_series.sum(dim=1, dtype=torch.int32)

@@ -1,11 +1,14 @@
 // Device helpers shared by the cache_sim programs (cache_sim.cu, wlfu.cu, tinylfu.cu,
-// plfua_dyn.cu, sized.cu, arc.cu): the block-wide lexicographic argmin that picks a victim
-// (over the cached ids, or over any set of ids a mask names), byte mode's bounded
-// multi-victim loop, block-wide sums, int32 arithmetic that wraps as the reference's, and
-// the count-min sketch's lowbias32 hashing.
+// plfua_dyn.cu, sized.cu, arc.cu): the residents' heap that gives cache_sim.cu and sized.cu
+// their victims, the block-wide lexicographic argmin that the other programs still scan for
+// one (over the cached ids, or over any set of ids a mask names), byte mode's bounded
+// multi-victim loop over that argmin, block-wide sums, int32 arithmetic that wraps as the
+// reference's, and the count-min sketch's lowbias32 hashing.
 //
-// Every program runs one thread block per sample with blockDim.x a multiple of 32, and
-// calls these helpers from all threads of the block (each holds __syncthreads()).
+// What bounds a program on this card is its chain of T dependent steps, not bytes or
+// operations: the argmin costs N compares from L2 and block barriers on every victim, the
+// heap ceil(log2 slots) levels of dependent reads in shared memory. The argmin helpers are
+// called from all threads of a block (each holds __syncthreads()); the heap is one thread's.
 
 #pragma once
 
@@ -85,6 +88,168 @@ __device__ int block_argmin_of(const int* key, Mask in_set, int n, int* s_key, i
 __device__ __forceinline__ int block_argmin(const int* key, const unsigned char* in_cache, int n,
                                             int* s_key, int* s_id) {
   return block_argmin_of(key, CachedMask{in_cache}, n, s_key, s_id);
+}
+
+// ------------------------------------------------------------------ the residents' heap
+// A binary min-heap of the cached ids, ordered by (key, id) as `precedes` orders them, so its
+// top is the reference's victim: the argmin of where(cached, key, INT_MAX), ties to the lowest
+// id. One thread owns it. Each slot is one 64-bit word, ((uint32)key ^ 0x80000000) << 32 | id,
+// so that one unsigned compare is the lexicographic one, for signed and wrapped keys alike.
+// `pos[id]` is the id's slot, or -1 for an id that is not cached: the hit test.
+//
+// The slots lie in shared memory; a heap that would outgrow them moves, once, into a device
+// buffer that holds every slot the cache can need (no grid case does). Every access goes
+// through that one pointer: a test on each access (shared or device slot?) costs the step
+// more than generic addressing does (experiments/cache_sim_variants.py).
+//
+// The program keeps each cached id's key in its slot: only a request's id and the victims
+// change a key within a step, and it re-keys, pushes or pops them. The heap also keeps one
+// id's slot in a register (`watch`, `watch_pos`): the next request's, loaded a step ahead so
+// that its latency overlaps the step; every write of a slot keeps that register true.
+
+__device__ __forceinline__ unsigned long long heap_entry(int key, int id) {
+  return static_cast<unsigned long long>(static_cast<uint32_t>(key) ^ 0x80000000u) << 32 |
+         static_cast<uint32_t>(id);
+}
+
+__device__ __forceinline__ int entry_id(unsigned long long e) {
+  return static_cast<int>(static_cast<uint32_t>(e));
+}
+
+__device__ __forceinline__ int entry_key(unsigned long long e) {
+  return static_cast<int>(static_cast<uint32_t>(e >> 32) ^ 0x80000000u);
+}
+
+struct ResidentHeap {
+  unsigned long long* slot;    // shared memory, or `device` once the heap has moved there
+  int capacity;                // the slots at `slot`
+  unsigned long long* device;  // `device_capacity` slots in device memory, or null
+  int device_capacity;
+  int* pos;
+  int size = 0;
+  int watch = -1;     // the next request's id
+  int watch_pos = -1; // and its slot
+
+  __device__ __forceinline__ void set_pos(int id, int i) {
+    pos[id] = i;
+    if (id == watch) watch_pos = i;
+  }
+
+  // Load `id`'s slot ahead of the step that requests it.
+  __device__ __forceinline__ void look_ahead(int id) {
+    watch = id;
+    watch_pos = pos[id];
+  }
+
+  __device__ __forceinline__ void put(int i, unsigned long long e) {
+    slot[i] = e;
+    set_pos(entry_id(e), i);
+  }
+
+  __device__ void sift_up(int i, unsigned long long e) {
+    while (i > 0) {
+      const int parent = (i - 1) / 2;
+      const unsigned long long pe = slot[parent];
+      if (pe < e) break;
+      put(i, pe);
+      i = parent;
+    }
+    put(i, e);
+  }
+
+  __device__ void sift_down(int i, unsigned long long e) {
+    for (;;) {
+      int c = 2 * i + 1;
+      if (c >= size) break;
+      unsigned long long ce = slot[c];
+      if (c + 1 < size) {
+        const unsigned long long c2 = slot[c + 1];
+        if (c2 < ce) {
+          ce = c2;
+          ++c;
+        }
+      }
+      if (e < ce) break;
+      put(i, ce);
+      i = c;
+    }
+    put(i, e);
+  }
+
+  __device__ void push(int key, int id) {
+    if (size == capacity) {
+      // outgrown shared memory: the slots move to the device buffer (positions stay)
+      for (int i = 0; i < size; ++i) device[i] = slot[i];
+      slot = device;
+      capacity = device_capacity;
+    }
+    sift_up(size++, heap_entry(key, id));
+  }
+
+  // The cached id at slot i takes `key`: up or down (a gdsf re-price can lower a key).
+  __device__ __forceinline__ void rekey(int i, int key, int id) {
+    const unsigned long long e = heap_entry(key, id);
+    if (e < slot[i]) sift_up(i, e);
+    else sift_down(i, e);
+  }
+
+  // The reference's victim, without removing it: the top, with `cached` set and its key in
+  // `key`. Two cases keep the argmin exact where the top is not its answer, both id 0, not
+  // cached: an empty heap (capacity <= 0 before anything is cached), and a top at INT_MAX that
+  // is not id 0, where every id's masked key is INT_MAX (no grid case reaches it: lru's stamps
+  // and the counts stay below T, and only a gdsf score that wraps can land on INT_MAX).
+  __device__ __forceinline__ int victim(bool& cached, int& key) const {
+    if (size > 0) {
+      const unsigned long long top = slot[0];
+      key = entry_key(top);
+      cached = key != INT_MAX || entry_id(top) == 0;
+      if (cached) return entry_id(top);
+    }
+    cached = false;
+    return 0;
+  }
+
+  // Remove the top (the victim `victim` named, when cached).
+  __device__ __forceinline__ void pop() {
+    set_pos(entry_id(slot[0]), -1);
+    if (--size > 0) sift_down(0, slot[size]);
+  }
+};
+
+// Where a heap program keeps its heap and rows, as the wrapper's `heap_plan` chose them:
+// dynamic shared memory holds `shared_slots` heap slots, then, with `rows_shared`, `n_rows`
+// int rows of n_objects ids (pos first); otherwise the rows are the sample's rows of device
+// buffers. A sample's heap can need `slots` slots; past `shared_slots` it moves to its row of
+// an (S, slots) device buffer.
+struct HeapLayout {
+  int slots;
+  int shared_slots;
+  int rows_shared;
+};
+
+// Bytes of dynamic shared memory a block of `layout` takes.
+inline size_t heap_shared_bytes(const HeapLayout& layout, int n_objects, int n_rows) {
+  return static_cast<size_t>(layout.shared_slots) * sizeof(unsigned long long) +
+         (layout.rows_shared ? static_cast<size_t>(n_rows) * n_objects * sizeof(int) : 0);
+}
+
+// Thread 0 of each block keeps the trace's next lines coming into L2 ahead of its loads.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+#endif
+}
+
+// Set the instance's dynamic shared memory limit to `bytes` and launch it: one block of one
+// warp a sample. Returns the first CUDA error (a refused limit or launch).
+template <class Kernel, class... Args>
+cudaError_t launch_heap_kernel(Kernel kernel, int n_samples, size_t bytes, cudaStream_t stream,
+                               Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<n_samples, kWarp, bytes, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------- int32 as the reference wraps it

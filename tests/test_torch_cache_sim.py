@@ -58,6 +58,18 @@ SWEEP = [
     ("arc", 64, 9, 3, 400, {}),
     ("arc", 130, 3, 2, 500, {}),
     ("arc", 16, 1, 2, 300, {}),
+    # the heap programs' edges: capacity <= 0 (one resident; the first victim is id 0, not
+    # cached: lfu zeroes its count, gdsf's credit takes its score), ties among equal keys on a
+    # cyclic trace (each id equally often), and gdsf holding every id
+    ("lfu", 64, 0, 3, 400, {}),
+    ("lfu", 64, -3, 3, 400, {}),
+    ("lru", 64, 0, 3, 400, {}),
+    ("lru", 64, -3, 3, 400, {}),
+    ("gdsf", 64, 0, 3, 400, {}),
+    ("gdsf", 64, -3, 3, 400, {}),
+    ("lfu", 40, 7, 2, 400, dict(trace="cyclic")),
+    ("plfu", 40, 7, 2, 400, dict(trace="cyclic")),
+    ("gdsf", 64, 64, 2, 300, {}),
 ]
 
 
@@ -69,13 +81,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _traces(n, s, t, seed=100):
+def _traces(n, s, t, seed=100, trace="zipf"):
+    """Zipf traces, or (``trace="cyclic"``) ids 0..n-1 in turn, shifted a step a sample."""
+    if trace == "cyclic":
+        return np.stack([(np.arange(t) + i) % n for i in range(s)]).astype(np.int32)
     return np.stack([ref_zipf.sample_trace(n, t, seed=seed + i) for i in range(s)]).astype(np.int32)
 
 
 @pytest.mark.parametrize("kind,n,cap,s,t,kw", SWEEP)
 def test_port_matches_reference_kernel(kind, n, cap, s, t, kw):
-    traces = _traces(n, s, t)
+    kw = dict(kw)
+    traces = _traces(n, s, t, trace=kw.pop("trace", "zipf"))
     hits_r, freq_r, cache_r = ref_ops.cache_sim(
         traces, kind=kind, n_objects=n, capacity=cap, interpret=True, **kw
     )
@@ -215,10 +231,41 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert port_kernel.LAUNCHES == before
 
 
+@pytest.mark.parametrize("kind,n,cap,kw,size_range,slots", [
+    ("lfu", 100, 25, {}, None, 25),
+    ("lru", 64, 0, {}, None, 1),  # capacity <= 0 holds one resident
+    ("lfu", 64, -3, {}, None, 1),
+    ("plfua", 64, 200, {}, None, 64),  # never more than N
+    ("gdsf", 5000, 40, {}, None, 5000),  # a wrapped score can reach INT_MAX: N
+    ("lru", 5000, 40, dict(capacity_bytes=900), (3, 40), 300),
+    ("lfu", 5000, 40, dict(capacity_bytes=2), (3, 40), 0),  # nothing fits
+    ("lfu", 5000, 40, dict(capacity_bytes=2**31 - 10), (1, 20), 5000),  # cap_bytes + size can wrap
+    ("gdsf", 5000, 40, dict(capacity_bytes=900), (3, 40), 5000),
+])
+def test_heap_plan_bounds_the_cached_ids(kind, n, cap, kw, size_range, slots):
+    """The heap's slots are the most ids the cache can hold, and the plan never asks for more
+    shared memory than a block has."""
+    plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, cap, **kw), size_range)
+    assert plan.slots == slots and plan.shared_bytes <= port_kernel.SHARED_BYTES
+    assert plan.can_move == (plan.shared_slots < plan.slots)
+
+
+@pytest.mark.parametrize("kind", ["lru", "lfu", "plfu", "plfua", "gdsf"])
+def test_heap_plan_on_the_paper_grid(kind):
+    """On the paper's grid no heap outgrows shared memory: the base kinds' rows join it up to
+    N = 21,544, gdsf's (N slots) up to N = 10,000."""
+    for case in ref_zipf.paper_grid():
+        n, cap = case.n_objects, case.cache_size
+        plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, cap), (1, 1))
+        assert plan.shared_slots >= (cap if kind != "gdsf" else min(n, port_kernel.SHARED_BYTES // 8))
+        assert plan.rows_shared == (n <= (10_000 if kind == "gdsf" else 21_544))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,n,cap,s,t,kw", SWEEP)
 def test_kernel_matches_plain_on_card(cuda_device, kind, n, cap, s, t, kw):
-    traces_np = _traces(n, s, t)
+    kw = dict(kw)
+    traces_np = _traces(n, s, t, trace=kw.pop("trace", "zipf"))
     traces = torch.as_tensor(traces_np, device=cuda_device)
     program = port_kernel.PROGRAM_OF[kind]
     before = port_kernel.LAUNCHES[program]
@@ -271,8 +318,8 @@ def test_launch_arguments_point_only_into_tensors_the_wrapper_holds(kind, kw, n_
     traces = torch.zeros((2, 16), dtype=torch.int32)
     spec = port_kernel.spec_of(kind, 32, 4, **kw)
     telemetry, groups = port_kernel.telemetry_options(32, 4, n_groups, np.zeros(32, np.int32) if n_groups else None)
-    program, outs, args = port_kernel._launch_args(spec, traces, port_kernel._sizes_row(spec, None, "cpu"),
-                                                   telemetry, groups)
+    sizes, size_range = port_kernel._sizes_row(spec, None, "cpu")
+    program, outs, args = port_kernel._launch_args(spec, traces, sizes, telemetry, groups, size_range)
     held = {v.data_ptr() for v in outs.values() if isinstance(v, torch.Tensor)}
     prog = port_kernel.PROGRAMS[program]
     pointers = [a for a, t in zip(args, prog.argtypes) if t is ctypes.c_void_p]

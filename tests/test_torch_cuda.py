@@ -172,6 +172,123 @@ def test_byte_mode_kernel_evicts_several_victims_for_one_insert(cuda_device):
     assert any(not torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
 
 
+def _plain_on_cpu(traces, **kw):
+    """The plain version of a call on the CPU (the same contract; cheaper than on the card
+    for the long traces below)."""
+    return port_kernel.cache_sim_plain(traces.cpu(), **kw)
+
+
+def _assert_equal_to_cpu(got, want):
+    assert set(got) - {"argmins"} == set(want)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lru", "lfu"])
+def test_heap_moves_into_device_memory_in_byte_mode(cuda_device, kind):
+    """Unit sizes under a budget of 33,000 bytes: the heap's 33,000 slots pass the 29,056
+    that shared memory holds, and a sweep over all 40,000 ids fills the cache past them (the
+    heap moves to device memory) before Zipf traffic evicts; exact against the plain version."""
+    n, budget = 40_000, 33_000
+    rng = np.random.default_rng(3)
+    sweep = np.stack([rng.permutation(n) for _ in range(2)])
+    tail = np.stack([zipf.sample_trace(n, 5_000, seed=9 + i) for i in range(2)])
+    traces = torch.as_tensor(np.concatenate([sweep, tail], axis=1).astype(np.int32), device=cuda_device)
+    kw = dict(kind=kind, n_objects=n, capacity=10, capacity_bytes=budget, sizes=np.ones(n, np.int32))
+    plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, 10, capacity_bytes=budget), (1, 1))
+    assert plan.slots == budget and plan.can_move and not plan.rows_shared
+    got = port_kernel.cache_sim_cuda(traces, **kw)
+    assert int(got["in_cache"].sum(dim=1).max()) > plan.shared_slots
+    _assert_equal_to_cpu(got, _plain_on_cpu(traces, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,cap,rows_shared", [
+    # rows (8 B an id) and heap (8 B a slot) fill the 232,448 bytes exactly, and one slot more
+    ("lfu", 20_000, 9_056, True), ("lfu", 20_000, 9_057, False),
+    ("plfua", 20_000, 9_056, True), ("plfua", 20_000, 9_057, False),
+    # gdsf's heap has N slots: 16 B an id
+    ("gdsf", 14_528, 300, True), ("gdsf", 14_529, 300, False),
+])
+def test_heap_rows_on_both_sides_of_the_shared_memory_limit(cuda_device, kind, n, cap, rows_shared):
+    """The same policy with its rows in shared memory and, one id or slot further, in device
+    memory: both exact against the plain version."""
+    plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, cap), (1, 1))
+    assert plan.rows_shared == rows_shared and not plan.can_move
+    assert (plan.shared_bytes == port_kernel.SHARED_BYTES) == rows_shared
+    traces = _traces(n, 2, 3_000, cuda_device, seed=4)
+    kw = dict(kind=kind, n_objects=n, capacity=cap)
+    _assert_equal_to_cpu(port_kernel.cache_sim_cuda(traces, **kw), _plain_on_cpu(traces, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_bytes", [port_kernel.SHARED_BYTES, 4_096, 64])
+@pytest.mark.parametrize("kind,kw", [("lru", {}), ("lfu", {}), ("plfua", {}), ("gdsf", dict(sizes=LOGNORMAL)),
+                                     ("lfu", BUDGET), ("gdsf", BUDGET)])
+def test_heap_placements_give_the_same_outputs(cuda_device, monkeypatch, shared_bytes, kind, kw):
+    """Less shared memory moves the rows, then the heap, into device memory (at 4,096 and
+    64 bytes the heaps outgrow their shared slots mid-run): the outputs stay the plain
+    version's."""
+    monkeypatch.setattr(port_kernel, "SHARED_BYTES", shared_bytes)
+    traces = _traces(5000, 3, 3000, cuda_device, seed=7)
+    call = dict(kind=kind, n_objects=5000, capacity=40, **kw)
+    got = port_kernel.cache_sim_cuda(traces, **call)
+    want = port_kernel.cache_sim_plain(traces, **call)
+    _assert_equal([got[k] for k in want], list(want.values()))
+
+
+def _gdsf_lowered_reprices(trace, n, cap):
+    """How often a hit re-prices an id below its old score in object-count gdsf with unit
+    sizes (int32, wrapping as the reference's): a plain-Python model of the step."""
+    wrap = lambda v: (v + 2**31) % 2**32 - 2**31
+    freq, score, cached, credit, lowered = [0] * n, [0] * n, set(), 0, 0
+    for x in trace.tolist():
+        hit = x in cached
+        if not hit and len(cached) >= cap:
+            victim = min(cached, key=lambda i: (score[i], i))
+            credit = score[victim]
+            cached.discard(victim)
+        freq[x] += 1
+        new = wrap(credit + wrap(freq[x] << 8))
+        lowered += hit and new < score[x]
+        score[x] = new
+        cached.add(x)
+    return lowered
+
+
+@pytest.mark.cuda
+def test_gdsf_reprice_that_lowers_a_key(cuda_device):
+    """Two ids alternate under a capacity of 2 beside a hot id 0: every alternation evicts,
+    the credit climbs past INT_MAX and wraps, and a hit on id 0 then re-prices it below its
+    old score (the heap moves it up). Exact against the plain version."""
+    n, cap, t = 3, 2, 16_000
+    rows = []
+    for seed in (1, 2):
+        alternate = np.tile(np.arange(1, 3), t // 2)
+        rows.append(np.where(np.random.default_rng(seed).random(t) < 0.5, 0, alternate))
+        assert _gdsf_lowered_reprices(rows[-1], n, cap) > 0
+    traces = torch.as_tensor(np.stack(rows).astype(np.int32), device=cuda_device)
+    kw = dict(kind="gdsf", n_objects=n, capacity=cap)
+    _assert_equal_to_cpu(port_kernel.cache_sim_cuda(traces, **kw), _plain_on_cpu(traces, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lru", "gdsf"])
+@pytest.mark.parametrize("max_victims", [1, 2])
+def test_heap_byte_loop_stops_at_max_victims(cuda_device, kind, max_victims):
+    """Under the pareto budget the victim bound binds (the run differs from the default
+    bound's), and each run equals the plain version."""
+    n, cap = 5000, 40
+    traces = _traces(n, 3, 3000, cuda_device, seed=7)
+    kw = dict(kind=kind, n_objects=n, capacity=cap, sizes=PARETO, capacity_bytes=int(40 * PARETO.mean()))
+    got = port_kernel.cache_sim_cuda(traces, max_victims=max_victims, **kw)
+    want = port_kernel.cache_sim_plain(traces, max_victims=max_victims, **kw)
+    _assert_equal([got[k] for k in want], list(want.values()))
+    default = port_kernel.cache_sim_cuda(traces, **kw)
+    assert any(not torch.equal(got[k], default[k]) for k in got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,kw", [("arc", {}), ("gdsf", BUDGET), ("tinylfu", {})])
 def test_ops_outputs_have_the_same_keys_on_card_and_cpu(cuda_device, kind, kw):
