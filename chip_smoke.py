@@ -8,10 +8,12 @@ sources: ``cache_sim`` (lru, lfu, plfu, plfua), ``cache_sim/wlfu``,
 ``cache_sim/tinylfu`` (with or without the doorkeeper),
 ``cache_sim/plfua_dyn``, ``cache_sim/sized`` (gdsf, and lru/lfu/plfu/plfua/
 gdsf under a byte budget), ``cache_sim/plfua_dyn_bytes`` (plfua_dyn under a
-byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``; ``cache_sim`` and
-``cache_sim/sized`` take their victims from a heap of the residents in shared
-memory (``kernel.heap_plan`` says where a call puts its heap slots and rows),
-the others from a block-wide scan. ``flash_attention``
+byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``; ``cache_sim``,
+``cache_sim/sized`` and ``cache_sim/tinylfu`` take their victims from a heap of
+the residents in shared memory (``kernel.heap_plan`` says where a call puts its
+heap slots, rows and sketch), ``cache_sim/arc`` from the heads of its four
+lists kept in stamp order (``kernel.arc_plan``: its tags and links), wlfu and
+plfua_dyn from a block-wide scan. ``flash_attention``
 (``csrc/flash_attention.cu``) has two instances, ``flash_attention/prefill``
 (bf16: wgmma on TMA-staged tiles of 128 query rows; f32: CUDA cores) and
 ``flash_attention/decode`` (a kv head's query rows a block, its keys split over
@@ -38,10 +40,15 @@ through the flash kernel). Phases, one line each (or one line per item):
              200) and (100,000, 2,000) with T = 20,000; a max_victims=2 case
              whose bound is hit; arc at (100, 2), (10,000, 200) and (100,000,
              2,000) with T = 20,000
-             on Zipf and scan traces, its directory size included; lfu and gdsf
-             at the grid's largest heap (100,000, 25,000) on a scan trace of
-             36,000 requests that fills it and evicts about 5,000 times a
-             sample. Each heap program's line names its heap plan. With unit
+             on Zipf and scan traces, its directory size included; lfu, gdsf,
+             arc and tinylfu at the grid's largest heap (100,000, 25,000), each
+             a full cache evicting 1,000 times a sample or more: lfu and gdsf
+             on a scan trace of 36,000 requests that fills it and evicts about
+             5,000 times, arc on the same scan cut to 32,000 (about 1,700
+             demotions), and tinylfu, whose duel turns a scan away, on a sweep
+             over 27,500 ids and 2,000 of the turned-away ids twice each.
+             Each heap program's line names its heap plan, arc's its tags' and
+             links' places. With unit
              sizes and capacity_bytes == capacity each byte program must give
              the object-count program's outputs. The plain version runs on the
              card for N > 10,000 and in CPU worker processes, overlapping the
@@ -69,14 +76,18 @@ through the flash kernel). Phases, one line each (or one line per item):
              there), and the least time the card could take (bound: the bytes
              moved, or the operations the function needs, see ``bound``); the
              µs a request of a sample's chain, and for the heap programs the
-             heap's slots and where its slots and rows lie.
+             heap's slots and where its slots, rows and (tinylfu) sketch lie,
+             for arc where its tags and links lie.
 7. telemetry — each program's two telemetry instances (``+telemetry`` and
              ``+telemetry_grouped``, W = T // 16, 4 tenant groups): checks,
              exact against the plain version, ungrouped on Zipf and grouped on
              ``multi_tenant`` traces, at (10,000, 200) with T = 10,000 (plain
              in the CPU workers, started with phase 3), at (100,000, 2,000) with
              T = 5,000 (plain on the card), and W = 1 and W > T at (130, 3),
-             T = 2,010 (a partial plfua_dyn period); then the telemetry path at
+             T = 2,010 (a partial plfua_dyn period), and grouped at capacity 0
+             and -3 for wlfu, tinylfu, plfua_dyn (7 hot ids) and arc at (130,
+             T = 2,010) and (10,000, T = 10,000), where the first victim is id 0
+             while it is not cached; then the telemetry path at
              the measured case (T = 100,000) through ``ops.cache_sim_outputs``,
              with the launch counts set to 0 just before and read just after:
              primary outputs equal the instance without telemetry's, the hits
@@ -182,9 +193,23 @@ SIZED_CHECK_CASES = ((10_000, 200, 20_000), (100_000, 2_000, 20_000))
 SIZED_CHECK_LEN = 20_000  # the max_victims and unit-size checks, at N = 10,000
 ARC_CHECK_CASES = ((100, 2, 20_000), (10_000, 200, 20_000), (100_000, 2_000, 20_000))
 #: (N, cap, T, scan options): the grid's largest heap (25,000 slots, 200,000 B of shared
-#: memory), filled by one sweep over 95 % of the trace and then evicting about 5,000 times a sample
+#: memory) and arc's largest lists, filled by one sweep over 95 % of the trace and then evicting
+#: (demoting) about 5,000 times a sample
 HEAP_CHECK_CASE = (100_000, 25_000, 36_000, dict(n_sweeps=1, sweep_len_frac=0.95))
-HEAP_CHECK_KINDS = ("lfu", "gdsf")
+HEAP_CHECK_KINDS = ("lfu", "gdsf", "arc", "tinylfu")
+#: arc's largest-lists check on the same scan cut to T = 32,000: its plain version takes about
+#: 1.3 ms a step on the card, and this depth still demotes about 1,700 times a sample
+ARC_HEAP_CHECK_LEN = 32_000
+#: tinylfu's duel turns a one-touch sweep away (9 evictions a sample on the scan above), so its
+#: largest-heap trace sweeps 27,500 ids (the last 2,500 turned away) and then requests 2,000 of
+#: those twice each (T = 31,500): the first wins its duel on a count of 2 and evicts, the second
+#: hits, so that the newcomer is not the next victim
+TINYLFU_RESWEEP = (27_500, 25_000, 2_000)
+#: the grouped telemetry checks at capacity <= 0 (the first victim is id 0, not cached): the
+#: programs that scanned for their victims, at the edge case's shape and options and at the
+#: small check case's (plain in the CPU workers)
+ZERO_CAPACITIES = (0, -3)
+ZERO_CAPACITY_KINDS = ("wlfu", "tinylfu", "plfua_dyn", "arc")
 # the largest N whose plain version runs in a CPU worker, not on the card
 CPU_PLAIN_MAX_N = 10_000
 CPU_WORKERS = 6
@@ -274,14 +299,21 @@ def catalogue(dist: str, n: int) -> np.ndarray:
 
 
 def plan_text(spec, sizes=None) -> str:
-    """Where a heap program's call puts its heap slots and rows ('' for the
-    other programs)."""
-    if kernel.program_of(spec.kind, spec.capacity_bytes) not in kernel.HEAP_PROGRAMS:
+    """Where a heap program's call puts its heap slots, rows and (tinylfu)
+    sketch, and where arc's puts its tags and links ('' for the other
+    programs)."""
+    where = lambda shared: "shared" if shared else "device"
+    program = kernel.program_of(spec.kind, spec.capacity_bytes)
+    if program == "cache_sim/arc":
+        plan = kernel.arc_plan(spec)
+        return f" tags,links={where(plan.shared)} shared_bytes={plan.shared_bytes}"
+    if program not in kernel.HEAP_PROGRAMS:
         return ""
     size_range = (1, 1) if sizes is None else (int(np.min(sizes)), int(np.max(sizes)))
     plan = kernel.heap_plan(spec, size_range)
     heap = f"shared,device_past={plan.shared_slots}" if plan.can_move else "shared"
-    return (f" heap_slots={plan.slots} heap={heap} rows={'shared' if plan.rows_shared else 'device'} "
+    sketch_text = f" sketch={where(plan.sketch_shared)}" if program == "cache_sim/tinylfu" else ""
+    return (f" heap_slots={plan.slots} heap={heap} rows={where(plan.rows_shared)}{sketch_text} "
             f"shared_bytes={plan.shared_bytes}")
 
 
@@ -310,16 +342,24 @@ def _worker_init() -> None:
     torch.set_num_threads(1)
 
 
+def plain(traces: torch.Tensor, **kw) -> dict:
+    """The plain version's outputs, in inference mode: its steps are thousands of small ops,
+    each cheaper without autograd's bookkeeping (the outputs are the same)."""
+    with torch.inference_mode():
+        return kernel.cache_sim_plain(traces, **kw)
+
+
 def cpu_plain(traces: np.ndarray, kw: dict) -> dict:
     """The plain version on the CPU (a worker process): numpy outputs."""
-    outs = kernel.cache_sim_plain(torch.as_tensor(traces), **kw)
+    outs = plain(torch.as_tensor(traces), **kw)
     return {k: v.numpy() for k, v in outs.items()}
 
 
 def cpu_grid_case(kind: str, options: str, seed: int) -> tuple:
     """The smallest grid case of a row through the plain version on the CPU."""
     kw = {"": {}, "sized": SIZED, "bytes": BUDGET}[options]
-    r = simulate.run_case(kind, zipf.paper_grid()[0], seed=seed, device="cpu", **kw)
+    with torch.inference_mode():
+        r = simulate.run_case(kind, zipf.paper_grid()[0], seed=seed, device="cpu", **kw)
     return (r.mean_chr, r.std_chr, r.mean_evictions, r.mean_metadata, r.mean_byte_chr)
 
 
@@ -366,7 +406,7 @@ class Checks:
             future = self.pool.submit(cpu_plain, traces, kw)
             self.pending.append((future, got, program, line + " plain=cpu", what, t1))
         else:
-            want, ms = cuda_ms(lambda: kernel.cache_sim_plain(torch.as_tensor(traces, device="cuda"), **kw))
+            want, ms = cuda_ms(lambda: plain(torch.as_tensor(traces, device="cuda"), **kw))
             self.plain_ms[program] = (ms, trace_len)
             self.compare(got, want, program, line + f" plain=card plain_ms={ms}", what, t1)
         return got
@@ -422,6 +462,17 @@ def run_telemetry_checks(checks: Checks, seed: int) -> None:
         checks.run(f"{kind} telemetry W=1", kind, n, cap, trace_len, traces=tenants, telemetry_window=1,
                    n_groups=TEL_GROUPS, groups=generators.tenant_groups(n, TEL_GROUPS), **extra)
         checks.run(f"{kind} telemetry W>T", kind, n, cap, trace_len, telemetry_window=trace_len + 7, **extra)
+    # capacity <= 0: an empty cache's victim (id 0, not cached) counts in no group
+    small_n, _, small_len = TEL_CHECK_CASES[0]
+    for n, trace_len, options in ((n, trace_len, explicit), (small_n, small_len, {})):
+        w = trace_len // TEL_WINDOWS
+        grouped = dict(traces=generators.multi_tenant(n, SAMPLES, trace_len, seed=seed, n_tenants=TEL_GROUPS),
+                       telemetry_window=w, n_groups=TEL_GROUPS, groups=generators.tenant_groups(n, TEL_GROUPS))
+        for kind in ZERO_CAPACITY_KINDS:
+            # plfua_dyn's default hot set (2 x capacity) is empty here: the edge case's 7 ids are hot
+            extra = {**grid_options(kind), **options, **({"hot_size": 7} if kind == "plfua_dyn" else {})}
+            for cap in ZERO_CAPACITIES:
+                checks.run(f"{kind} telemetry grouped capacity<=0", kind, n, cap, trace_len, **grouped, **extra)
 
 
 def run_checks(checks: Checks, seed: int) -> None:
@@ -430,11 +481,20 @@ def run_checks(checks: Checks, seed: int) -> None:
             checks.run(kind, kind, n, cap, BASE_CHECK_LEN)
     n, cap, trace_len, scan_kw = HEAP_CHECK_CASE
     scan = generators.scan(n, SAMPLES, trace_len, seed=seed, **scan_kw)
+    swept, kept, again = TINYLFU_RESWEEP
+    resweep = []
+    for i in range(SAMPLES):
+        order = np.random.default_rng(seed + i).permutation(n)
+        resweep.append(np.concatenate([order[:swept], np.repeat(order[kept:kept + again], 2)]))
+    traces = dict(arc=generators.scan(n, SAMPLES, ARC_HEAP_CHECK_LEN, seed=seed, **scan_kw),
+                  tinylfu=np.stack(resweep).astype(np.int32))
     for kind in HEAP_CHECK_KINDS:
-        got = checks.run(f"{kind} largest heap", kind, n, cap, trace_len, traces=scan)
+        trace = traces.get(kind, scan)
+        got = checks.run(f"{kind} largest heap", kind, n, cap, trace.shape[1], traces=trace)
         evictions = int(got["inserts"].sum()) - int(got["in_cache"].sum())
         require(evictions >= 1_000 * SAMPLES and int(got["in_cache"].sum()) == cap * SAMPLES,
                 f"the largest-heap check of {kind} did not fill the heap and evict: {evictions} evictions")
+        print(f"[check {kind} largest heap] evictions={evictions} residents={int(got['in_cache'].sum())}", flush=True)
     for n, cap, trace_len, explicit in ADMISSION_CHECK_CASES:
         for kind in ADMISSION_KINDS:
             variants = [{}]
@@ -1271,7 +1331,7 @@ def main() -> int:
         tm = timing.measure(kernel.cache_sim_cuda, traces, steps=traces.numel(), repeats=5, warmup=1, **kw)
         got = kernel.cache_sim_cuda(traces, **kw)
         offs[program] = got
-        want, plain_ms = cuda_ms(lambda: kernel.cache_sim_plain(short, **kw))
+        want, plain_ms = cuda_ms(lambda: plain(short, **kw))
         err = max_abs_err(kernel.cache_sim_cuda(short, **kw), want)
         require(err == 0, f"kernel != plain version at the measured case of {program} (T={PLAIN_MEASURE_LEN})")
         b = bound(program, got, spec, card, sms, MEASURE_N if spec.size_aware else 0)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of the cache_sim heap program against each other on one card.
+"""Time variants of the cache_sim programs against each other on one card.
 
-    python3 experiments/cache_sim_variants.py [--repeats 3] [--sass PATH]
+    python3 experiments/cache_sim_variants.py [--repeats 3] [--sass PATH] [--only heap|placement|split]
 
 Each variant is ``src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu`` (and
 its headers) with a few lines replaced, built by ``nvcc`` into
@@ -20,15 +20,39 @@ each is timed with CUDA events around ``cache_sim_cuda`` at S = 12, T =
 * ``lfu_only``: the kind a compile-time constant (lfu; timed on lfu only).
 * ``quaternary``: a 4-ary heap (half the levels, four children a level).
 
+Then the placements of the programs as they are (no patched source; the
+wrapper's plan is replaced), each held to the plain version the same way and
+timed in turns at S = 12, T = 100,000:
+
+* arc, ``shared`` (``arc_plan``'s choice where N <= 25,827: its tags and
+  links in shared memory) against ``device`` (both in device memory, as the
+  plan has them past that N), at the paper's N = 10,000 and 21,544;
+* tinylfu, ``sketch_first`` (``heap_plan``'s order: the sketch joins the heap
+  before the rows) against ``rows_first`` (a plan with the rows first), at
+  the three cases of the paper's grid where the order decides which of the
+  two lies in shared memory (N = 10,000, cap 2,500; N = 21,544, cap 1,183 and
+  1,961), and at the measured case (N = 100,000, cap 2,000: both orders
+  place the sketch).
+
+Last, the L1/shared split of the one-warp programs (lfu through
+``cache_sim.cu``, tinylfu, arc): ``default`` (the CUDA runtime's choice for a kernel
+with dynamic shared memory) against ``max_l1`` (the sources with a preference
+for the most L1 that leaves the block its shared memory,
+``cudaSharedmemCarveoutMaxL1``),
+checked and timed in turns at the measured case and one that fits shared
+memory.
+
 With ``--sass PATH`` the SASS of the source as it is goes to PATH
-(``cuobjdump``). Needs a CUDA card; prints one line a result and exits
-non-zero on a failed build or check.
+(``cuobjdump``). ``--only`` runs one of the three parts. Needs a CUDA card;
+prints one line a result and exits non-zero on a failed build or check.
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 import sys
@@ -102,6 +126,38 @@ VARIANTS = {
 }
 #: (kind, N, capacity): the measured case, the grid's smallest, and one whose rows fit shared memory
 TIMED = [("lfu", 100_000, 2_000), ("lru", 100_000, 2_000), ("lru", 100, 2), ("lfu", 10_000, 2_500)]
+HEAP_PLAN = kernel.heap_plan  # the wrapper's own
+
+
+def rows_first(spec, size_range=None) -> kernel.HeapPlan:
+    """tinylfu's plan with its rows (pos, freq) joining the heap in shared memory before its sketch."""
+    plan = HEAP_PLAN(spec, size_range)
+    left = kernel.SHARED_BYTES - plan.shared_slots * kernel._SLOT_BYTES
+    rows_shared = plan.n_objects * kernel._ROW_BYTES <= left
+    left -= plan.n_objects * kernel._ROW_BYTES * rows_shared
+    return dataclasses.replace(plan, rows_shared=rows_shared, sketch_shared=plan.sketch_bytes <= left)
+
+
+#: name: (kind, the wrapper's attributes to replace): arc's and tinylfu's placements
+PLACEMENTS = {
+    "shared": ("arc", {}),
+    "device": ("arc", {"arc_plan": lambda spec: kernel.ArcPlan(False, spec.n_objects)}),
+    "sketch_first": ("tinylfu", {}),
+    "rows_first": ("tinylfu", {"heap_plan": rows_first}),
+}
+#: the launch helper's lines that the max_l1 split adds to
+MAX_L1 = [("  if (err != cudaSuccess) return err;\n  kernel<<<",
+           "  if (err != cudaSuccess) return err;\n"
+           "  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,\n"
+           "                             cudaSharedmemCarveoutMaxL1);\n"
+           "  if (err != cudaSuccess) return err;\n  kernel<<<")]
+#: (kind, N, capacity) of the split's timings
+SPLIT = [("lfu", 100_000, 2_000), ("lru", 100, 2), ("tinylfu", 100_000, 2_000), ("tinylfu", 10_000, 2_500),
+         ("arc", 100_000, 2_000), ("arc", 10_000, 200)]
+#: (kind, N, capacity) of the placement timings
+PLACED = [("arc", 10_000, 200), ("arc", 21_544, 1_183),
+          ("tinylfu", 10_000, 2_500), ("tinylfu", 21_544, 1_183), ("tinylfu", 21_544, 1_961),
+          ("tinylfu", 100_000, 2_000)]
 
 
 def patch(text: str, reps, what: str) -> str:
@@ -112,26 +168,108 @@ def patch(text: str, reps, what: str) -> str:
     return text
 
 
-def build(name: str) -> _build.Library:
-    """The variant's library, from a patched copy of the sources."""
-    src_reps, header_reps = VARIANTS[name]
-    out = OUT / name
+def build_patched(program: str, name: str, src_reps, header_reps) -> _build.Library:
+    """``program``'s library from a copy of its source and headers with ``name``'s
+    replacements, its entry bound."""
+    prog = kernel.PROGRAMS[program]
+    out = OUT / f"{prog.library_name}_{name}"
     out.mkdir(parents=True, exist_ok=True)
-    for header in SOURCE.parent.glob("*.cuh"):
+    for header in prog.source.parent.glob("*.cuh"):
         text = header.read_text()
         (out / header.name).write_text(patch(text, header_reps, name) if header.name == HEADER else text)
-    (out / SOURCE.name).write_text(patch(SOURCE.read_text(), src_reps, name))
-    lib = _build.build(f"cache_sim_{name}", [out / SOURCE.name])
-    entry = getattr(lib.lib, kernel.PROGRAMS["cache_sim"].entry)
-    entry.argtypes = list(kernel.PROGRAMS["cache_sim"].argtypes)
+    (out / prog.source.name).write_text(patch(prog.source.read_text(), src_reps, name))
+    lib = _build.build(f"{prog.library_name}_{name}", [out / prog.source.name])
+    entry = getattr(lib.lib, prog.entry)
+    entry.argtypes = list(prog.argtypes)
     entry.restype = ctypes.c_int
     lib.lib.cache_sim_error_string.argtypes = [ctypes.c_int]
     lib.lib.cache_sim_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def build(name: str) -> _build.Library:
+    """The heap variant's library, from a patched copy of cache_sim.cu and its headers."""
+    return build_patched("cache_sim", name, *VARIANTS[name])
+
+
+LIBRARY = kernel.library  # the wrapper's own: each program from its source
+
+
 def use(lib: _build.Library) -> None:
     kernel.library = lambda program="cache_sim", lib=lib: lib
+
+
+@contextlib.contextmanager
+def swapped(library, attrs: dict):
+    """The wrapper with ``library`` as its library loader and ``attrs`` replaced."""
+    saved = {attr: getattr(kernel, attr) for attr in attrs}
+    kernel.library = library
+    for attr, value in attrs.items():
+        setattr(kernel, attr, value)
+    try:
+        yield
+    finally:
+        kernel.library = LIBRARY
+        for attr, value in saved.items():
+            setattr(kernel, attr, value)
+
+
+def check_and_time(part: str, kind: str, n: int, cap: int, variants: dict, repeats: int, smi: str) -> bool:
+    """Each variant (name: (library loader, wrapper attributes)) against the plain version
+    (S = 4, T = 3,000), then timed in turns at S = 12, T = 100,000."""
+    kw = dict(kind=kind, n_objects=n, capacity=cap)
+    traces = torch.as_tensor(zipf.sample_traces(n, 4, 3_000, seed=1), device="cuda")
+    want = kernel.cache_sim_plain(traces, **kw)
+    where = {}
+    for name, variant in variants.items():
+        with swapped(*variant):
+            where[name] = placement_text(kind, n, cap)
+            got = kernel.cache_sim_cuda(traces, **kw)
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            print(f"[check] {name} {kind} N={n} cap={cap}: differs from the plain version", flush=True)
+            return False
+    print(f"[check {part}] {kind} N={n} cap={cap} every variant == plain: {where}", flush=True)
+    traces = torch.as_tensor(zipf.sample_traces(n, 12, 100_000, seed=0), device="cuda")
+    names = list(variants)
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            with swapped(*variants[name]):
+                times[name].append(events_ms(lambda: kernel.cache_sim_cuda(traces, **kw), repeats))
+    print(f"[time {part}] {kind} N={n} cap={cap} S=12 T=100000 ms: "
+          + " ".join(f"{name}={t}" for name, t in times.items()) + f" card={smi!r}", flush=True)
+    return True
+
+
+def placement_text(kind: str, n: int, cap: int) -> str:
+    spec = kernel.spec_of(kind, n, cap)
+    if kind == "arc":
+        plan = kernel.arc_plan(spec)
+        return f"shared={plan.shared}"
+    plan = kernel.heap_plan(spec)
+    return f"heap_slots={plan.slots} sketch_shared={plan.sketch_shared} rows_shared={plan.rows_shared}"
+
+
+def time_placements(repeats: int, smi: str) -> int:
+    """arc's and tinylfu's placements, each checked, then timed in turns."""
+    for kind, n, cap in PLACED:
+        variants = {name: (LIBRARY, attrs) for name, (k, attrs) in PLACEMENTS.items() if k == kind}
+        if not check_and_time("placement", kind, n, cap, variants, repeats, smi):
+            return 1
+    return 0
+
+
+def time_split(repeats: int, smi: str) -> int:
+    """Each program with the CUDA runtime's default L1/shared split and with max_l1, checked, then timed in turns."""
+    programs = sorted({kernel.PROGRAM_OF[kind] for kind, _, _ in SPLIT})
+    with concurrent.futures.ThreadPoolExecutor(len(programs)) as pool:
+        max_l1 = dict(zip(programs, pool.map(lambda p: build_patched(p, "max_l1", [], MAX_L1), programs)))
+    for kind, n, cap in SPLIT:
+        lib = max_l1[kernel.PROGRAM_OF[kind]]
+        variants = {"default": (LIBRARY, {}), "max_l1": (lambda program, lib=lib: lib, {})}
+        if not check_and_time("split", kind, n, cap, variants, repeats, smi):
+            return 1
+    return 0
 
 
 def events_ms(fn, repeats: int) -> float:
@@ -150,6 +288,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--sass", type=Path)
+    parser.add_argument("--only", choices=("heap", "placement", "split"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: this script runs on the card", file=sys.stderr)
@@ -157,6 +296,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"[card] {smi}", flush=True)
+    if args.only == "placement":
+        return time_placements(args.repeats, smi)
+    if args.only == "split":
+        return time_split(args.repeats, smi)
     shutil.rmtree(OUT, ignore_errors=True)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
@@ -198,7 +341,9 @@ def main() -> int:
                 times[name].append(events_ms(lambda: kernel.cache_sim_cuda(traces, **kw), args.repeats))
         print(f"[time] {kind} N={n} cap={cap} S=12 T=100000 ms: "
               + " ".join(f"{name}={t}" for name, t in times.items()) + f" card={smi!r}", flush=True)
-    return 0
+    if args.only == "heap":
+        return 0
+    return time_placements(args.repeats, smi) or time_split(args.repeats, smi)
 
 
 if __name__ == "__main__":

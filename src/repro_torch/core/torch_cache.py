@@ -499,10 +499,12 @@ def refresh_hot(spec: PolicySpec, state: dict) -> dict:
     """plfua_dyn hot-set refresh, in place: the new mask is the top
     ``effective_hot`` ids by sketch estimate (descending, ties to the lowest
     id: a stable sort, whose order ``torch.topk`` does not promise), then
-    the sketch rows halve."""
+    the sketch rows halve. A hot-set size below 0 (the default 2 *
+    capacity at a capacity below 0) makes nothing hot, as in the reference
+    kernel (whose mask is rank < size)."""
     rows_sk = state["sketch"]
     est = sketch.rows_estimate_all(rows_sk, _tables(spec, rows_sk.device)[0])
-    top = torch.argsort(-est, dim=-1, stable=True)[:, : spec.effective_hot]
+    top = torch.argsort(-est, dim=-1, stable=True)[:, : max(spec.effective_hot, 0)]
     hot = state["hot"]
     hot.zero_()
     hot.scatter_(1, top, True)

@@ -88,7 +88,7 @@ PROGRAMS = {
         Program("cache_sim/wlfu", _CSRC / "wlfu.cu", "wlfu_launch",
                 (_PTR,) * 9 + (_INT,) * 8 + (_PTR,)),
         Program("cache_sim/tinylfu", _CSRC / "tinylfu.cu", "tinylfu_launch",
-                (_PTR,) * 10 + (_INT,) * 10 + (_PTR,)),
+                (_PTR,) * 12 + (_INT,) * 14 + (_PTR,)),
         Program("cache_sim/plfua_dyn", _CSRC / "plfua_dyn.cu", "plfua_dyn_launch",
                 (_PTR,) * 11 + (_INT,) * 10 + (_PTR,)),
         Program("cache_sim/plfua_dyn_bytes", _CSRC / "plfua_dyn.cu", "plfua_dyn_bytes_launch",
@@ -96,7 +96,7 @@ PROGRAMS = {
         Program("cache_sim/sized", _CSRC / "sized.cu", "sized_launch",
                 (_PTR,) * 12 + (_INT,) * 14 + (_PTR,)),
         Program("cache_sim/arc", _CSRC / "arc.cu", "arc_launch",
-                (_PTR,) * 10 + (_INT,) * 7 + (_PTR,)),
+                (_PTR,) * 11 + (_INT,) * 8 + (_PTR,)),
     )
 }
 #: the program that runs each kind in object-count mode
@@ -116,8 +116,9 @@ BYTES_PROGRAM_OF = {
 #: kinds the kernel runs under a byte budget: the reference kernel's
 BYTE_CAPABLE_KINDS = tuple(k for k in KERNEL_KINDS if k in BYTES_PROGRAM_OF)
 
-#: the programs whose victims come from a heap of the residents (the others scan for them)
-HEAP_PROGRAMS = ("cache_sim", "cache_sim/sized")
+#: the programs whose victims come from a heap of the residents (wlfu and plfua_dyn scan for
+#: them; arc keeps its lists in stamp order)
+HEAP_PROGRAMS = ("cache_sim", "cache_sim/sized", "cache_sim/tinylfu")
 #: dynamic shared memory a block can have on Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin)
 SHARED_BYTES = 232_448
 _SLOT_BYTES = 8  # a heap slot: (key, id) packed in 64 bits
@@ -131,17 +132,22 @@ class HeapPlan:
     which holds ``shared_slots`` slots, and a heap that outgrows them moves
     to an ``(S, slots)`` device buffer (none where every slot fits); with
     ``rows_shared`` the per-id rows (pos, freq) lie in shared memory beside
-    the slots, else in ``(S, N)`` device buffers."""
+    the slots, else in ``(S, N)`` device buffers; tinylfu's sketch
+    (``sketch_bytes``: 4 x width int32 and a byte a doorkeeper bit) lies
+    there too with ``sketch_shared``, else in device buffers."""
 
     slots: int
     shared_slots: int
     rows_shared: bool
     n_objects: int
+    sketch_bytes: int = 0
+    sketch_shared: bool = False
 
     @property
     def shared_bytes(self) -> int:
         """The block's dynamic shared memory (the kernel's own count)."""
-        return self.shared_slots * _SLOT_BYTES + self.rows_shared * self.n_objects * _ROW_BYTES
+        return (self.shared_slots * _SLOT_BYTES + self.rows_shared * self.n_objects * _ROW_BYTES
+                + self.sketch_shared * self.sketch_bytes)
 
     @property
     def can_move(self) -> bool:
@@ -157,8 +163,19 @@ def heap_plan(spec: torch_cache.PolicySpec, size_range: tuple[int, int] | None =
     byte mode at most ``cap_bytes // min(sizes)`` unless ``cap_bytes +
     max(sizes)`` can wrap; gdsf's scores can reach INT_MAX, where the
     reference's victim may be an id that is not cached and the cache may
-    outgrow its count, so gdsf takes N. The heap takes shared memory first;
-    the rows join it only if both fit."""
+    outgrow its count, so gdsf takes N.
+
+    tinylfu takes ``max(capacity, 1)`` too: it inserts without a victim only
+    while its count is below the capacity, and a won duel evicts the heap's
+    top as it inserts x. The top is cached whenever the heap holds an id
+    (counts stay below INT_MAX), so an insert adds an id past the count only
+    into an empty heap, which capacity <= 0 alone reaches, once: the count
+    then trails the cache's one resident, as the reference's does.
+
+    The heap takes shared memory first; then tinylfu's sketch, then the rows,
+    each where it fits beside what is there (the sketch's four counters a
+    request and a duel's four loads gain more there than the rows' two
+    loads, which the kernel issues a step ahead)."""
     n = spec.n_objects
     if spec.kind == "gdsf":
         slots = n
@@ -167,9 +184,34 @@ def heap_plan(spec: torch_cache.PolicySpec, size_range: tuple[int, int] | None =
         slots = n if spec.capacity_bytes + hi > _I32_MAX else min(n, spec.capacity_bytes // lo)
     else:
         slots = min(n, max(spec.capacity, 1))
-    if (slots * _SLOT_BYTES + n * _ROW_BYTES) <= SHARED_BYTES:
-        return HeapPlan(slots, slots, True, n)
-    return HeapPlan(slots, min(slots, SHARED_BYTES // _SLOT_BYTES), False, n)
+    shared_slots = min(slots, SHARED_BYTES // _SLOT_BYTES)
+    left = SHARED_BYTES - shared_slots * _SLOT_BYTES
+    sketch_bytes = sketch.DEPTH * spec.effective_sketch_width * 4 + spec.doorkeeper if spec.kind == "tinylfu" else 0
+    sketch_shared = 0 < sketch_bytes <= left
+    left -= sketch_bytes * sketch_shared
+    return HeapPlan(slots, shared_slots, n * _ROW_BYTES <= left, n, sketch_bytes, sketch_shared)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArcPlan:
+    """Where the arc program keeps its rows, per sample: the tags (a byte an
+    id) and the links ((prev, next), 8 B an id, after the tags at an 8-byte
+    boundary) lie in shared memory with ``shared``, else in ``(S, N)`` and
+    ``(S, N, 2)`` device buffers."""
+
+    shared: bool
+    n_objects: int
+
+    @property
+    def shared_bytes(self) -> int:
+        """The block's dynamic shared memory (the kernel's own count)."""
+        return (-(-self.n_objects // 8) * 8 + self.n_objects * 8) * self.shared
+
+
+def arc_plan(spec: torch_cache.PolicySpec) -> ArcPlan:
+    """The arc program's layout for ``spec``: its rows in shared memory where
+    they fit (9 B an id: N <= 25,827)."""
+    return ArcPlan(ArcPlan(True, spec.n_objects).shared_bytes <= SHARED_BYTES, spec.n_objects)
 
 
 #: the suffixes of a program's telemetry instances: ungrouped and per tenant group
@@ -323,13 +365,13 @@ def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torc
     the C entry's arguments before the device and the stream, on the tensors'
     own device. The outputs also hold (under ``_`` names) every tensor whose
     pointer the arguments carry besides ``traces``: the sizes and group rows
-    and the scratch (the heap programs' slot row and device heap,
-    tags, ring, sketch rows, bloom, hot mask, estimates, per-group resident
-    counts), so that none is freed before the launch; once it has been
-    queued the caching allocator hands them out again only in stream order,
-    after it. With ``telemetry`` the outputs gain the zeroed ``series``. A
-    heap program lays out its heap by :func:`heap_plan` (``size_range`` is
-    ``_sizes_row``'s)."""
+    and the scratch (the heap programs' slot row and device heap, arc's
+    tags and links, ring, sketch rows, bloom, hot mask, estimates, per-group
+    resident counts), so that none is freed before the launch; once it has
+    been queued the caching allocator hands them out again only in stream
+    order, after it. With ``telemetry`` the outputs gain the zeroed
+    ``series``. A heap program lays out its heap by :func:`heap_plan`
+    (``size_range`` is ``_sizes_row``'s), arc its rows by :func:`arc_plan`."""
     s, t = traces.shape
     n = spec.n_objects
     dev = traces.device
@@ -351,7 +393,10 @@ def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torc
         outs["_pos"] = None if plan.rows_shared else torch.empty((s, n), dtype=torch.int32, device=dev)
         outs["_heap"] = torch.empty((s, plan.slots), dtype=torch.int64, device=dev) if plan.can_move else None
         heap = ptr(outs["_pos"], outs["_heap"])
-        layout = [plan.slots, plan.shared_slots, int(plan.rows_shared), window, n_groups]
+        layout = [plan.slots, plan.shared_slots, int(plan.rows_shared)]
+        if program == "cache_sim/tinylfu":
+            layout.append(int(plan.sketch_shared))
+        layout += [window, n_groups]
     if program == "cache_sim":
         return program, outs, ptr(traces, hits, freq, in_cache) + heap + tel + dims + [
             _KIND_CODE[spec.kind], spec.capacity, spec.effective_hot] + layout
@@ -363,20 +408,27 @@ def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torc
             _KIND_CODE[spec.kind], spec.capacity, spec.effective_hot, spec.capacity_bytes,
             spec.effective_max_victims if spec.capacity_bytes else 0] + layout
     if program == "cache_sim/arc":
-        outs.update(dir_size=zeros(s), argmins=zeros(s), _lst=zeros(s, n, dtype=torch.uint8))
+        plan = arc_plan(spec)
+        device_rows = not plan.shared
+        outs.update(dir_size=zeros(s), argmins=zeros(s),
+                    _tags=torch.empty((s, n), dtype=torch.uint8, device=dev) if device_rows else None,
+                    _links=torch.empty((s, n, 2), dtype=torch.int32, device=dev) if device_rows else None)
         return program, outs, ptr(traces, hits, outs["dir_size"], outs["argmins"], freq, in_cache,
-                                  outs["_lst"]) + tel + dims + [spec.capacity, window, n_groups]
+                                  outs["_tags"], outs["_links"]) + tel + dims + [
+            spec.capacity, int(plan.shared), window, n_groups]
     if program == "cache_sim/wlfu":
         outs["_ring"] = torch.full((s, spec.window), -1, dtype=torch.int32, device=dev)
         return program, outs, ptr(traces, hits, inserts, freq, in_cache, outs["_ring"]) + tel + dims + [
             spec.capacity, spec.window, window, n_groups]
     width = spec.effective_sketch_width
-    outs["_rows"] = zeros(s, sketch.DEPTH, width)
     if program == "cache_sim/tinylfu":
-        outs["_bloom"] = zeros(s, spec.doorkeeper, dtype=torch.uint8)
-        return program, outs, ptr(traces, hits, inserts, freq, in_cache, outs["_rows"],
-                                  outs["_bloom"]) + tel + dims + [
-            spec.capacity, spec.effective_window, width, spec.doorkeeper, window, n_groups]
+        device_sketch = not plan.sketch_shared
+        outs["_rows"] = zeros(s, sketch.DEPTH, width) if device_sketch else None
+        outs["_bloom"] = zeros(s, spec.doorkeeper, dtype=torch.uint8) if device_sketch and spec.doorkeeper else None
+        return program, outs, ptr(traces, hits, inserts, freq, in_cache) + heap + ptr(
+            outs["_rows"], outs["_bloom"]) + tel + dims + [
+            spec.capacity, spec.effective_window, width, spec.doorkeeper] + layout
+    outs["_rows"] = zeros(s, sketch.DEPTH, width)
     outs["_hot"] = torch.empty((s, n), dtype=torch.uint8, device=dev)
     outs["_est"] = torch.empty((s, n), dtype=torch.int32, device=dev)
     scratch = ptr(outs["_rows"], outs["_hot"], outs["_est"])

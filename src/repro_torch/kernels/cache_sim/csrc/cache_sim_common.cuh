@@ -1,9 +1,9 @@
 // Device helpers shared by the cache_sim programs (cache_sim.cu, wlfu.cu, tinylfu.cu,
-// plfua_dyn.cu, sized.cu, arc.cu): the residents' heap that gives cache_sim.cu and sized.cu
-// their victims, the block-wide lexicographic argmin that the other programs still scan for
-// one (over the cached ids, or over any set of ids a mask names), byte mode's bounded
-// multi-victim loop over that argmin, block-wide sums, int32 arithmetic that wraps as the
-// reference's, and the count-min sketch's lowbias32 hashing.
+// plfua_dyn.cu, sized.cu, arc.cu): the residents' heap that gives cache_sim.cu, sized.cu and
+// tinylfu.cu their victims, the block-wide lexicographic argmin over the cached ids that
+// wlfu.cu and plfua_dyn.cu still scan for one, byte mode's bounded multi-victim loop over
+// that argmin, block-wide sums, int32 arithmetic that wraps as the reference's, and the
+// count-min sketch's lowbias32 hashing. arc.cu keeps its lists itself.
 //
 // What bounds a program on this card is its chain of T dependent steps, not bytes or
 // operations: the argmin costs N compares from L2 and block barriers on every victim, the
@@ -37,17 +37,10 @@ __device__ __forceinline__ void warp_min(int& key, int& id) {
   }
 }
 
-// The mask of the cached ids (in_cache[i] != 0), and the mask of the ids whose tag is
-// `tag` (arc's lists: lst[i] == tag).
+// The mask of the cached ids (in_cache[i] != 0).
 struct CachedMask {
   const unsigned char* in_cache;
   __device__ __forceinline__ bool operator()(int i) const { return in_cache[i] != 0; }
-};
-
-struct TagMask {
-  const unsigned char* lst;
-  unsigned char tag;
-  __device__ __forceinline__ bool operator()(int i) const { return lst[i] == tag; }
 };
 
 // argmin of where(in_set, key, INT_MAX) with ties to the lowest id: an id outside the set
@@ -55,7 +48,7 @@ struct TagMask {
 // The result is valid in thread 0 only. Every thread's reads of key and of the mask's
 // bytes happen before the block barrier inside, so thread 0 may write them once this
 // returns. Warp 0 reads s_key/s_id after that barrier: a second call straight after this
-// one (arc's trim, then its demotion) needs a barrier between the two.
+// one would need a barrier between the two.
 template <class Mask>
 __device__ int block_argmin_of(const int* key, Mask in_set, int n, int* s_key, int* s_id) {
   int best_k = INT_MAX;
@@ -214,6 +207,12 @@ struct ResidentHeap {
     set_pos(entry_id(slot[0]), -1);
     if (--size > 0) sift_down(0, slot[size]);
   }
+
+  // Replace the top (a cached victim) by `id` with `key`: a pop and a push in one sift.
+  __device__ __forceinline__ void replace_top(int key, int id) {
+    set_pos(entry_id(slot[0]), -1);
+    sift_down(0, heap_entry(key, id));
+  }
 };
 
 // Where a heap program keeps its heap and rows, as the wrapper's `heap_plan` chose them:
@@ -287,10 +286,10 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 // before the next argmin's reads. `need` can only turn from true to false (nbytes and
 // count only fall), so the loop stops at the first iteration without a victim: the
 // reference's remaining iterations change nothing. Called by every thread; returns the
-// number of victims. Thread 0 calls `on_victim(v)` for each victim (the telemetry's
-// per-group eviction count; the default does nothing).
+// number of victims. Thread 0 calls `on_victim(v, cached)` for each victim, with whether it
+// was cached before (the telemetry's per-group eviction count; the default does nothing).
 struct NoVictimHook {
-  __device__ __forceinline__ void operator()(int) const {}
+  __device__ __forceinline__ void operator()(int, bool) const {}
 };
 
 template <class OnVictim = NoVictimHook>
@@ -307,11 +306,12 @@ __device__ __forceinline__ int evict_bytes(int* key, unsigned char* in_cache, co
     const int v = block_argmin(key, in_cache, n, s_key, s_id);
     if (threadIdx.x == 0) {
       if (ratchet) credit = key[v];
+      const bool cached = in_cache[v] != 0;
       in_cache[v] = 0;
       if (destroy) key[v] = 0;
       --count;
       nbytes = wrap_sub(nbytes, sizes[v]);
-      on_victim(v);
+      on_victim(v, cached);
     }
   }
   return victims;

@@ -146,7 +146,7 @@ plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, 
       if (kTel) {
         evict_bytes(freq, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x,
                     cap_bytes, max_victims, false, false, count, nbytes, no_credit, s_key, s_id,
-                    [&tel](int v) { tel.evict(v); });
+                    [&tel](int v, bool cached) { tel.evict(v, cached); });
       } else {
         evict_bytes(freq, in_cache, sizes, n_objects, want && size_x <= cap_bytes, size_x,
                     cap_bytes, max_victims, false, false, count, nbytes, no_credit, s_key, s_id);
@@ -171,9 +171,10 @@ plfua_dyn_kernel(const int* __restrict__ traces, const int* __restrict__ sizes, 
       if (need_evict) victim = block_argmin(freq, in_cache, n_objects, s_key, s_id);
       if (threadIdx.x == 0) {
         if (need_evict) {
+          // an empty cache's argmin (capacity <= 0) is id 0, not cached: no group's eviction
+          if (kTel) tel.evict(victim, in_cache[victim] != 0);
           in_cache[victim] = 0;
           --count;
-          if (kTel) tel.evict(victim);
         }
         if (admitted) freq[x] += 1;  // a hit or an admitted miss; parked counts persist
         if (want) {

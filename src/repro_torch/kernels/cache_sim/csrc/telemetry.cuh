@@ -127,10 +127,11 @@ struct Telemetry {
     }
   }
 
-  // Thread 0: `victim` was evicted. The ungrouped count follows the cache's count; a group's
-  // counts follow its cached ids, so a victim that was not cached (the reference's argmin
-  // over an empty cache names id 0) counts in no group.
-  __device__ __forceinline__ void evict(int victim, bool cached = true) {
+  // Thread 0: `victim` was evicted; `cached` is whether it was cached before. The ungrouped
+  // count follows the cache's count; a group's counts follow its cached ids, so a victim
+  // that was not cached (the reference's argmin over an empty cache names id 0) counts in no
+  // group.
+  __device__ __forceinline__ void evict(int victim, bool cached) {
     if constexpr (kTel) {
       if constexpr (kGrouped) {
         if (!cached) return;

@@ -58,14 +58,17 @@ wlfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int ca
     int victim = 0;
     if (need_evict) victim = block_argmin(freq, in_cache, n_objects, s_key, s_id);
     if (threadIdx.x == 0) {
-      if (need_evict) in_cache[victim] = 0;
+      if (need_evict) {
+        // an empty cache's argmin (capacity <= 0) is id 0, not cached: no group's eviction
+        if (kTel) tel.evict(victim, in_cache[victim] != 0);
+        in_cache[victim] = 0;
+      }
       if (!hit) in_cache[x] = 1;
     }
     count += static_cast<int>(!hit) - static_cast<int>(need_evict);
     n_hits += static_cast<int>(hit);
     if (kTel && threadIdx.x == 0) {
       tel.request(x, hit, !hit, 1);
-      if (need_evict) tel.evict(victim);
       tel.end_step(t, count);
     }
   }

@@ -124,3 +124,76 @@ def test_arc_byte_mode_raises():
         ops.cache_sim(traces, kind="arc", n_objects=16, capacity=4, capacity_bytes=64, device="cpu")
     with pytest.raises(ValueError, match="arc does not support byte-capacity mode"):
         torch_cache.PolicySpec("arc", 16, 4, capacity_bytes=64)
+
+
+def _arc_by_list_heads(trace, n, cap):
+    """ARC as the card runs it: one insertion-ordered list per tag, each step's victims named
+    by list head (an empty list names id 0, which a retag then moves from wherever it sits).
+    Checks at every head lookup that the head is the list's least-stamped id with ties to the
+    lowest, the reference's ``victim_of(stamp, lst == L)``. Returns (hits per step, tags,
+    stamps, p)."""
+    lists = {tag: {} for tag in (torch_cache.T1, torch_cache.T2, torch_cache.B1, torch_cache.B2)}
+    tag, stamp, p, hits = [0] * n, [0] * n, 0, []
+
+    def head(lst):
+        if not lists[lst]:
+            return 0
+        h = next(iter(lists[lst]))
+        assert h == min(lists[lst], key=lambda i: (stamp[i], i))
+        return h
+
+    def retag(i, new):
+        lists.get(tag[i], {}).pop(i, None)
+        if new:
+            lists[new][i] = None
+        tag[i] = new
+
+    for t, x in enumerate(trace.tolist()):
+        lx = tag[x]
+        n1, n2, n3, n4 = (len(lists[k]) for k in (torch_cache.T1, torch_cache.T2, torch_cache.B1, torch_cache.B2))
+        hit, g2 = lx in (torch_cache.T1, torch_cache.T2), lx == torch_cache.B2
+        ghost, cold = lx in (torch_cache.B1, torch_cache.B2), lx == 0
+        if lx == torch_cache.B1:
+            p = min(cap, p + max(1, n4 // max(1, n3)))
+        elif g2:
+            p = max(0, p - max(1, n3 // max(1, n4)))
+        case_a = cold and n1 + n3 >= cap
+        hard_t1 = case_a and n3 == 0
+        if case_a and n3 > 0:
+            retag(head(torch_cache.B1), 0)
+        elif cold and not case_a and n1 + n2 + n3 + n4 >= 2 * cap and n4 > 0:
+            retag(head(torch_cache.B2), 0)
+        need_evict = not hit and not hard_t1 and n1 + n2 >= cap
+        from_t1 = n1 >= 1 and ((g2 and n1 == p) or n1 > p or n2 == 0)
+        if need_evict or hard_t1:
+            victim = head(torch_cache.T1 if hard_t1 or from_t1 else torch_cache.T2)
+            retag(victim, 0 if hard_t1 else torch_cache.B1 if from_t1 else torch_cache.B2)
+            if need_evict:
+                stamp[victim] = t
+        retag(x, torch_cache.T2 if hit or ghost else torch_cache.T1)
+        stamp[x] = t
+        hits.append(hit)
+    return hits, tag, stamp, p
+
+
+@pytest.mark.parametrize("cap", [-3, 0, 1, 3, 9])
+@pytest.mark.parametrize("trace", ["zipf", "scan", "cyclic"])
+def test_list_heads_name_the_reference_victims(trace, cap):
+    """A list's LRU (least stamp, ties to the lowest id) is its head: every write that puts
+    an id into a list stamps it with the step, and a step puts at most one id into each list.
+    The list model equals ``torch_cache`` step for step (hits), and in its final tags, stamps
+    and p, at capacities <= 0 too (where an empty list's id 0 moves between lists)."""
+    n, s, t = 40, 2, 600
+    if trace == "cyclic":
+        traces = np.stack([(np.arange(t) + 3 * i) % n for i in range(s)]).astype(np.int32)
+    else:
+        traces = workloads.make_traces("scan" if trace == "scan" else "stationary", n, n_samples=s, trace_len=t,
+                                       seed=8, **(dict(n_sweeps=3, sweep_len_frac=0.2) if trace == "scan" else {}))
+    spec = torch_cache.PolicySpec("arc", n, cap)
+    hits, state = torch_cache.simulate_batch(spec, torch.as_tensor(traces), device="cpu")
+    for i in range(s):
+        model_hits, tags, stamps, p = _arc_by_list_heads(traces[i], n, cap)
+        assert hits[i].tolist() == model_hits
+        assert state["lst"][i].tolist() == tags and state["stamp"][i].tolist() == stamps
+        assert int(state["p"][i]) == p
+    assert trace == "cyclic" or int(hits.sum()) > 0  # a cycle over all 40 ids never hits

@@ -21,6 +21,7 @@ from repro.core import jax_cache
 from repro.core import zipf as ref_zipf
 from repro.kernels.cache_sim import cache_sim as ref_cache_sim
 from repro.kernels.cache_sim import ops as ref_ops
+from repro_torch.core import torch_cache
 from repro_torch.kernels.cache_sim import cache_sim as port_kernel
 from repro_torch.kernels.cache_sim import ops
 
@@ -70,6 +71,18 @@ SWEEP = [
     ("lfu", 40, 7, 2, 400, dict(trace="cyclic")),
     ("plfu", 40, 7, 2, 400, dict(trace="cyclic")),
     ("gdsf", 64, 64, 2, 300, {}),
+    # the scan programs at capacity <= 0: the first victim is id 0, not cached (arc's empty
+    # list names it too, wherever id 0 sits), and the cache then holds one resident
+    ("arc", 64, 0, 3, 400, {}),
+    ("arc", 64, -3, 3, 400, {}),
+    ("tinylfu", 64, 0, 3, 400, dict(window=48, sketch_width=64)),
+    ("tinylfu", 64, -3, 3, 400, dict(window=48, sketch_width=64)),
+    ("tinylfu", 64, 0, 2, 500, dict(window=60, sketch_width=64, doorkeeper=128)),
+    ("tinylfu", 64, -3, 2, 500, dict(window=60, sketch_width=64, doorkeeper=128)),
+    ("wlfu", 64, 0, 3, 400, dict(window=48)),
+    ("wlfu", 64, -3, 3, 400, dict(window=48)),
+    ("plfua_dyn", 64, 0, 3, 400, dict(refresh=97, sketch_width=64)),
+    ("plfua_dyn", 64, -3, 3, 400, dict(refresh=97, sketch_width=64)),
 ]
 
 
@@ -241,6 +254,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     ("lfu", 5000, 40, dict(capacity_bytes=2), (3, 40), 0),  # nothing fits
     ("lfu", 5000, 40, dict(capacity_bytes=2**31 - 10), (1, 20), 5000),  # cap_bytes + size can wrap
     ("gdsf", 5000, 40, dict(capacity_bytes=900), (3, 40), 5000),
+    # tinylfu inserts past its count only into an empty heap (capacity <= 0), once
+    ("tinylfu", 100, 25, {}, None, 25),
+    ("tinylfu", 64, 0, {}, None, 1),
+    ("tinylfu", 64, -3, dict(doorkeeper=128), None, 1),
+    ("tinylfu", 64, 200, {}, None, 64),
 ])
 def test_heap_plan_bounds_the_cached_ids(kind, n, cap, kw, size_range, slots):
     """The heap's slots are the most ids the cache can hold, and the plan never asks for more
@@ -248,6 +266,65 @@ def test_heap_plan_bounds_the_cached_ids(kind, n, cap, kw, size_range, slots):
     plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, cap, **kw), size_range)
     assert plan.slots == slots and plan.shared_bytes <= port_kernel.SHARED_BYTES
     assert plan.can_move == (plan.shared_slots < plan.slots)
+
+
+@pytest.mark.parametrize("cap", [-3, 0, 1, 5])
+@pytest.mark.parametrize("kw", [dict(window=40, sketch_width=64), dict(window=40, sketch_width=64, doorkeeper=128)])
+def test_tinylfu_never_caches_more_ids_than_its_heap_slots(cap, kw):
+    """The bound heap_plan proves, step by step on the plain version: a Zipf and a cyclic
+    trace never leave more cached ids than the plan's slots, and reach them."""
+    n, t = 30, 400
+    traces = torch.as_tensor(np.concatenate([_traces(n, 2, t), _traces(n, 2, t, trace="cyclic")]))
+    spec = port_kernel.spec_of("tinylfu", n, cap, **kw)
+    slots = port_kernel.heap_plan(spec).slots
+    state = torch_cache.init_state(spec, n_samples=traces.shape[0], device="cpu")
+    most = 0
+    for i in range(t):
+        state, _ = torch_cache.step(spec, state, traces[:, i])
+        most = max(most, int(state["in_cache"].sum(dim=1).max()))
+    assert most == slots
+
+
+def test_heap_plan_places_tinylfu_sketch_and_rows_in_order():
+    """tinylfu's heap first, then its sketch (4 x width int32 and a byte a doorkeeper bit),
+    then its rows (pos, freq), each where it still fits: at the measured case (cap 2,000,
+    width 8,000) the sketch joins the heap and the rows cannot; where only one of the two
+    fits beside the heap, the sketch does."""
+    measured = port_kernel.heap_plan(port_kernel.spec_of("tinylfu", 100_000, 2_000))
+    assert (measured.shared_slots, measured.sketch_bytes) == (2_000, 128_000)
+    assert measured.sketch_shared and not measured.rows_shared and measured.shared_bytes == 144_000
+    # heap 320 B, sketch 4,096 B: the rows (8 B an id) fit up to N = 28,504
+    for n, rows in ((28_504, True), (28_505, False)):
+        plan = port_kernel.heap_plan(port_kernel.spec_of("tinylfu", n, 40))
+        assert (plan.rows_shared, plan.sketch_shared) == (rows, True)
+        assert (plan.shared_bytes == port_kernel.SHARED_BYTES) == rows
+    # heap 8,000 B: a sketch of width 14,028 fills the rest exactly, one counter more does not
+    for width, shared in ((14_028, True), (14_029, False)):
+        plan = port_kernel.heap_plan(port_kernel.spec_of("tinylfu", 100_000, 1_000, sketch_width=width))
+        assert plan.sketch_shared == shared and not plan.rows_shared
+    # N = 20,000, cap 500: heap 4,000 B, sketch 32,000 B, rows 160,000 B; both fit beside the heap
+    both = port_kernel.heap_plan(port_kernel.spec_of("tinylfu", 20_000, 500))
+    assert both.sketch_shared and both.rows_shared
+    # the heap's 25,000 slots (200,000 B) leave room for neither at N = 100,000
+    largest = port_kernel.heap_plan(port_kernel.spec_of("tinylfu", 100_000, 25_000))
+    assert largest.shared_slots == 25_000 and not largest.sketch_shared and not largest.rows_shared
+    # N = 24,000, cap 1,250: heap 10,000 B, sketch 80,000 B, rows 192,000 B: either joins, not both
+    plan = port_kernel.heap_plan(port_kernel.spec_of("tinylfu", 24_000, 1_250))
+    assert plan.sketch_shared and not plan.rows_shared and plan.shared_bytes == 90_000
+
+
+@pytest.mark.parametrize("n,shared", [
+    (100, True), (25_827, True), (25_828, False),  # 9 B an id, links 8-byte aligned
+    (100_000, False), (232_448, False), (232_449, False),
+])
+def test_arc_plan_places_its_rows_where_they_fit(n, shared):
+    """arc's tags (a byte an id) and links (8 B an id, after the tags at an 8-byte boundary)
+    lie in shared memory together where both fit, else both in device memory; the plan never
+    asks for more than a block has."""
+    plan = port_kernel.arc_plan(port_kernel.spec_of("arc", n, 10))
+    assert plan.shared == shared
+    assert plan.shared_bytes <= port_kernel.SHARED_BYTES
+    assert plan.shared_bytes == (-(-n // 8) * 8 + 8 * n if shared else 0)
 
 
 @pytest.mark.parametrize("kind", ["lru", "lfu", "plfu", "plfua", "gdsf"])
@@ -259,6 +336,32 @@ def test_heap_plan_on_the_paper_grid(kind):
         plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, cap), (1, 1))
         assert plan.shared_slots >= (cap if kind != "gdsf" else min(n, port_kernel.SHARED_BYTES // 8))
         assert plan.rows_shared == (n <= (10_000 if kind == "gdsf" else 21_544))
+
+
+def test_tinylfu_heap_plan_on_the_paper_grid():
+    """tinylfu on the paper's grid: every heap lies in shared memory; the sketch (16 B a
+    counter, width max(4 cap, 256)) joins it up to cap 3,228 (72 B a slot and its four
+    counters), 50 of the 60 cases; the rows join what is left in 45, every case up to N =
+    4,642, and at N = 21,544 also where the sketch did not fit."""
+    placed = {}
+    for case in ref_zipf.paper_grid():
+        n, cap = case.n_objects, case.cache_size
+        plan = port_kernel.heap_plan(port_kernel.spec_of("tinylfu", n, cap))
+        assert plan.shared_slots == plan.slots == cap and plan.shared_bytes <= port_kernel.SHARED_BYTES
+        placed[n, cap] = (plan.sketch_shared, plan.rows_shared)
+    assert {k for k, (sketch_shared, _) in placed.items() if not sketch_shared} == {
+        (21_544, 3_250), (21_544, 5_386), (46_416, 4_225), (46_416, 7_002), (46_416, 11_604),
+        (100_000, 3_314), (100_000, 5_493), (100_000, 9_103), (100_000, 15_085), (100_000, 25_000)}
+    assert {k for k, (_, rows_shared) in placed.items() if rows_shared} == (
+        {k for k in placed if k[0] <= 4_642} | {(10_000, cap) for cap in (200, 331, 549, 910, 1_509)}
+        | {(21_544, cap) for cap in (431, 714, 3_250, 5_386)})
+
+
+def test_arc_plan_on_the_paper_grid():
+    """The paper's N: the tags and links fit shared memory up to N = 21,544."""
+    for case in ref_zipf.paper_grid():
+        plan = port_kernel.arc_plan(port_kernel.spec_of("arc", case.n_objects, case.cache_size))
+        assert plan.shared == (case.n_objects <= 21_544)
 
 
 @pytest.mark.cuda

@@ -138,6 +138,26 @@ def test_kernel_series_window_edges(cuda_device, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [0, -3])
+@pytest.mark.parametrize("kind,kw", [("wlfu", dict(window=50)), ("tinylfu", dict(window=60)),
+                                     ("tinylfu", dict(window=60, doorkeeper=64)), ("plfua_dyn", dict(refresh=97)),
+                                     ("plfua_dyn", dict(refresh=97, hot_size=7)), ("arc", {})])
+def test_kernel_series_at_capacity_at_most_zero(cuda_device, kind, kw, capacity):
+    """At capacity <= 0 the first victim is id 0 while it is not cached: it counts in no
+    group (and for arc, whose cache counts its residents, in neither series). Each program's
+    ungrouped and grouped series equal the plain version's."""
+    n = 300
+    traces = torch.as_tensor(generators.multi_tenant(n, 3, 700, seed=2, n_tenants=3), device=cuda_device)
+    groups = generators.tenant_groups(n, 3)
+    for n_groups in (0, 3):
+        call = dict(kind=kind, n_objects=n, capacity=capacity, telemetry_window=230, n_groups=n_groups,
+                    groups=groups if n_groups else None, **kw)
+        got = port_kernel.cache_sim_cuda(traces, **call)
+        want = port_kernel.cache_sim_plain(traces, **call)
+        _assert_equal([got[k] for k in want], list(want.values()))
+
+
+@pytest.mark.cuda
 def test_ops_telemetry_runs_the_kernel_on_the_card(cuda_device):
     """``ops.cache_sim`` with a CUDA tensor and telemetry launches the
     kernel's telemetry instance (never the plain version) and returns the
@@ -223,13 +243,67 @@ def test_heap_rows_on_both_sides_of_the_shared_memory_limit(cuda_device, kind, n
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,cap,kw,shared", [
+    # arc: tags (a byte an id, 8-byte aligned) and links (8 B an id) fill the 232,448 bytes at N = 25,827
+    ("arc", 25_827, 200, {}, True), ("arc", 25_828, 200, {}, False),
+    # tinylfu: heap 320 B and sketch 4,096 B leave the rows 8 B an id up to N = 28,504 ...
+    ("tinylfu", 28_504, 40, dict(window=700), True), ("tinylfu", 28_505, 40, dict(window=700), False),
+    # ... and a heap of 8,000 B leaves a sketch of width 14,028 exactly its room
+    ("tinylfu", 100_000, 1_000, dict(window=900, sketch_width=14_028), True),
+    ("tinylfu", 100_000, 1_000, dict(window=900, sketch_width=14_029), False),
+])
+def test_scan_programs_on_both_sides_of_the_shared_memory_limit(cuda_device, kind, n, cap, kw, shared):
+    """arc's tags and links and tinylfu's rows or sketch in shared memory and, one id or counter
+    further, in device memory: exact against the plain version (the sketch cases on a
+    scan trace that fills the cache and ages the sketch four times)."""
+    spec = port_kernel.spec_of(kind, n, cap, **kw)
+    if kind == "arc":
+        plan = port_kernel.arc_plan(spec)
+        assert plan.shared == shared
+    else:
+        plan = port_kernel.heap_plan(spec)
+        assert (plan.sketch_shared if "sketch_width" in kw else plan.rows_shared) == shared
+    assert (plan.shared_bytes == port_kernel.SHARED_BYTES) == shared
+    if "sketch_width" in kw:
+        traces = torch.as_tensor(generators.scan(n, 2, 4_000, seed=4, n_sweeps=3, sweep_len_frac=0.2),
+                                 device=cuda_device)
+    else:
+        traces = _traces(n, 2, 3_000, cuda_device, seed=4)
+    call = dict(kind=kind, n_objects=n, capacity=cap, **kw)
+    _assert_equal_to_cpu(port_kernel.cache_sim_cuda(traces, **call), _plain_on_cpu(traces, **call))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sketch_shared", [True, False])
+@pytest.mark.parametrize("doorkeeper", [0, 320])
+def test_tinylfu_aging_with_the_sketch_in_either_memory(cuda_device, monkeypatch, sketch_shared, doorkeeper):
+    """The warp's aging pass (halve the rows, clear the bloom) fires eight times in 3,000
+    requests, with the sketch in shared memory and, where shared memory holds only the heap,
+    in device memory: exact against the plain version, and the run differs from one that
+    never ages."""
+    n, cap, window = 5000, 40, 350
+    call = dict(kind="tinylfu", n_objects=n, capacity=cap, doorkeeper=doorkeeper)
+    if not sketch_shared:
+        monkeypatch.setattr(port_kernel, "SHARED_BYTES", cap * 8)
+    plan = port_kernel.heap_plan(port_kernel.spec_of(window=window, **call))
+    assert plan.sketch_shared == sketch_shared and plan.shared_slots == cap
+    traces = _traces(n, 3, 3000, cuda_device, seed=7)
+    got = port_kernel.cache_sim_cuda(traces, window=window, **call)
+    want = port_kernel.cache_sim_plain(traces, window=window, **call)
+    _assert_equal([got[k] for k in want], list(want.values()))
+    never = port_kernel.cache_sim_cuda(traces, window=10_000, **call)
+    assert any(not torch.equal(got[k], never[k]) for k in want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shared_bytes", [port_kernel.SHARED_BYTES, 4_096, 64])
 @pytest.mark.parametrize("kind,kw", [("lru", {}), ("lfu", {}), ("plfua", {}), ("gdsf", dict(sizes=LOGNORMAL)),
-                                     ("lfu", BUDGET), ("gdsf", BUDGET)])
+                                     ("lfu", BUDGET), ("gdsf", BUDGET), ("tinylfu", dict(window=400)),
+                                     ("tinylfu", dict(window=400, doorkeeper=320)), ("arc", {})])
 def test_heap_placements_give_the_same_outputs(cuda_device, monkeypatch, shared_bytes, kind, kw):
     """Less shared memory moves the rows, then the heap, into device memory (at 4,096 and
-    64 bytes the heaps outgrow their shared slots mid-run): the outputs stay the plain
-    version's."""
+    64 bytes the heaps outgrow their shared slots mid-run; tinylfu's sketch and arc's tags
+    and links leave shared memory too): the outputs stay the plain version's."""
     monkeypatch.setattr(port_kernel, "SHARED_BYTES", shared_bytes)
     traces = _traces(5000, 3, 3000, cuda_device, seed=7)
     call = dict(kind=kind, n_objects=5000, capacity=40, **kw)

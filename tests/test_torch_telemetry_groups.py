@@ -82,6 +82,44 @@ def test_grouped_series_matches_jax(kind, n_groups):
     assert series[:, -1, :, port_spec.METRIC_INDEX["occupancy"]].tolist() == residents
 
 
+@pytest.mark.parametrize("capacity", [0, -3])
+@pytest.mark.parametrize("kind,kw", [
+    ("arc", {}), ("tinylfu", {}), ("tinylfu", dict(doorkeeper=128)), ("wlfu", {}), ("plfua_dyn", dict(hot_size=7)),
+])
+def test_grouped_series_at_capacity_at_most_zero_matches_jax(kind, kw, capacity):
+    """At capacity <= 0 the first victim is id 0 while it is not cached (an empty cache's
+    argmin; arc's empty list names it too): the ungrouped series counts the eviction, a
+    group counts only an id that left the cache, so the cache's count trails its residents.
+    Both series equal jax_cache's; summed over the groups the evictions fall short of the
+    ungrouped ones and the occupancy (residents) is at least the count, every other column
+    equal. arc counts its residents, so there a victim that was not cached is no eviction
+    in either series, and the sum is the ungrouped series."""
+    traces, groups = _tenants(3, seed=13)
+    kw = {**KIND_KW.get(kind, {}), **kw}
+    port = torch_cache.PolicySpec(kind, N, capacity, **kw)
+    ref = jax_cache.PolicySpec(kind, N, capacity, **kw)
+    series = {}
+    for n_groups in (0, 3):
+        hits, _, series[n_groups] = torch_cache.simulate_batch(
+            port, traces, port_telemetry.TelemetrySpec(7, n_groups), groups=groups if n_groups else None,
+            device="cpu")
+        ref_hits, ref_series = jax_cache.simulate_batch(
+            ref, jnp.asarray(traces), ref_telemetry.TelemetrySpec(7, n_groups), None,
+            jnp.asarray(groups) if n_groups else None)
+        _assert_equal(hits, ref_hits)
+        _assert_equal(series[n_groups], ref_series)
+    summed, flat = series[3].sum(dim=2, dtype=torch.int32), series[0]
+    if kind == "arc":
+        assert torch.equal(summed, flat)
+        return
+    evictions, occupancy = port_spec.METRIC_INDEX["evictions"], port_spec.METRIC_INDEX["occupancy"]
+    assert bool((summed[..., evictions] <= flat[..., evictions]).all())
+    assert int(summed[..., evictions].sum()) < int(flat[..., evictions].sum())
+    assert bool((summed[..., occupancy] >= flat[..., occupancy]).all())
+    others = [i for i in range(port_spec.N_METRICS) if i not in (evictions, occupancy)]
+    assert torch.equal(summed[..., others], flat[..., others])
+
+
 @pytest.mark.parametrize("kind", BYTE_KINDS)
 def test_grouped_byte_mode_matches_jax(kind):
     """Byte mode's victims land in their own groups (several for one insert),
@@ -116,6 +154,31 @@ def test_groups_outside_the_range_vanish_as_in_the_reference():
     groups = groups.copy()
     groups[::7] = 5
     _run_both("lfu", traces, groups, 9, 3)
+
+
+@pytest.mark.parametrize("capacity", [0, -3])
+def test_arc_evictions_at_capacity_at_most_zero_follow_jax_cache(capacity):
+    """The two references disagree on arc at capacity <= 0: the reference kernel's
+    ungrouped series counts every demotion or drop of a list's LRU as an eviction, also of
+    id 0 named by an empty list while it is not cached; jax_cache counts the residents that
+    left (its grouped series and the kernel's agree on that). The port follows jax_cache:
+    on the CPU entry point every output but the ungrouped evictions equals the reference
+    kernel's, and those fall short of the kernel's by the phantom victims."""
+    traces, groups = _tenants(3, seed=13)
+    call = dict(kind="arc", n_objects=N, capacity=capacity, telemetry_window=7)
+    ref = ref_ops.cache_sim(traces, interpret=True, **call)
+    port = ops.cache_sim(traces, device="cpu", **call)
+    for a, b in zip(port[:3], ref[:3]):
+        _assert_equal(a, b)
+    evictions = port_spec.METRIC_INDEX["evictions"]
+    others = [i for i in range(port_spec.N_METRICS) if i != evictions]
+    ref_series = np.asarray(ref[3])
+    _assert_equal(port[3][..., others], ref_series[..., others])
+    assert bool((port[3][..., evictions].numpy() <= ref_series[..., evictions]).all())
+    assert int(port[3][..., evictions].sum()) < int(ref_series[..., evictions].sum())
+    _, js = jax_cache.simulate_batch(jax_cache.PolicySpec("arc", N, capacity), jnp.asarray(traces),
+                                     ref_telemetry.TelemetrySpec(7))
+    _assert_equal(port[3], js)
 
 
 # ------------------------------------------------------------------ builders
