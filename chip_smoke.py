@@ -8,12 +8,11 @@ sources: ``cache_sim`` (lru, lfu, plfu, plfua), ``cache_sim/wlfu``,
 ``cache_sim/tinylfu`` (with or without the doorkeeper),
 ``cache_sim/plfua_dyn``, ``cache_sim/sized`` (gdsf, and lru/lfu/plfu/plfua/
 gdsf under a byte budget), ``cache_sim/plfua_dyn_bytes`` (plfua_dyn under a
-byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``; ``cache_sim``,
-``cache_sim/sized`` and ``cache_sim/tinylfu`` take their victims from a heap of
-the residents in shared memory (``kernel.heap_plan`` says where a call puts its
-heap slots, rows and sketch), ``cache_sim/arc`` from the heads of its four
-lists kept in stamp order (``kernel.arc_plan``: its tags and links), wlfu and
-plfua_dyn from a block-wide scan. ``flash_attention``
+byte budget, from ``plfua_dyn.cu``) and ``cache_sim/arc``; every program but
+``cache_sim/arc`` takes its victims from a heap of the residents in shared
+memory (``kernel.heap_plan`` says where a call puts its heap slots, rows,
+sketch and hot mask), ``cache_sim/arc`` from the heads of its four lists kept
+in stamp order (``kernel.arc_plan``: its tags and links). ``flash_attention``
 (``csrc/flash_attention.cu``) has two instances, ``flash_attention/prefill``
 (bf16: wgmma on TMA-staged tiles of 128 query rows; f32: CUDA cores) and
 ``flash_attention/decode`` (a kv head's query rows a block, its keys split over
@@ -25,8 +24,9 @@ through the flash kernel). Phases, one line each (or one line per item):
 1. device  — the card's name and count, and ``nvidia-smi``'s name and power limit.
 2. build   — nvcc builds the six cache_sim sources and the flash source from
              ``src/repro_torch/kernels/*/csrc``, one process each, all started
-             together; prints ptxas's register and shared-memory report for
-             each kernel, and the count of HGMMA (wgmma) instructions in each
+             together; prints ptxas's register, shared-memory, stack and spill
+             report for each kernel (no spill stores allowed in any cache_sim
+             instance), and the count of HGMMA (wgmma) instructions in each
              bf16 prefill kernel's SASS (``cuobjdump``), which must be > 0.
 3. check   — each program against its plain PyTorch version, exact on hits,
              freq, in_cache, inserts and (sized runs) hit bytes, at S = 12:
@@ -41,10 +41,13 @@ through the flash kernel). Phases, one line each (or one line per item):
              whose bound is hit; arc at (100, 2), (10,000, 200) and (100,000,
              2,000) with T = 20,000
              on Zipf and scan traces, its directory size included; lfu, gdsf,
-             arc and tinylfu at the grid's largest heap (100,000, 25,000), each
-             a full cache evicting 1,000 times a sample or more: lfu and gdsf
-             on a scan trace of 36,000 requests that fills it and evicts about
-             5,000 times, arc on the same scan cut to 32,000 (about 1,700
+             wlfu, plfua_dyn, arc and tinylfu at the grid's largest heap
+             (100,000, 25,000), each a full cache evicting 1,000 times a sample
+             or more: lfu, gdsf and wlfu on a scan trace of 36,000 requests that
+             fills it and evicts about 5,000 times, plfua_dyn on the same scan
+             with 97,000 hot ids and a refresh every 9,000 requests (four
+             refreshes, each with churn, read from its telemetry instance on
+             the same traces), arc on the same scan cut to 32,000 (about 1,700
              demotions), and tinylfu, whose duel turns a scan away, on a sweep
              over 27,500 ids and 2,000 of the turned-away ids twice each.
              Each heap program's line names its heap plan, arc's its tags' and
@@ -76,8 +79,9 @@ through the flash kernel). Phases, one line each (or one line per item):
              there), and the least time the card could take (bound: the bytes
              moved, or the operations the function needs, see ``bound``); the
              µs a request of a sample's chain, and for the heap programs the
-             heap's slots and where its slots, rows and (tinylfu) sketch lie,
-             for arc where its tags and links lie.
+             heap's slots and where its slots, rows, sketch (tinylfu,
+             plfua_dyn) and hot mask (plfua_dyn) lie, for arc where its tags
+             and links lie.
 7. telemetry — each program's two telemetry instances (``+telemetry`` and
              ``+telemetry_grouped``, W = T // 16, 4 tenant groups): checks,
              exact against the plain version, ungrouped on Zipf and grouped on
@@ -196,7 +200,12 @@ ARC_CHECK_CASES = ((100, 2, 20_000), (10_000, 200, 20_000), (100_000, 2_000, 20_
 #: memory) and arc's largest lists, filled by one sweep over 95 % of the trace and then evicting
 #: (demoting) about 5,000 times a sample
 HEAP_CHECK_CASE = (100_000, 25_000, 36_000, dict(n_sweeps=1, sweep_len_frac=0.95))
-HEAP_CHECK_KINDS = ("lfu", "gdsf", "arc", "tinylfu")
+HEAP_CHECK_KINDS = ("lfu", "gdsf", "wlfu", "plfua_dyn", "arc", "tinylfu")
+#: plfua_dyn's options there: its default hot set (ids below 2 x 25,000) would turn the sweep
+#: over [50,000, 100,000) away, and its default refresh (250,000) would never fire; with 97,000
+#: hot ids every sample fills the cache and evicts 1,955 times or more, and a refresh every
+#: 9,000 requests fires four times, each changing the hot set (seed 0)
+PLFUA_DYN_HEAP_OPTIONS = dict(hot_size=97_000, refresh=9_000)
 #: arc's largest-lists check on the same scan cut to T = 32,000: its plain version takes about
 #: 1.3 ms a step on the card, and this depth still demotes about 1,700 times a sample
 ARC_HEAP_CHECK_LEN = 32_000
@@ -206,8 +215,8 @@ ARC_HEAP_CHECK_LEN = 32_000
 #: hits, so that the newcomer is not the next victim
 TINYLFU_RESWEEP = (27_500, 25_000, 2_000)
 #: the grouped telemetry checks at capacity <= 0 (the first victim is id 0, not cached): the
-#: programs that scanned for their victims, at the edge case's shape and options and at the
-#: small check case's (plain in the CPU workers)
+#: programs whose victims once came from a block-wide scan, at the edge case's shape and
+#: options and at the small check case's (plain in the CPU workers)
 ZERO_CAPACITIES = (0, -3)
 ZERO_CAPACITY_KINDS = ("wlfu", "tinylfu", "plfua_dyn", "arc")
 # the largest N whose plain version runs in a CPU worker, not on the card
@@ -299,21 +308,21 @@ def catalogue(dist: str, n: int) -> np.ndarray:
 
 
 def plan_text(spec, sizes=None) -> str:
-    """Where a heap program's call puts its heap slots, rows and (tinylfu)
-    sketch, and where arc's puts its tags and links ('' for the other
-    programs)."""
+    """Where a heap program's call puts its heap slots, rows, sketch
+    (tinylfu, plfua_dyn) and hot mask (plfua_dyn), and where arc's puts its
+    tags and links."""
     where = lambda shared: "shared" if shared else "device"
     program = kernel.program_of(spec.kind, spec.capacity_bytes)
     if program == "cache_sim/arc":
         plan = kernel.arc_plan(spec)
         return f" tags,links={where(plan.shared)} shared_bytes={plan.shared_bytes}"
-    if program not in kernel.HEAP_PROGRAMS:
-        return ""
     size_range = (1, 1) if sizes is None else (int(np.min(sizes)), int(np.max(sizes)))
     plan = kernel.heap_plan(spec, size_range)
     heap = f"shared,device_past={plan.shared_slots}" if plan.can_move else "shared"
-    sketch_text = f" sketch={where(plan.sketch_shared)}" if program == "cache_sim/tinylfu" else ""
-    return (f" heap_slots={plan.slots} heap={heap} rows={where(plan.rows_shared)}{sketch_text} "
+    extra = f" sketch={where(plan.sketch_shared)}" if program in kernel.SKETCH_PROGRAMS else ""
+    if plan.hot_bytes:
+        extra += f" hot_mask={where(plan.hot_shared)}"
+    return (f" heap_slots={plan.slots} heap={heap} rows={where(plan.rows_shared)}{extra} "
             f"shared_bytes={plan.shared_bytes}")
 
 
@@ -475,6 +484,24 @@ def run_telemetry_checks(checks: Checks, seed: int) -> None:
                 checks.run(f"{kind} telemetry grouped capacity<=0", kind, n, cap, trace_len, **grouped, **extra)
 
 
+def plfua_dyn_refreshes(got: dict, trace: np.ndarray, n: int, cap: int) -> None:
+    """The refreshes and hot churn of plfua_dyn's largest-heap check, from its telemetry
+    instance on the same traces (a window a refresh period): the same primary outputs, and
+    at least three refreshes a sample, each with churn."""
+    refresh = PLFUA_DYN_HEAP_OPTIONS["refresh"]
+    tel = kernel.cache_sim_cuda(torch.as_tensor(trace, device="cuda"), kind="plfua_dyn", n_objects=n, capacity=cap,
+                                telemetry_window=refresh, **PLFUA_DYN_HEAP_OPTIONS)
+    require(same_outputs(tel, got), "plfua_dyn's largest-heap check: the telemetry instance changed the outputs")
+    series = tel["series"].cpu()
+    fired = series[..., telemetry_spec.METRICS.index("refreshes")]
+    churn = series[..., telemetry_spec.METRICS.index("hot_churn")]
+    with_churn = ((fired > 0) & (churn > 0)).sum(dim=1)
+    require(int(with_churn.min()) >= 3,
+            f"plfua_dyn's largest-heap check refreshed with churn only {with_churn.tolist()} times a sample")
+    print(f"[check plfua_dyn largest heap] refreshes={int(fired.sum())} refreshes_with_churn_by_sample="
+          f"{with_churn.tolist()} churn={int(churn.sum())} churn_by_refresh_sample0={churn[0].tolist()}", flush=True)
+
+
 def run_checks(checks: Checks, seed: int) -> None:
     for n, cap in BASE_CHECK_CASES:
         for kind in BASE_KINDS:
@@ -488,13 +515,16 @@ def run_checks(checks: Checks, seed: int) -> None:
         resweep.append(np.concatenate([order[:swept], np.repeat(order[kept:kept + again], 2)]))
     traces = dict(arc=generators.scan(n, SAMPLES, ARC_HEAP_CHECK_LEN, seed=seed, **scan_kw),
                   tinylfu=np.stack(resweep).astype(np.int32))
+    options = dict(wlfu=grid_options("wlfu"), plfua_dyn=PLFUA_DYN_HEAP_OPTIONS)
     for kind in HEAP_CHECK_KINDS:
         trace = traces.get(kind, scan)
-        got = checks.run(f"{kind} largest heap", kind, n, cap, trace.shape[1], traces=trace)
+        got = checks.run(f"{kind} largest heap", kind, n, cap, trace.shape[1], traces=trace, **options.get(kind, {}))
         evictions = int(got["inserts"].sum()) - int(got["in_cache"].sum())
         require(evictions >= 1_000 * SAMPLES and int(got["in_cache"].sum()) == cap * SAMPLES,
                 f"the largest-heap check of {kind} did not fill the heap and evict: {evictions} evictions")
         print(f"[check {kind} largest heap] evictions={evictions} residents={int(got['in_cache'].sum())}", flush=True)
+        if kind == "plfua_dyn":
+            plfua_dyn_refreshes(got, trace, n, cap)
     for n, cap, trace_len, explicit in ADMISSION_CHECK_CASES:
         for kind in ADMISSION_KINDS:
             variants = [{}]
@@ -1161,14 +1191,24 @@ def hgmma_counts(lib) -> dict:
 
 
 def ptxas_report(lib) -> list[str]:
-    """One ``kernel: usage`` item per kernel the library holds."""
-    out, name = [], None
+    """One ``kernel: usage; stack and spills`` item per kernel the library holds."""
+    out, name, function, spills = [], None, None, {}
     for line in lib.ptxas:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
+        elif "Function properties for" in line:
+            function = line.split("Function properties for", 1)[1].strip()
+        elif "bytes spill stores" in line:
+            spills[function] = line
         elif "Used" in line:
-            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills.get(name, 'no stack line')}")
     return out
+
+
+def spill_stores(lib) -> int:
+    """The bytes of spill stores ptxas reported over every function of the library."""
+    return sum(int(line.split("bytes spill stores")[0].split(",")[-1]) for line in lib.ptxas
+               if "bytes spill stores" in line)
 
 
 def main() -> int:
@@ -1207,7 +1247,10 @@ def main() -> int:
         for lib in built.values():
             report = ptxas_report(lib)
             require(bool(report), f"ptxas printed no register report for {lib.path.name}")
-            print(f"[build] library={lib.path.name} ptxas={report}")
+            print(f"[build] library={lib.path.name} spill_stores={spill_stores(lib)} ptxas={report}")
+        for program in kernel.PROGRAMS:
+            lib = kernel.library(program)
+            require(spill_stores(lib) == 0, f"ptxas spills in {lib.path.name}")
         hgmma = hgmma_counts(flash_lib.result())
         require(len(hgmma) == len(flash.HEAD_DIMS) and all(n > 0 for n in hgmma.values()),
                 f"a bf16 prefill kernel without wgmma in its SASS: {hgmma}")

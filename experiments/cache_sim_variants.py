@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the cache_sim programs against each other on one card.
 
-    python3 experiments/cache_sim_variants.py [--repeats 3] [--sass PATH] [--only heap|placement|split]
+    python3 experiments/cache_sim_variants.py [--repeats 3] [--sass PATH] [--only heap|placement|split|hot]
 
 Each variant is ``src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu`` (and
 its headers) with a few lines replaced, built by ``nvcc`` into
@@ -32,18 +32,31 @@ timed in turns at S = 12, T = 100,000:
   the three cases of the paper's grid where the order decides which of the
   two lies in shared memory (N = 10,000, cap 2,500; N = 21,544, cap 1,183 and
   1,961), and at the measured case (N = 100,000, cap 2,000: both orders
-  place the sketch).
+  place the sketch);
+* plfua_dyn under the byte budget, ``sketch_first`` (``heap_plan``: a heap
+  that cannot lie in shared memory whole, N slots at these cases, comes after
+  the sketch, its shared slots what is left, past which it moves to device
+  memory) against ``heap_first`` (the heap's slots take shared memory first,
+  leaving the sketch and hot mask in device memory), at N = 100,000, cap
+  2,000 (the measured case) and 3,314.
 
-Last, the L1/shared split of the one-warp programs (lfu through
-``cache_sim.cu``, tinylfu, arc): ``default`` (the CUDA runtime's choice for a kernel
-with dynamic shared memory) against ``max_l1`` (the sources with a preference
-for the most L1 that leaves the block its shared memory,
-``cudaSharedmemCarveoutMaxL1``),
-checked and timed in turns at the measured case and one that fits shared
-memory.
+Then the L1/shared split of all seven programs (lfu through ``cache_sim.cu``,
+wlfu, tinylfu, plfua_dyn, gdsf and plfua_dyn under the byte budget, arc):
+``default`` (the CUDA runtime's choice for a kernel with dynamic shared memory)
+against ``max_l1`` (a preference for the most L1 that leaves the block its
+shared memory, ``cudaSharedmemCarveoutMaxL1``), each a patched copy of the
+sources' launch helper (with the preference added, or taken out, whichever the
+source lacks), checked and timed in turns at the measured case and one whose
+rows fit shared memory.
+
+Last, plfua_dyn's hot mask: ``bytes`` (the source: a byte an id) against
+``bits`` (a patched copy and plan: a bit an id), at two cases where both fit
+shared memory beside the same placement of everything else (N = 4,642, cap
+1,160; N = 10,000, cap 200) and at the measured case (the bytes in device
+memory, the bits in shared memory).
 
 With ``--sass PATH`` the SASS of the source as it is goes to PATH
-(``cuobjdump``). ``--only`` runs one of the three parts. Needs a CUDA card;
+(``cuobjdump``). ``--only`` runs one of the four parts. Needs a CUDA card;
 prints one line a result and exits non-zero on a failed build or check.
 """
 from __future__ import annotations
@@ -53,6 +66,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import re
 import shutil
 import subprocess
 import sys
@@ -64,7 +78,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import zipf  # noqa: E402
+from repro_torch.core import simulate, zipf  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cache_sim import cache_sim as kernel  # noqa: E402
 
@@ -138,26 +152,69 @@ def rows_first(spec, size_range=None) -> kernel.HeapPlan:
     return dataclasses.replace(plan, rows_shared=rows_shared, sketch_shared=plan.sketch_bytes <= left)
 
 
-#: name: (kind, the wrapper's attributes to replace): arc's and tinylfu's placements
+def heap_first(spec, size_range=None) -> kernel.HeapPlan:
+    """plfua_dyn's plan with a heap that cannot lie in shared memory whole (byte mode's
+    slots) taking all of it first, the sketch and hot mask after it where they fit."""
+    plan = HEAP_PLAN(spec, size_range)
+    if not plan.can_move:
+        return plan
+    shared_slots = (kernel.SHARED_BYTES - kernel._REDUCE_BYTES) // kernel._SLOT_BYTES
+    left = kernel.SHARED_BYTES - kernel._REDUCE_BYTES - shared_slots * kernel._SLOT_BYTES
+    sketch_shared = plan.sketch_bytes <= left
+    left -= plan.sketch_bytes * sketch_shared
+    return dataclasses.replace(plan, shared_slots=shared_slots, sketch_shared=sketch_shared,
+                               hot_shared=plan.hot_bytes <= left)
+
+
+#: name: (kind, the wrapper's attributes to replace): arc's, tinylfu's and byte-mode plfua_dyn's placements
 PLACEMENTS = {
     "shared": ("arc", {}),
     "device": ("arc", {"arc_plan": lambda spec: kernel.ArcPlan(False, spec.n_objects)}),
     "sketch_first": ("tinylfu", {}),
     "rows_first": ("tinylfu", {"heap_plan": rows_first}),
+    "sketch_first_bytes": ("plfua_dyn", {}),
+    "heap_first": ("plfua_dyn", {"heap_plan": heap_first}),
 }
-#: the launch helper's lines that the max_l1 split adds to
-MAX_L1 = [("  if (err != cudaSuccess) return err;\n  kernel<<<",
-           "  if (err != cudaSuccess) return err;\n"
-           "  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,\n"
-           "                             cudaSharedmemCarveoutMaxL1);\n"
-           "  if (err != cudaSuccess) return err;\n  kernel<<<")]
-#: (kind, N, capacity) of the split's timings
-SPLIT = [("lfu", 100_000, 2_000), ("lru", 100, 2), ("tinylfu", 100_000, 2_000), ("tinylfu", 10_000, 2_500),
-         ("arc", 100_000, 2_000), ("arc", 10_000, 200)]
-#: (kind, N, capacity) of the placement timings
-PLACED = [("arc", 10_000, 200), ("arc", 21_544, 1_183),
-          ("tinylfu", 10_000, 2_500), ("tinylfu", 21_544, 1_183), ("tinylfu", 21_544, 1_961),
-          ("tinylfu", 100_000, 2_000)]
+#: the launch helper's preference for L1 (the max_l1 split), before its launch
+CARVEOUT = ("  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,\n"
+            "                             cudaSharedmemCarveoutMaxL1);\n"
+            "  if (err != cudaSuccess) return err;\n")
+LAUNCH = "  kernel<<<"
+#: (kind, N, capacity, under the byte budget) of the split's timings: each program at the measured
+#: case and at one whose rows fit shared memory
+SPLIT = [("lfu", 100_000, 2_000, False), ("lfu", 10_000, 200, False), ("wlfu", 100_000, 2_000, False),
+         ("wlfu", 10_000, 200, False), ("tinylfu", 100_000, 2_000, False), ("tinylfu", 10_000, 200, False),
+         ("plfua_dyn", 100_000, 2_000, False), ("plfua_dyn", 10_000, 200, False), ("gdsf", 100_000, 2_000, True),
+         ("gdsf", 10_000, 200, True), ("plfua_dyn", 100_000, 2_000, True), ("plfua_dyn", 10_000, 200, True),
+         ("arc", 100_000, 2_000, False), ("arc", 10_000, 200, False)]
+#: plfua_dyn's hot mask as a bit an id (32-bit words, written a warp's ballot at a time), in
+#: place of the source's byte an id
+HOT_BITS = """struct HotMask {
+  unsigned char* byte;
+
+  __host__ __device__ static int bytes(int n) { return (n + kWarp - 1) / kWarp * 4; }
+
+  __device__ __forceinline__ bool get(int i) const {
+    return (reinterpret_cast<const unsigned*>(byte)[i >> 5] >> (i & 31)) & 1u;
+  }
+
+  __device__ __forceinline__ bool set_warp(int base, bool now) const {
+    unsigned* word = reinterpret_cast<unsigned*>(byte) + base / kWarp;
+    const int lane = threadIdx.x % kWarp;
+    const unsigned bits = __ballot_sync(0xffffffffu, now);
+    const bool was = (*word >> lane) & 1u;
+    __syncwarp();  // every lane's read before lane 0's write
+    if (lane == 0) *word = bits;
+    return was != now;
+  }
+};
+"""
+#: (N, capacity) of the hot mask's timings
+HOT_CASES = [(4_642, 1_160), (10_000, 200), (100_000, 2_000)]
+#: (kind, N, capacity, under the byte budget) of the placement timings
+PLACED = [("arc", 10_000, 200, False), ("arc", 21_544, 1_183, False),
+          ("tinylfu", 10_000, 2_500, False), ("tinylfu", 21_544, 1_183, False), ("tinylfu", 21_544, 1_961, False),
+          ("tinylfu", 100_000, 2_000, False), ("plfua_dyn", 100_000, 2_000, True), ("plfua_dyn", 100_000, 3_314, True)]
 
 
 def patch(text: str, reps, what: str) -> str:
@@ -214,21 +271,33 @@ def swapped(library, attrs: dict):
             setattr(kernel, attr, value)
 
 
-def check_and_time(part: str, kind: str, n: int, cap: int, variants: dict, repeats: int, smi: str) -> bool:
-    """Each variant (name: (library loader, wrapper attributes)) against the plain version
-    (S = 4, T = 3,000), then timed in turns at S = 12, T = 100,000."""
+def options(kind: str, n: int, cap: int, budget: bool = False) -> dict:
+    """A timed call's options: the grid's wlfu window, and the byte benchmark's catalogue and budget."""
     kw = dict(kind=kind, n_objects=n, capacity=cap)
+    if kind == "wlfu":
+        kw["window"] = simulate.WLFU_WINDOW
+    if budget:
+        sizes = simulate.bytes_catalogue(n)
+        kw.update(sizes=sizes, capacity_bytes=simulate.bytes_budget(sizes, cap))
+    return kw
+
+
+def check_and_time(part: str, kw: dict, variants: dict, repeats: int, smi: str) -> bool:
+    """Each variant (name: (library loader, wrapper attributes)) against the plain version
+    (S = 4, T = 3,000) on the call ``kw``, then timed in turns at S = 12, T = 100,000."""
+    n = kw["n_objects"]
+    label = f"{kernel.program_of(kw['kind'], kw.get('capacity_bytes', 0))} {kw['kind']} N={n} cap={kw['capacity']}"
     traces = torch.as_tensor(zipf.sample_traces(n, 4, 3_000, seed=1), device="cuda")
     want = kernel.cache_sim_plain(traces, **kw)
     where = {}
     for name, variant in variants.items():
         with swapped(*variant):
-            where[name] = placement_text(kind, n, cap)
+            where[name] = placement_text(kw)
             got = kernel.cache_sim_cuda(traces, **kw)
         if not all(torch.equal(got[k], want[k]) for k in want):
-            print(f"[check] {name} {kind} N={n} cap={cap}: differs from the plain version", flush=True)
+            print(f"[check] {name} {label}: differs from the plain version", flush=True)
             return False
-    print(f"[check {part}] {kind} N={n} cap={cap} every variant == plain: {where}", flush=True)
+    print(f"[check {part}] {label} every variant == plain: {where}", flush=True)
     traces = torch.as_tensor(zipf.sample_traces(n, 12, 100_000, seed=0), device="cuda")
     names = list(variants)
     times = {name: [] for name in names}
@@ -236,38 +305,69 @@ def check_and_time(part: str, kind: str, n: int, cap: int, variants: dict, repea
         for name in order:
             with swapped(*variants[name]):
                 times[name].append(events_ms(lambda: kernel.cache_sim_cuda(traces, **kw), repeats))
-    print(f"[time {part}] {kind} N={n} cap={cap} S=12 T=100000 ms: "
+    print(f"[time {part}] {label} S=12 T=100000 ms: "
           + " ".join(f"{name}={t}" for name, t in times.items()) + f" card={smi!r}", flush=True)
     return True
 
 
-def placement_text(kind: str, n: int, cap: int) -> str:
-    spec = kernel.spec_of(kind, n, cap)
-    if kind == "arc":
+def placement_text(kw: dict) -> str:
+    spec = kernel.spec_of(**{k: v for k, v in kw.items() if k != "sizes"})
+    if spec.kind == "arc":
         plan = kernel.arc_plan(spec)
         return f"shared={plan.shared}"
-    plan = kernel.heap_plan(spec)
-    return f"heap_slots={plan.slots} sketch_shared={plan.sketch_shared} rows_shared={plan.rows_shared}"
+    size_range = (int(kw["sizes"].min()), int(kw["sizes"].max())) if "sizes" in kw else (1, 1)
+    plan = kernel.heap_plan(spec, size_range)
+    return (f"heap_slots={plan.slots} shared_slots={plan.shared_slots} sketch_shared={plan.sketch_shared} "
+            f"hot_shared={plan.hot_shared} hot_bytes={plan.hot_bytes} rows_shared={plan.rows_shared}")
 
 
 def time_placements(repeats: int, smi: str) -> int:
-    """arc's and tinylfu's placements, each checked, then timed in turns."""
-    for kind, n, cap in PLACED:
+    """arc's, tinylfu's and byte-mode plfua_dyn's placements, each checked, then timed in turns."""
+    for kind, n, cap, budget in PLACED:
         variants = {name: (LIBRARY, attrs) for name, (k, attrs) in PLACEMENTS.items() if k == kind}
-        if not check_and_time("placement", kind, n, cap, variants, repeats, smi):
+        if not check_and_time("placement", options(kind, n, cap, budget), variants, repeats, smi):
             return 1
     return 0
 
 
+def split_patch(with_l1: bool) -> list:
+    """The launch helper's replacements that give it the preference for L1, or take it away."""
+    text = (kernel._CSRC / HEADER).read_text()
+    if with_l1 and CARVEOUT not in text:
+        return [(LAUNCH, CARVEOUT + LAUNCH)]
+    if not with_l1 and CARVEOUT in text:
+        return [(CARVEOUT, "")]
+    return []
+
+
 def time_split(repeats: int, smi: str) -> int:
     """Each program with the CUDA runtime's default L1/shared split and with max_l1, checked, then timed in turns."""
-    programs = sorted({kernel.PROGRAM_OF[kind] for kind, _, _ in SPLIT})
-    with concurrent.futures.ThreadPoolExecutor(len(programs)) as pool:
-        max_l1 = dict(zip(programs, pool.map(lambda p: build_patched(p, "max_l1", [], MAX_L1), programs)))
-    for kind, n, cap in SPLIT:
-        lib = max_l1[kernel.PROGRAM_OF[kind]]
-        variants = {"default": (LIBRARY, {}), "max_l1": (lambda program, lib=lib: lib, {})}
-        if not check_and_time("split", kind, n, cap, variants, repeats, smi):
+    programs = sorted({kernel.program_of(kind, budget) for kind, _, _, budget in SPLIT})
+    builds = [(p, name, with_l1) for p in programs for name, with_l1 in (("default", False), ("max_l1", True))]
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        libs = dict(zip(((p, name) for p, name, _ in builds),
+                        pool.map(lambda b: build_patched(b[0], b[1], [], split_patch(b[2])), builds)))
+    for kind, n, cap, budget in SPLIT:
+        program = kernel.program_of(kind, budget)
+        variants = {name: (lambda _program, lib=libs[program, name]: lib, {}) for name in ("default", "max_l1")}
+        if not check_and_time("split", options(kind, n, cap, budget), variants, repeats, smi):
+            return 1
+    return 0
+
+
+def time_hot(repeats: int, smi: str) -> int:
+    """plfua_dyn's hot mask as bytes (the source) and as bits, checked, then timed in turns.
+    Both are built as copies and handed to the wrapper alike: the wrapper's own loader hashes
+    the sources on every call, which a timing that syncs on the host each call would count."""
+    source = kernel.PROGRAMS["cache_sim/plfua_dyn"].source.read_text()
+    mask = re.search(r"struct HotMask \{.*?\n\};\n", source, re.S).group(0)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        as_bytes, as_bits = pool.map(lambda args: build_patched("cache_sim/plfua_dyn", *args, []),
+                                     (("hot_bytes", []), ("hot_bits", [(mask, HOT_BITS)])))
+    variants = {"bytes": (lambda _program: as_bytes, {}),
+                "bits": (lambda _program: as_bits, {"hot_mask_bytes": lambda n: -(-n // 32) * 4})}
+    for n, cap in HOT_CASES:
+        if not check_and_time("hot", options("plfua_dyn", n, cap), variants, repeats, smi):
             return 1
     return 0
 
@@ -288,7 +388,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--sass", type=Path)
-    parser.add_argument("--only", choices=("heap", "placement", "split"))
+    parser.add_argument("--only", choices=("heap", "placement", "split", "hot"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: this script runs on the card", file=sys.stderr)
@@ -300,6 +400,8 @@ def main() -> int:
         return time_placements(args.repeats, smi)
     if args.only == "split":
         return time_split(args.repeats, smi)
+    if args.only == "hot":
+        return time_hot(args.repeats, smi)
     shutil.rmtree(OUT, ignore_errors=True)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
@@ -343,7 +445,7 @@ def main() -> int:
               + " ".join(f"{name}={t}" for name, t in times.items()) + f" card={smi!r}", flush=True)
     if args.only == "heap":
         return 0
-    return time_placements(args.repeats, smi) or time_split(args.repeats, smi)
+    return time_placements(args.repeats, smi) or time_split(args.repeats, smi) or time_hot(args.repeats, smi)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ root of the checkout. The library's name carries a hash of the sources, the
 headers (``*.cuh``) beside them and the flags, so an edited source or header
 builds anew and an unchanged one loads the library already built. ``ctypes`` loads it; the caller declares each function's
 ``argtypes``. The compiler's ``-Xptxas -v`` report (registers, shared memory,
-spills) is kept beside the library.
+spills) is kept beside the library; ``Library.ptxas`` holds its ``ptxas info``
+lines and each function's stack and spill line.
 """
 from __future__ import annotations
 
@@ -81,7 +82,8 @@ def _build_locked(name: str, sources: list[Path], path: Path) -> Library:
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, path)
     ptxas = tuple(
-        line.strip() for line in log.read_text().splitlines() if line.startswith("ptxas info")
+        line.strip() for line in log.read_text().splitlines()
+        if line.startswith("ptxas info") or "bytes spill stores" in line
     )
     library = Library(lib=ctypes.CDLL(str(path)), path=path, ptxas=ptxas)
     _LOADED[path] = library

@@ -86,13 +86,13 @@ PROGRAMS = {
         Program("cache_sim", _CSRC / "cache_sim.cu", "cache_sim_launch",
                 (_PTR,) * 9 + (_INT,) * 12 + (_PTR,)),
         Program("cache_sim/wlfu", _CSRC / "wlfu.cu", "wlfu_launch",
-                (_PTR,) * 9 + (_INT,) * 8 + (_PTR,)),
+                (_PTR,) * 10 + (_INT,) * 11 + (_PTR,)),
         Program("cache_sim/tinylfu", _CSRC / "tinylfu.cu", "tinylfu_launch",
                 (_PTR,) * 12 + (_INT,) * 14 + (_PTR,)),
         Program("cache_sim/plfua_dyn", _CSRC / "plfua_dyn.cu", "plfua_dyn_launch",
-                (_PTR,) * 11 + (_INT,) * 10 + (_PTR,)),
+                (_PTR,) * 13 + (_INT,) * 15 + (_PTR,)),
         Program("cache_sim/plfua_dyn_bytes", _CSRC / "plfua_dyn.cu", "plfua_dyn_bytes_launch",
-                (_PTR,) * 13 + (_INT,) * 12 + (_PTR,)),
+                (_PTR,) * 15 + (_INT,) * 17 + (_PTR,)),
         Program("cache_sim/sized", _CSRC / "sized.cu", "sized_launch",
                 (_PTR,) * 12 + (_INT,) * 14 + (_PTR,)),
         Program("cache_sim/arc", _CSRC / "arc.cu", "arc_launch",
@@ -116,13 +116,22 @@ BYTES_PROGRAM_OF = {
 #: kinds the kernel runs under a byte budget: the reference kernel's
 BYTE_CAPABLE_KINDS = tuple(k for k in KERNEL_KINDS if k in BYTES_PROGRAM_OF)
 
-#: the programs whose victims come from a heap of the residents (wlfu and plfua_dyn scan for
-#: them; arc keeps its lists in stamp order)
-HEAP_PROGRAMS = ("cache_sim", "cache_sim/sized", "cache_sim/tinylfu")
-#: dynamic shared memory a block can have on Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+#: the programs whose victims come from a heap of the residents: every program but arc, which
+#: keeps its lists in stamp order
+HEAP_PROGRAMS = tuple(p for p in PROGRAMS if p != "cache_sim/arc")
+#: the programs with a count-min sketch (and tinylfu's doorkeeper) beside the heap
+SKETCH_PROGRAMS = ("cache_sim/tinylfu", "cache_sim/plfua_dyn", "cache_sim/plfua_dyn_bytes")
+#: shared memory a block can have on Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin)
 SHARED_BYTES = 232_448
 _SLOT_BYTES = 8  # a heap slot: (key, id) packed in 64 bits
 _ROW_BYTES = 8  # an id's entries in the rows: its slot (pos) and its count (freq)
+#: plfua_dyn's static shared memory: block_reduce's int a warp of its 256 threads
+_REDUCE_BYTES = 32
+
+
+def hot_mask_bytes(n_objects: int) -> int:
+    """plfua_dyn's hot mask: a byte an id, in whole warps of 32 bytes."""
+    return -(-n_objects // 32) * 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,9 +141,11 @@ class HeapPlan:
     which holds ``shared_slots`` slots, and a heap that outgrows them moves
     to an ``(S, slots)`` device buffer (none where every slot fits); with
     ``rows_shared`` the per-id rows (pos, freq) lie in shared memory beside
-    the slots, else in ``(S, N)`` device buffers; tinylfu's sketch
-    (``sketch_bytes``: 4 x width int32 and a byte a doorkeeper bit) lies
-    there too with ``sketch_shared``, else in device buffers."""
+    the slots, else in ``(S, N)`` device buffers; tinylfu's and plfua_dyn's
+    sketch (``sketch_bytes``: 4 x width int32, and tinylfu's byte a
+    doorkeeper bit) lies there too with ``sketch_shared``, and plfua_dyn's
+    hot mask (``hot_bytes``) with ``hot_shared``, else each in device
+    buffers."""
 
     slots: int
     shared_slots: int
@@ -142,12 +153,14 @@ class HeapPlan:
     n_objects: int
     sketch_bytes: int = 0
     sketch_shared: bool = False
+    hot_bytes: int = 0
+    hot_shared: bool = False
 
     @property
     def shared_bytes(self) -> int:
         """The block's dynamic shared memory (the kernel's own count)."""
         return (self.shared_slots * _SLOT_BYTES + self.rows_shared * self.n_objects * _ROW_BYTES
-                + self.sketch_shared * self.sketch_bytes)
+                + self.sketch_shared * self.sketch_bytes + self.hot_shared * self.hot_bytes)
 
     @property
     def can_move(self) -> bool:
@@ -165,17 +178,25 @@ def heap_plan(spec: torch_cache.PolicySpec, size_range: tuple[int, int] | None =
     reference's victim may be an id that is not cached and the cache may
     outgrow its count, so gdsf takes N.
 
-    tinylfu takes ``max(capacity, 1)`` too: it inserts without a victim only
-    while its count is below the capacity, and a won duel evicts the heap's
-    top as it inserts x. The top is cached whenever the heap holds an id
-    (counts stay below INT_MAX), so an insert adds an id past the count only
-    into an empty heap, which capacity <= 0 alone reaches, once: the count
-    then trails the cache's one resident, as the reference's does.
+    wlfu, tinylfu and plfua_dyn take ``max(capacity, 1)`` too. wlfu's and
+    plfua_dyn's window counts and counts stay below INT_MAX, as lfu's do.
+    tinylfu inserts without a victim only while its count is below the
+    capacity, and a won duel evicts the heap's top as it inserts x. The top
+    is cached whenever the heap holds an id (counts stay below INT_MAX), so
+    an insert adds an id past the count only into an empty heap, which
+    capacity <= 0 alone reaches, once: the count then trails the cache's one
+    resident, as the reference's does.
 
-    The heap takes shared memory first; then tinylfu's sketch, then the rows,
-    each where it fits beside what is there (the sketch's four counters a
-    request and a duel's four loads gain more there than the rows' two
-    loads, which the kernel issues a step ahead)."""
+    The heap takes shared memory first; then the sketch (tinylfu's and
+    plfua_dyn's), then plfua_dyn's hot mask, then the rows, each where it
+    fits beside what is there (the sketch's four counters a request and a
+    duel's four loads gain more there than the rows' two loads, which the
+    kernel issues a step ahead). A heap that cannot lie in shared memory
+    whole (byte mode's slots, gdsf's N) comes after the sketch instead and
+    takes what is left, past which it moves to device memory: the heap
+    rarely fills such slots, while the sketch takes four read-modify-writes
+    a request. plfua_dyn's block keeps ``_REDUCE_BYTES`` of static shared
+    memory beside them."""
     n = spec.n_objects
     if spec.kind == "gdsf":
         slots = n
@@ -184,12 +205,19 @@ def heap_plan(spec: torch_cache.PolicySpec, size_range: tuple[int, int] | None =
         slots = n if spec.capacity_bytes + hi > _I32_MAX else min(n, spec.capacity_bytes // lo)
     else:
         slots = min(n, max(spec.capacity, 1))
-    shared_slots = min(slots, SHARED_BYTES // _SLOT_BYTES)
-    left = SHARED_BYTES - shared_slots * _SLOT_BYTES
-    sketch_bytes = sketch.DEPTH * spec.effective_sketch_width * 4 + spec.doorkeeper if spec.kind == "tinylfu" else 0
-    sketch_shared = 0 < sketch_bytes <= left
+    left = SHARED_BYTES - (_REDUCE_BYTES if spec.kind == "plfua_dyn" else 0)
+    with_sketch = spec.kind in ("tinylfu", "plfua_dyn")
+    sketch_bytes = sketch.DEPTH * spec.effective_sketch_width * 4 + spec.doorkeeper if with_sketch else 0
+    heap_first = slots * _SLOT_BYTES <= left  # else the heap comes after the sketch
+    sketch_shared = 0 < sketch_bytes <= left - heap_first * slots * _SLOT_BYTES
     left -= sketch_bytes * sketch_shared
-    return HeapPlan(slots, shared_slots, n * _ROW_BYTES <= left, n, sketch_bytes, sketch_shared)
+    shared_slots = min(slots, left // _SLOT_BYTES)
+    left -= shared_slots * _SLOT_BYTES
+    hot_bytes = hot_mask_bytes(n) if spec.kind == "plfua_dyn" else 0
+    hot_shared = 0 < hot_bytes <= left
+    left -= hot_bytes * hot_shared
+    return HeapPlan(slots, shared_slots, n * _ROW_BYTES <= left, n, sketch_bytes, sketch_shared, hot_bytes,
+                    hot_shared)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -366,7 +394,7 @@ def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torc
     own device. The outputs also hold (under ``_`` names) every tensor whose
     pointer the arguments carry besides ``traces``: the sizes and group rows
     and the scratch (the heap programs' slot row and device heap, arc's
-    tags and links, ring, sketch rows, bloom, hot mask, estimates, per-group
+    tags and links, sketch rows, bloom, hot mask, estimates, per-group
     resident counts), so that none is freed before the launch; once it has
     been queued the caching allocator hands them out again only in stream
     order, after it. With ``telemetry`` the outputs gain the zeroed
@@ -394,8 +422,10 @@ def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torc
         outs["_heap"] = torch.empty((s, plan.slots), dtype=torch.int64, device=dev) if plan.can_move else None
         heap = ptr(outs["_pos"], outs["_heap"])
         layout = [plan.slots, plan.shared_slots, int(plan.rows_shared)]
-        if program == "cache_sim/tinylfu":
+        if program in SKETCH_PROGRAMS:
             layout.append(int(plan.sketch_shared))
+        if program in ("cache_sim/plfua_dyn", "cache_sim/plfua_dyn_bytes"):
+            layout.append(int(plan.hot_shared))
         layout += [window, n_groups]
     if program == "cache_sim":
         return program, outs, ptr(traces, hits, freq, in_cache) + heap + tel + dims + [
@@ -417,28 +447,25 @@ def _launch_args(spec: torch_cache.PolicySpec, traces: torch.Tensor, sizes: torc
                                   outs["_tags"], outs["_links"]) + tel + dims + [
             spec.capacity, int(plan.shared), window, n_groups]
     if program == "cache_sim/wlfu":
-        outs["_ring"] = torch.full((s, spec.window), -1, dtype=torch.int32, device=dev)
-        return program, outs, ptr(traces, hits, inserts, freq, in_cache, outs["_ring"]) + tel + dims + [
-            spec.capacity, spec.window, window, n_groups]
+        return program, outs, ptr(traces, hits, inserts, freq, in_cache) + heap + tel + dims + [
+            spec.capacity, spec.window] + layout
     width = spec.effective_sketch_width
+    outs["_rows"] = None if plan.sketch_shared else zeros(s, sketch.DEPTH, width)
     if program == "cache_sim/tinylfu":
-        device_sketch = not plan.sketch_shared
-        outs["_rows"] = zeros(s, sketch.DEPTH, width) if device_sketch else None
-        outs["_bloom"] = zeros(s, spec.doorkeeper, dtype=torch.uint8) if device_sketch and spec.doorkeeper else None
+        with_bloom = not plan.sketch_shared and spec.doorkeeper
+        outs["_bloom"] = zeros(s, spec.doorkeeper, dtype=torch.uint8) if with_bloom else None
         return program, outs, ptr(traces, hits, inserts, freq, in_cache) + heap + ptr(
             outs["_rows"], outs["_bloom"]) + tel + dims + [
             spec.capacity, spec.effective_window, width, spec.doorkeeper] + layout
-    outs["_rows"] = zeros(s, sketch.DEPTH, width)
-    outs["_hot"] = torch.empty((s, n), dtype=torch.uint8, device=dev)
+    outs["_hot"] = None if plan.hot_shared else torch.empty((s, plan.hot_bytes), dtype=torch.uint8, device=dev)
     outs["_est"] = torch.empty((s, n), dtype=torch.int32, device=dev)
-    scratch = ptr(outs["_rows"], outs["_hot"], outs["_est"])
+    scratch = heap + ptr(outs["_rows"], outs["_hot"], outs["_est"])
     options = [spec.capacity, spec.effective_hot, spec.effective_refresh, width]
     if program == "cache_sim/plfua_dyn":
-        return program, outs, ptr(traces, hits, inserts, freq, in_cache) + scratch + tel + dims + options + [
-            window, n_groups]
+        return program, outs, ptr(traces, hits, inserts, freq, in_cache) + scratch + tel + dims + options + layout
     return program, outs, ptr(traces, sizes, hits, inserts, outs["hit_bytes"], freq,
                               in_cache) + scratch + tel + dims + options + [
-        spec.capacity_bytes, spec.effective_max_victims, window, n_groups]
+        spec.capacity_bytes, spec.effective_max_victims] + layout
 
 
 def cache_sim_cuda(traces: torch.Tensor, *, kind: str, n_objects: int, capacity: int, hot_size: int = 0,

@@ -277,9 +277,9 @@ extern "C" int arc_launch(const int* traces, int* hits, int* dir_size, int* argm
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   with_telemetry(tel, [&](auto on, auto grouped) {
     err = launch_heap_kernel(arc_kernel<decltype(on)::value, decltype(grouped)::value>,
-                             n_samples, bytes, st, traces, trace_len, n_objects, capacity, hits,
-                             dir_size, argmins, stamp, in_cache, tags, reinterpret_cast<int2*>(links),
-                             shared, tel);
+                             n_samples, kWarp, bytes, st, traces, trace_len, n_objects, capacity,
+                             hits, dir_size, argmins, stamp, in_cache, tags,
+                             reinterpret_cast<int2*>(links), shared, tel);
   });
   return static_cast<int>(err);
 }

@@ -157,8 +157,8 @@ extern "C" int cache_sim_launch(const int* traces, int* hits, int* freq,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   with_telemetry(tel, [&](auto on, auto grouped) {
     err = launch_heap_kernel(cache_sim_kernel<decltype(on)::value, decltype(grouped)::value>,
-                             n_samples, bytes, st, traces, trace_len, n_objects, kind, capacity,
-                             hot_size, hits, freq, in_cache, pos, heap, layout, tel);
+                             n_samples, kWarp, bytes, st, traces, trace_len, n_objects, kind,
+                             capacity, hot_size, hits, freq, in_cache, pos, heap, layout, tel);
   });
   return static_cast<int>(err);
 }

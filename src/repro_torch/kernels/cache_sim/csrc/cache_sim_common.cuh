@@ -1,14 +1,13 @@
 // Device helpers shared by the cache_sim programs (cache_sim.cu, wlfu.cu, tinylfu.cu,
-// plfua_dyn.cu, sized.cu, arc.cu): the residents' heap that gives cache_sim.cu, sized.cu and
-// tinylfu.cu their victims, the block-wide lexicographic argmin over the cached ids that
-// wlfu.cu and plfua_dyn.cu still scan for one, byte mode's bounded multi-victim loop over
-// that argmin, block-wide sums, int32 arithmetic that wraps as the reference's, and the
-// count-min sketch's lowbias32 hashing. arc.cu keeps its lists itself.
+// plfua_dyn.cu, sized.cu, arc.cu): the residents' heap that gives every program but arc its
+// victims, the launch helper every program launches through, block-wide sums (plfua_dyn's
+// refresh), int32 arithmetic that wraps as the reference's, and the count-min sketch's
+// lowbias32 hashing. arc.cu keeps its lists itself.
 //
 // What bounds a program on this card is its chain of T dependent steps, not bytes or
-// operations: the argmin costs N compares from L2 and block barriers on every victim, the
-// heap ceil(log2 slots) levels of dependent reads in shared memory. The argmin helpers are
-// called from all threads of a block (each holds __syncthreads()); the heap is one thread's.
+// operations: thread 0 runs the trace, and a victim costs the heap's ceil(log2 slots) levels
+// of dependent reads in shared memory. The heap is one thread's; block_reduce is called from
+// all threads of a block (it holds __syncthreads()).
 
 #pragma once
 
@@ -18,73 +17,10 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
 constexpr int kWarp = 32;
 
-// (ka, ia) precedes (kb, ib): smaller key, then lower id.
-__device__ __forceinline__ bool precedes(int ka, int ia, int kb, int ib) {
-  return ka < kb || (ka == kb && ia < ib);
-}
-
-__device__ __forceinline__ void warp_min(int& key, int& id) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    const int k2 = __shfl_down_sync(0xffffffffu, key, off);
-    const int i2 = __shfl_down_sync(0xffffffffu, id, off);
-    if (precedes(k2, i2, key, id)) {
-      key = k2;
-      id = i2;
-    }
-  }
-}
-
-// The mask of the cached ids (in_cache[i] != 0).
-struct CachedMask {
-  const unsigned char* in_cache;
-  __device__ __forceinline__ bool operator()(int i) const { return in_cache[i] != 0; }
-};
-
-// argmin of where(in_set, key, INT_MAX) with ties to the lowest id: an id outside the set
-// competes as (INT_MAX, id), so an empty set gives id 0, as the reference's argmin does.
-// The result is valid in thread 0 only. Every thread's reads of key and of the mask's
-// bytes happen before the block barrier inside, so thread 0 may write them once this
-// returns. Warp 0 reads s_key/s_id after that barrier: a second call straight after this
-// one would need a barrier between the two.
-template <class Mask>
-__device__ int block_argmin_of(const int* key, Mask in_set, int n, int* s_key, int* s_id) {
-  int best_k = INT_MAX;
-  int best_i = INT_MAX;  // above every real id, so any real candidate replaces it
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int k = in_set(i) ? key[i] : INT_MAX;
-    if (precedes(k, i, best_k, best_i)) {
-      best_k = k;
-      best_i = i;
-    }
-  }
-  warp_min(best_k, best_i);
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (lane == 0) {
-    s_key[warp] = best_k;
-    s_id[warp] = best_i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x / kWarp;
-    best_k = lane < n_warps ? s_key[lane] : INT_MAX;
-    best_i = lane < n_warps ? s_id[lane] : INT_MAX;
-    warp_min(best_k, best_i);
-  }
-  return best_i;
-}
-
-// The victim among the cached ids.
-__device__ __forceinline__ int block_argmin(const int* key, const unsigned char* in_cache, int n,
-                                            int* s_key, int* s_id) {
-  return block_argmin_of(key, CachedMask{in_cache}, n, s_key, s_id);
-}
-
 // ------------------------------------------------------------------ the residents' heap
-// A binary min-heap of the cached ids, ordered by (key, id) as `precedes` orders them, so its
+// A binary min-heap of the cached ids, ordered by (key, id): smaller key, then lower id, so its
 // top is the reference's victim: the argmin of where(cached, key, INT_MAX), ties to the lowest
 // id. One thread owns it. Each slot is one 64-bit word, ((uint32)key ^ 0x80000000) << 32 | id,
 // so that one unsigned compare is the lexicographic one, for signed and wrapped keys alike.
@@ -95,10 +31,12 @@ __device__ __forceinline__ int block_argmin(const int* key, const unsigned char*
 // through that one pointer: a test on each access (shared or device slot?) costs the step
 // more than generic addressing does (experiments/cache_sim_variants.py).
 //
-// The program keeps each cached id's key in its slot: only a request's id and the victims
-// change a key within a step, and it re-keys, pushes or pops them. The heap also keeps one
-// id's slot in a register (`watch`, `watch_pos`): the next request's, loaded a step ahead so
-// that its latency overlaps the step; every write of a slot keeps that register true.
+// The program keeps each cached id's key in its slot: only a request's id, the victims and
+// (wlfu) the id leaving the window change a key within a step, and it re-keys, pushes or pops
+// them. The heap also keeps one id's slot in a register (`watch`, `watch_pos`): the next
+// request's, loaded a step ahead so that its latency overlaps the step; with kWatches = 2 a
+// second (`watch2`, `watch2_pos`: wlfu's next departing id). Every write of a slot keeps
+// both registers true.
 
 __device__ __forceinline__ unsigned long long heap_entry(int key, int id) {
   return static_cast<unsigned long long>(static_cast<uint32_t>(key) ^ 0x80000000u) << 32 |
@@ -113,7 +51,9 @@ __device__ __forceinline__ int entry_key(unsigned long long e) {
   return static_cast<int>(static_cast<uint32_t>(e >> 32) ^ 0x80000000u);
 }
 
-struct ResidentHeap {
+template <int kWatches>
+struct ResidentHeapOf {
+  static_assert(kWatches == 1 || kWatches == 2, "one or two watched ids");
   unsigned long long* slot;    // shared memory, or `device` once the heap has moved there
   int capacity;                // the slots at `slot`
   unsigned long long* device;  // `device_capacity` slots in device memory, or null
@@ -122,16 +62,25 @@ struct ResidentHeap {
   int size = 0;
   int watch = -1;     // the next request's id
   int watch_pos = -1; // and its slot
+  int watch2 = -1;    // kWatches == 2: a second id
+  int watch2_pos = -1;
 
   __device__ __forceinline__ void set_pos(int id, int i) {
     pos[id] = i;
     if (id == watch) watch_pos = i;
+    if (kWatches == 2 && id == watch2) watch2_pos = i;
   }
 
   // Load `id`'s slot ahead of the step that requests it.
   __device__ __forceinline__ void look_ahead(int id) {
     watch = id;
     watch_pos = pos[id];
+  }
+
+  // Load the second watched id's slot ahead of the step that needs it.
+  __device__ __forceinline__ void look_ahead2(int id) {
+    watch2 = id;
+    watch2_pos = pos[id];
   }
 
   __device__ __forceinline__ void put(int i, unsigned long long e) {
@@ -215,6 +164,8 @@ struct ResidentHeap {
   }
 };
 
+using ResidentHeap = ResidentHeapOf<1>;
+
 // Where a heap program keeps its heap and rows, as the wrapper's `heap_plan` chose them:
 // dynamic shared memory holds `shared_slots` heap slots, then, with `rows_shared`, `n_rows`
 // int rows of n_objects ids (pos first); otherwise the rows are the sample's rows of device
@@ -239,15 +190,21 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 #endif
 }
 
-// Set the instance's dynamic shared memory limit to `bytes` and launch it: one block of one
-// warp a sample. Returns the first CUDA error (a refused limit or launch).
+// Set the instance's dynamic shared memory limit to `bytes`, prefer the most L1 that leaves
+// its block that much shared memory (the runtime's default split was as fast or slower for
+// every program: experiments/cache_sim_variants.py), and launch it: one block of `threads`
+// threads a sample (kWarp for the one-warp programs). Returns the first CUDA error (a refused
+// limit, preference or launch).
 template <class Kernel, class... Args>
-cudaError_t launch_heap_kernel(Kernel kernel, int n_samples, size_t bytes, cudaStream_t stream,
-                               Args... args) {
+cudaError_t launch_heap_kernel(Kernel kernel, int n_samples, int threads, size_t bytes,
+                               cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<n_samples, kWarp, bytes, stream>>>(args...);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxL1);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_samples, threads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -273,52 +230,8 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// ------------------------------------------------------------ byte mode's victim loop
-// The reference's `_evict_bytes_loop` (its kernel's `evict_body`): evict the argmin of `key`
-// over the cached ids until an object of `size_x` bytes fits in `cap_bytes`, the cache is
-// empty, or `max_victims` victims are gone. `want_fits` (thread 0's) is "x wants in and is
-// no larger than the whole budget": an object larger than the budget evicts nothing.
-// Thread 0 owns `count`, `nbytes` and `credit`. With `destroy` (lfu) a victim's key is
-// zeroed; with `ratchet` (gdsf) the credit takes each victim's key.
-//
-// Each iteration starts with one __syncthreads_or(need): it hands every thread thread 0's
-// decision and orders thread 0's writes for the previous victim (in_cache, the zeroed key)
-// before the next argmin's reads. `need` can only turn from true to false (nbytes and
-// count only fall), so the loop stops at the first iteration without a victim: the
-// reference's remaining iterations change nothing. Called by every thread; returns the
-// number of victims. Thread 0 calls `on_victim(v, cached)` for each victim, with whether it
-// was cached before (the telemetry's per-group eviction count; the default does nothing).
-struct NoVictimHook {
-  __device__ __forceinline__ void operator()(int, bool) const {}
-};
-
-template <class OnVictim = NoVictimHook>
-__device__ __forceinline__ int evict_bytes(int* key, unsigned char* in_cache, const int* sizes,
-                                           int n, bool want_fits, int size_x, int cap_bytes,
-                                           int max_victims, bool destroy, bool ratchet,
-                                           int& count, int& nbytes, int& credit, int* s_key,
-                                           int* s_id, OnVictim on_victim = OnVictim()) {
-  int victims = 0;
-  for (; victims < max_victims; ++victims) {
-    const bool need = __syncthreads_or(threadIdx.x == 0 && want_fits &&
-                                       wrap_add(nbytes, size_x) > cap_bytes && count > 0) != 0;
-    if (!need) break;
-    const int v = block_argmin(key, in_cache, n, s_key, s_id);
-    if (threadIdx.x == 0) {
-      if (ratchet) credit = key[v];
-      const bool cached = in_cache[v] != 0;
-      in_cache[v] = 0;
-      if (destroy) key[v] = 0;
-      --count;
-      nbytes = wrap_sub(nbytes, sizes[v]);
-      on_victim(v, cached);
-    }
-  }
-  return victims;
-}
-
 // Sum (max when `take_max`) of one int per thread, returned to every thread. `s_part`
-// holds kMaxThreads / kWarp ints. The barrier before the return lets the next call reuse
+// holds an int per warp of the block. The barrier before the return lets the next call reuse
 // `s_part`, and orders every thread's memory writes before the call against every
 // thread's reads after it.
 __device__ int block_reduce(int v, bool take_max, int* s_part) {
@@ -377,15 +290,10 @@ __device__ __forceinline__ int sketch_estimate(const int* rows, int width, int i
   return est;
 }
 
-__device__ __forceinline__ void sketch_add(int* rows, int width, int id) {
+// The kDepth buckets of `id` in a sketch of `width` counters a row (row d at d * width).
+__device__ __forceinline__ void buckets_of(int id, int width, int (&b)[kDepth]) {
 #pragma unroll
-  for (int d = 0; d < kDepth; ++d) rows[d * width + salted_index(id, sketch_salt(d), width)] += 1;
-}
-
-// Threads per block: one per id up to the block's limit, a whole number of warps.
-inline int block_threads(int n_objects) {
-  const int threads = (n_objects + kWarp - 1) / kWarp * kWarp;
-  return threads > kMaxThreads ? kMaxThreads : threads;
+  for (int d = 0; d < kDepth; ++d) b[d] = d * width + salted_index(id, sketch_salt(d), width);
 }
 
 }  // namespace

@@ -204,9 +204,9 @@ extern "C" int sized_launch(const int* traces, const int* sizes, int* hits, int*
     with_telemetry(tel, [&](auto on, auto grouped) {
       err = launch_heap_kernel(
           sized_kernel<decltype(in_bytes)::value, decltype(on)::value, decltype(grouped)::value>,
-          n_samples, bytes, st, traces, sizes, trace_len, n_objects, kind, capacity, hot_size,
-          cap_bytes, max_victims, hits, inserts, hit_bytes, freq, in_cache, pos, heap, layout,
-          tel);
+          n_samples, kWarp, bytes, st, traces, sizes, trace_len, n_objects, kind, capacity,
+          hot_size, cap_bytes, max_victims, hits, inserts, hit_bytes, freq, in_cache, pos, heap,
+          layout, tel);
     });
   };
   if (cap_bytes > 0) launch(std::true_type{});

@@ -54,12 +54,6 @@ namespace {
 
 constexpr int kRows = 2;  // pos, freq
 
-// The kDepth buckets of `id` in a sketch of `width` counters a row.
-__device__ __forceinline__ void buckets_of(int id, int width, int (&b)[kDepth]) {
-#pragma unroll
-  for (int d = 0; d < kDepth; ++d) b[d] = d * width + salted_index(id, sketch_salt(d), width);
-}
-
 template <bool kTel, bool kGrouped>
 __global__ void __launch_bounds__(kWarp)
 tinylfu_kernel(const int* __restrict__ traces, int trace_len, int n_objects, int capacity,
@@ -262,9 +256,9 @@ extern "C" int tinylfu_launch(const int* traces, int* hits, int* inserts, int* f
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   with_telemetry(tel, [&](auto on, auto grouped) {
     err = launch_heap_kernel(tinylfu_kernel<decltype(on)::value, decltype(grouped)::value>,
-                             n_samples, bytes, st, traces, trace_len, n_objects, capacity, window,
-                             width, bloom_bits, hits, inserts, freq, in_cache, pos, heap, rows,
-                             bloom, layout, sketch_shared, tel);
+                             n_samples, kWarp, bytes, st, traces, trace_len, n_objects, capacity,
+                             window, width, bloom_bits, hits, inserts, freq, in_cache, pos, heap,
+                             rows, bloom, layout, sketch_shared, tel);
   });
   return static_cast<int>(err);
 }

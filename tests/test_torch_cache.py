@@ -217,6 +217,24 @@ def test_masked_argmin_ties_to_lowest_id():
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("window", [1, 2, 37, 300, 301, 1_000])
+def test_wlfu_ring_drops_the_request_a_window_back(window):
+    """The identity the wlfu kernel stands on in place of the ring: from a fresh state, the
+    id the ring drops at step t (the slot at ``ptr`` before the step) is the request of step
+    t - window, and -1 (nothing) before step ``window``; T = 300, so the windows cover 1,
+    a window that wraps many times, window = T and window > T."""
+    n, t = 40, 300
+    traces = np.stack([ref_zipf.sample_trace(n, t, seed=5 + i) for i in range(3)]).astype(np.int32)
+    spec = torch_cache.PolicySpec("wlfu", n, 6, window=window)
+    state = torch_cache.init_state(spec, n_samples=3, device="cpu")
+    rows = torch.arange(3)
+    for i in range(t):
+        dropped = state["ring"][rows, state["ptr"].long()]
+        want = traces[:, i - window] if i >= window else np.full(3, -1)
+        np.testing.assert_array_equal(dropped.numpy(), want)
+        torch_cache.step(spec, state, torch.as_tensor(traces[:, i]))
+
+
 # wlfu, tinylfu and plfua_dyn under a byte budget, gdsf and arc: ported, so
 # each runs as the reference, with telemetry too; a telemetry argument that is
 # not a TelemetrySpec raises

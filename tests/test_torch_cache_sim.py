@@ -259,13 +259,50 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     ("tinylfu", 64, 0, {}, None, 1),
     ("tinylfu", 64, -3, dict(doorkeeper=128), None, 1),
     ("tinylfu", 64, 200, {}, None, 64),
+    # wlfu's window counts and plfua_dyn's counts stay below INT_MAX, as lfu's do
+    ("wlfu", 100, 25, dict(window=10), None, 25),
+    ("wlfu", 64, 0, dict(window=10), None, 1),
+    ("wlfu", 64, -3, dict(window=1), None, 1),
+    ("wlfu", 64, 200, dict(window=500), None, 64),
+    ("plfua_dyn", 100, 25, {}, None, 25),
+    ("plfua_dyn", 64, 0, dict(hot_size=7), None, 1),
+    ("plfua_dyn", 64, -3, {}, None, 1),
+    ("plfua_dyn", 64, 200, dict(refresh=50), None, 64),
+    ("plfua_dyn", 5000, 40, dict(capacity_bytes=900), (3, 40), 300),
+    ("plfua_dyn", 5000, 40, dict(capacity_bytes=2), (3, 40), 0),
+    ("plfua_dyn", 5000, 40, dict(capacity_bytes=2**31 - 10), (1, 20), 5000),
 ])
 def test_heap_plan_bounds_the_cached_ids(kind, n, cap, kw, size_range, slots):
     """The heap's slots are the most ids the cache can hold, and the plan never asks for more
-    shared memory than a block has."""
+    shared memory than a block has (plfua_dyn's block keeps 32 bytes of static shared memory
+    for its sums)."""
     plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, cap, **kw), size_range)
-    assert plan.slots == slots and plan.shared_bytes <= port_kernel.SHARED_BYTES
+    static = port_kernel._REDUCE_BYTES if kind == "plfua_dyn" else 0
+    assert plan.slots == slots and plan.shared_bytes + static <= port_kernel.SHARED_BYTES
     assert plan.can_move == (plan.shared_slots < plan.slots)
+    assert bool(plan.hot_bytes) == (kind == "plfua_dyn")
+    assert bool(plan.sketch_bytes) == (kind in ("tinylfu", "plfua_dyn"))
+
+
+@pytest.mark.parametrize("kind,kw", [("wlfu", dict(window=7)), ("wlfu", dict(window=1)),
+                                     ("plfua_dyn", dict(refresh=40, sketch_width=64, hot_size=7)),
+                                     ("plfua_dyn", dict(refresh=40, sketch_width=64, hot_size=30))])
+@pytest.mark.parametrize("cap", [-3, 0, 1, 5])
+def test_never_caches_more_ids_than_its_heap_slots(kind, kw, cap):
+    """wlfu's and plfua_dyn's bound, step by step on the plain version: a Zipf and a cyclic
+    trace never leave more cached ids than the plan's slots, and reach them."""
+    n, t = 30, 400
+    traces = torch.as_tensor(np.concatenate([_traces(n, 2, t), _traces(n, 2, t, trace="cyclic")]))
+    spec = port_kernel.spec_of(kind, n, cap, **kw)
+    slots = port_kernel.heap_plan(spec).slots
+    state = torch_cache.init_state(spec, n_samples=traces.shape[0], device="cpu")
+    most = 0
+    for i in range(t):
+        state, _ = torch_cache.step(spec, state, traces[:, i])
+        if kind == "plfua_dyn" and (i + 1) % spec.effective_refresh == 0:
+            torch_cache.refresh_hot(spec, state)
+        most = max(most, int(state["in_cache"].sum(dim=1).max()))
+    assert most == slots
 
 
 @pytest.mark.parametrize("cap", [-3, 0, 1, 5])
@@ -357,6 +394,64 @@ def test_tinylfu_heap_plan_on_the_paper_grid():
         | {(21_544, cap) for cap in (431, 714, 3_250, 5_386)})
 
 
+def test_wlfu_and_plfua_dyn_heap_plans_on_the_paper_grid():
+    """wlfu and plfua_dyn on the paper's grid: every heap lies in shared memory. wlfu's rows
+    join it up to N = 21,544, as lfu's. plfua_dyn's sketch joins it where tinylfu's does
+    (every case but the 10 of cap >= 3,250 at N >= 21,544); its hot mask (a byte an id) in
+    58 cases, all but N = 100,000 at cap 2,000 and 25,000; its rows in 43: every case up to
+    N = 4,642, and at N = 10,000 and 21,544 where the heap, sketch and mask leave room."""
+    placed = {}
+    for case in ref_zipf.paper_grid():
+        n, cap = case.n_objects, case.cache_size
+        wlfu = port_kernel.heap_plan(port_kernel.spec_of("wlfu", n, cap, window=10_000))
+        assert wlfu.shared_slots == wlfu.slots == cap and not (wlfu.sketch_bytes or wlfu.hot_bytes)
+        assert wlfu.rows_shared == (n <= 21_544)
+        plan = port_kernel.heap_plan(port_kernel.spec_of("plfua_dyn", n, cap))
+        assert plan.shared_slots == plan.slots == cap
+        assert plan.shared_bytes + port_kernel._REDUCE_BYTES <= port_kernel.SHARED_BYTES
+        tinylfu = port_kernel.heap_plan(port_kernel.spec_of("tinylfu", n, cap))
+        assert plan.sketch_shared == tinylfu.sketch_shared
+        placed[n, cap] = (plan.hot_shared, plan.rows_shared)
+    assert {k for k, (hot_shared, _) in placed.items() if not hot_shared} == {(100_000, 2_000), (100_000, 25_000)}
+    assert {k for k, (_, rows_shared) in placed.items() if rows_shared} == (
+        {k for k in placed if k[0] <= 4_642} | {(10_000, cap) for cap in (200, 331, 549, 910, 1_509)}
+        | {(21_544, 431), (21_544, 3_250)})
+
+
+def test_plfua_dyn_heap_plan_places_sketch_hot_mask_and_rows_in_order():
+    """plfua_dyn's heap first, then its sketch (4 x width int32), then its hot mask (a byte an
+    id, in whole warps), then its rows (pos, freq), each where it still fits in the 232,416
+    bytes its 32 bytes of static shared memory leave: at the measured case (cap 2,000, width
+    8,000) heap and sketch take 144,000 B and neither the mask (100,000 B) nor the rows can
+    join. A heap that cannot lie there whole (byte mode's N slots) comes after the sketch."""
+    budget = port_kernel.SHARED_BYTES - port_kernel._REDUCE_BYTES
+    measured = port_kernel.heap_plan(port_kernel.spec_of("plfua_dyn", 100_000, 2_000))
+    assert (measured.shared_slots, measured.sketch_bytes, measured.hot_bytes) == (2_000, 128_000, 100_000)
+    assert measured.sketch_shared and not measured.hot_shared and not measured.rows_shared
+    assert measured.shared_bytes == 144_000
+    # a heap of 8,000 B: a sketch of width 14,026 fills the rest; one counter more and the mask joins instead
+    for width, shared in ((14_026, True), (14_027, False)):
+        plan = port_kernel.heap_plan(port_kernel.spec_of("plfua_dyn", 100_000, 1_000, sketch_width=width))
+        assert (plan.sketch_shared, plan.hot_shared) == (shared, not shared)
+        assert (plan.shared_bytes == budget) == shared
+    # N = 99,968 (a mask of 99,968 B), heap 8,000 B: width 7,778 leaves the mask its room exactly
+    for width, shared in ((7_778, True), (7_779, False)):
+        plan = port_kernel.heap_plan(port_kernel.spec_of("plfua_dyn", 99_968, 1_000, sketch_width=width))
+        assert plan.sketch_shared and plan.hot_shared == shared and not plan.rows_shared
+        assert (plan.shared_bytes == budget) == shared
+    # heap 320 B, sketch 4,096 B, then mask and rows (9 B an id) fill the budget exactly at N = 25,332
+    for n, rows in ((25_332, True), (25_333, False)):
+        plan = port_kernel.heap_plan(port_kernel.spec_of("plfua_dyn", n, 40, sketch_width=256))
+        assert plan.sketch_shared and plan.hot_shared and plan.rows_shared == rows
+        assert plan.hot_bytes == -(-n // 32) * 32
+        assert (plan.shared_bytes == budget) == rows
+    # under a budget of 263,530 bytes with sizes >= 1 the heap takes N slots: the sketch first, the
+    # heap's shared slots what is left (13,052), past which it moves to device memory
+    sized = port_kernel.heap_plan(port_kernel.spec_of("plfua_dyn", 100_000, 2_000, capacity_bytes=263_530), (1, 5_000))
+    assert (sized.slots, sized.shared_slots) == (100_000, 13_052) and sized.can_move
+    assert sized.sketch_shared and not sized.hot_shared and sized.shared_bytes == budget
+
+
 def test_arc_plan_on_the_paper_grid():
     """The paper's N: the tags and links fit shared memory up to N = 21,544."""
     for case in ref_zipf.paper_grid():
@@ -407,17 +502,21 @@ def test_program_entry_matches_its_c_signature(program):
     ("gdsf", {}),
     ("lru", dict(capacity_bytes=64)),
     ("plfua_dyn", dict(capacity_bytes=64)),
+    ("plfua_dyn", {}),
     ("tinylfu", dict(doorkeeper=64)),
     ("arc", {}),
     ("wlfu", dict(window=8)),
     ("lfu", {}),
 ])
 @pytest.mark.parametrize("n_groups", [0, 3])
-def test_launch_arguments_point_only_into_tensors_the_wrapper_holds(kind, kw, n_groups):
+@pytest.mark.parametrize("shared_bytes", [port_kernel.SHARED_BYTES, 64])
+def test_launch_arguments_point_only_into_tensors_the_wrapper_holds(monkeypatch, kind, kw, n_groups, shared_bytes):
     """Every pointer the C entry receives, besides the traces, belongs to a
     tensor in the outputs (scratch under ``_`` names), so none is freed before
-    the launch is queued. A unit-size row made for the call and dropped at
-    once handed the kernel freed memory."""
+    the launch is queued; with 64 bytes of shared memory the rows, heap,
+    sketch and hot mask take device scratch. A unit-size row made for the
+    call and dropped at once handed the kernel freed memory."""
+    monkeypatch.setattr(port_kernel, "SHARED_BYTES", shared_bytes)
     traces = torch.zeros((2, 16), dtype=torch.int32)
     spec = port_kernel.spec_of(kind, 32, 4, **kw)
     telemetry, groups = port_kernel.telemetry_options(32, 4, n_groups, np.zeros(32, np.int32) if n_groups else None)

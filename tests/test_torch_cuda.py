@@ -18,6 +18,7 @@ import torch
 from repro_torch.core import simulate, zipf
 from repro_torch.kernels.cache_sim import cache_sim as port_kernel
 from repro_torch.kernels.cache_sim import ops
+from repro_torch.telemetry import spec as telemetry_spec
 from repro_torch.telemetry import timing
 from repro_torch.workloads import generators
 
@@ -67,10 +68,10 @@ ABOVE_ONE_BLOCK = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,kw", ABOVE_ONE_BLOCK)
 def test_kernel_matches_plain_above_one_block(cuda_device, kind, kw):
-    """N above a block's 1024 threads: the strided scan and the cross-warp
-    reduction both keep the lowest-id tie-break, and the admission programs'
-    block-wide passes (aging, the hot set's top-k) cover every id. Exact on
-    hits, freq, in_cache and inserts."""
+    """N above a block's threads: the heap keeps the lowest-id tie-break, and
+    the warp's and block's passes (tinylfu's aging, plfua_dyn's top-k over
+    its 256 threads) cover every id. Exact on hits, freq, in_cache and
+    inserts."""
     n, cap = 5000, 40
     traces = _traces(n, 4, 3000, cuda_device, seed=7)
     program = port_kernel.program_of(kind, kw.get("capacity_bytes", 0))
@@ -205,18 +206,20 @@ def _assert_equal_to_cpu(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["lru", "lfu"])
-def test_heap_moves_into_device_memory_in_byte_mode(cuda_device, kind):
+@pytest.mark.parametrize("kind,extra", [("lru", {}), ("lfu", {}), ("plfua_dyn", dict(hot_size=40_000, refresh=9_000))])
+def test_heap_moves_into_device_memory_in_byte_mode(cuda_device, kind, extra):
     """Unit sizes under a budget of 33,000 bytes: the heap's 33,000 slots pass the 29,056
-    that shared memory holds, and a sweep over all 40,000 ids fills the cache past them (the
-    heap moves to device memory) before Zipf traffic evicts; exact against the plain version."""
+    that shared memory holds (28,540 for plfua_dyn, whose sketch comes first), and a sweep
+    over all 40,000 ids (every one hot for plfua_dyn, through four refreshes) fills the
+    cache past them (the heap moves to device memory) before Zipf traffic evicts; exact
+    against the plain version."""
     n, budget = 40_000, 33_000
     rng = np.random.default_rng(3)
     sweep = np.stack([rng.permutation(n) for _ in range(2)])
     tail = np.stack([zipf.sample_trace(n, 5_000, seed=9 + i) for i in range(2)])
     traces = torch.as_tensor(np.concatenate([sweep, tail], axis=1).astype(np.int32), device=cuda_device)
-    kw = dict(kind=kind, n_objects=n, capacity=10, capacity_bytes=budget, sizes=np.ones(n, np.int32))
-    plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, 10, capacity_bytes=budget), (1, 1))
+    kw = dict(kind=kind, n_objects=n, capacity=10, capacity_bytes=budget, sizes=np.ones(n, np.int32), **extra)
+    plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, 10, capacity_bytes=budget, **extra), (1, 1))
     assert plan.slots == budget and plan.can_move and not plan.rows_shared
     got = port_kernel.cache_sim_cuda(traces, **kw)
     assert int(got["in_cache"].sum(dim=1).max()) > plan.shared_slots
@@ -274,6 +277,56 @@ def test_scan_programs_on_both_sides_of_the_shared_memory_limit(cuda_device, kin
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,cap,kw,where,shared", [
+    # wlfu: heap and rows fill the 232,448 bytes exactly, as lfu's, and one slot more
+    ("wlfu", 20_000, 9_056, dict(window=500), "rows_shared", True),
+    ("wlfu", 20_000, 9_057, dict(window=500), "rows_shared", False),
+    # plfua_dyn (232,416 bytes beside its 32 static ones): a heap of 8,000 B leaves a sketch of
+    # width 14,026 exactly its room (the hot mask joins in its place one counter further) ...
+    ("plfua_dyn", 100_000, 1_000, dict(refresh=700, sketch_width=14_026), "sketch_shared", True),
+    ("plfua_dyn", 100_000, 1_000, dict(refresh=700, sketch_width=14_027), "sketch_shared", False),
+    # ... at N = 99,968 width 7,778 leaves the mask (99,968 B) exactly its room ...
+    ("plfua_dyn", 99_968, 1_000, dict(refresh=700, sketch_width=7_778), "hot_shared", True),
+    ("plfua_dyn", 99_968, 1_000, dict(refresh=700, sketch_width=7_779), "hot_shared", False),
+    # ... and heap 320 B, sketch 4,096 B, mask and rows (9 B an id) fit up to N = 25,332
+    ("plfua_dyn", 25_332, 40, dict(refresh=700, sketch_width=256), "rows_shared", True),
+    ("plfua_dyn", 25_333, 40, dict(refresh=700, sketch_width=256), "rows_shared", False),
+])
+def test_wlfu_and_plfua_dyn_on_both_sides_of_the_shared_memory_limits(cuda_device, kind, n, cap, kw, where,
+                                                                       shared):
+    """wlfu's rows and plfua_dyn's sketch, hot mask and rows in shared memory and, one slot,
+    counter or id further, in device memory: exact against the plain version over four
+    refreshes."""
+    plan = port_kernel.heap_plan(port_kernel.spec_of(kind, n, cap, **kw))
+    assert getattr(plan, where) == shared and not plan.can_move
+    static = port_kernel._REDUCE_BYTES if kind == "plfua_dyn" else 0
+    assert plan.shared_bytes + static <= port_kernel.SHARED_BYTES
+    traces = _traces(n, 2, 3_000, cuda_device, seed=4)
+    call = dict(kind=kind, n_objects=n, capacity=cap, **kw)
+    _assert_equal_to_cpu(port_kernel.cache_sim_cuda(traces, **call), _plain_on_cpu(traces, **call))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trace_len", [2_100, 2_101])
+@pytest.mark.parametrize("kw", [dict(refresh=700), dict(refresh=700, **BUDGET)])
+def test_plfua_dyn_refresh_boundary_on_the_card(cuda_device, trace_len, kw):
+    """A trace of three whole refresh periods, and one request more (a tail period that never
+    refreshes): outputs and both series exact against the plain version, the last refresh in
+    the last window."""
+    n, cap = 5000, 40
+    traces = torch.as_tensor(generators.multi_tenant(n, 3, trace_len, seed=5), device=cuda_device)
+    groups = generators.tenant_groups(n, 4)
+    for tel in ({}, dict(telemetry_window=300), dict(telemetry_window=300, n_groups=4, groups=groups)):
+        call = dict(kind="plfua_dyn", n_objects=n, capacity=cap, **kw, **tel)
+        got = port_kernel.cache_sim_cuda(traces, **call)
+        want = port_kernel.cache_sim_plain(traces, **call)
+        _assert_equal([got[k] for k in want], list(want.values()))
+        if tel and not tel.get("n_groups"):
+            fired = got["series"][..., telemetry_spec.METRICS.index("refreshes")]
+            assert fired.sum(dim=1).tolist() == [3] * 3 and fired[:, -1].tolist() == [int(trace_len == 2_100)] * 3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("sketch_shared", [True, False])
 @pytest.mark.parametrize("doorkeeper", [0, 320])
 def test_tinylfu_aging_with_the_sketch_in_either_memory(cuda_device, monkeypatch, sketch_shared, doorkeeper):
@@ -299,11 +352,14 @@ def test_tinylfu_aging_with_the_sketch_in_either_memory(cuda_device, monkeypatch
 @pytest.mark.parametrize("shared_bytes", [port_kernel.SHARED_BYTES, 4_096, 64])
 @pytest.mark.parametrize("kind,kw", [("lru", {}), ("lfu", {}), ("plfua", {}), ("gdsf", dict(sizes=LOGNORMAL)),
                                      ("lfu", BUDGET), ("gdsf", BUDGET), ("tinylfu", dict(window=400)),
-                                     ("tinylfu", dict(window=400, doorkeeper=320)), ("arc", {})])
+                                     ("tinylfu", dict(window=400, doorkeeper=320)), ("arc", {}),
+                                     ("wlfu", dict(window=500)), ("plfua_dyn", dict(refresh=700)),
+                                     ("plfua_dyn", dict(refresh=700, **BUDGET))])
 def test_heap_placements_give_the_same_outputs(cuda_device, monkeypatch, shared_bytes, kind, kw):
     """Less shared memory moves the rows, then the heap, into device memory (at 4,096 and
-    64 bytes the heaps outgrow their shared slots mid-run; tinylfu's sketch and arc's tags
-    and links leave shared memory too): the outputs stay the plain version's."""
+    64 bytes the heaps outgrow their shared slots mid-run; tinylfu's and plfua_dyn's
+    sketch, plfua_dyn's hot mask and arc's tags and links leave shared memory too): the
+    outputs stay the plain version's."""
     monkeypatch.setattr(port_kernel, "SHARED_BYTES", shared_bytes)
     traces = _traces(5000, 3, 3000, cuda_device, seed=7)
     call = dict(kind=kind, n_objects=5000, capacity=40, **kw)
