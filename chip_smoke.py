@@ -19,7 +19,9 @@ in stamp order (``kernel.arc_plan``: its tags and links). ``flash_attention``
 blocks and merged by the last one).
 Two main paths: the paper's grid through cache_sim, and the serving path
 (smollm-360m at full width behind the content cache, every attention call
-through the flash kernel). Phases, one line each (or one line per item):
+through the flash kernel); the fleet phase drives the N-tier fleet engine,
+which steps the plain PyTorch policies (no kernel of its own). Phases, one
+line each (or one line per item):
 
 1. device  — the card's name and count, and ``nvidia-smi``'s name and power limit.
 2. build   — nvcc builds the six cache_sim sources and the flash source from
@@ -33,13 +35,13 @@ through the flash kernel). Phases, one line each (or one line per item):
              lru/lfu/plfu/plfua at T = 10,000 and (N, cap) = (100, 2),
              (10,000, 200), (46,416, 4,225), (100,000, 2,000); wlfu, tinylfu
              without and with the doorkeeper, and plfua_dyn at (10,000, 200,
-             20,500), (100,000, 2,000, 20,000) and a small case with explicit
+             20,500), (100,000, 2,000, 10,000) and a small case with explicit
              window, sketch width, refresh and hot-set size; gdsf with the
              lognormal catalogue, and lru/lfu/plfu/plfua/gdsf/plfua_dyn under a byte
              budget with the lognormal and the pareto catalogue, at (10,000,
-             200) and (100,000, 2,000) with T = 20,000; a max_victims=2 case
-             whose bound is hit; arc at (100, 2), (10,000, 200) and (100,000,
-             2,000) with T = 20,000
+             200) with T = 20,000 and (100,000, 2,000) with T = 10,000; a max_victims=2 case
+             whose bound is hit; arc at (100, 2) and (10,000, 200) with T =
+             20,000 and (100,000, 2,000) with T = 10,000
              on Zipf and scan traces, its directory size included; lfu, gdsf,
              wlfu, plfua_dyn, arc and tinylfu at the grid's largest heap
              (100,000, 25,000), each a full cache evicting 1,000 times a sample
@@ -87,7 +89,7 @@ through the flash kernel). Phases, one line each (or one line per item):
              exact against the plain version, ungrouped on Zipf and grouped on
              ``multi_tenant`` traces, at (10,000, 200) with T = 10,000 (plain
              in the CPU workers, started with phase 3), at (100,000, 2,000) with
-             T = 5,000 (plain on the card), and W = 1 and W > T at (130, 3),
+             T = 2,500 (plain on the card), and W = 1 and W > T at (130, 3),
              T = 2,010 (a partial plfua_dyn period), and grouped at capacity 0
              and -3 for wlfu, tinylfu, plfua_dyn (7 hot ids) and arc at (130,
              T = 2,010) and (10,000, T = 10,000), where the first victim is id 0
@@ -100,7 +102,34 @@ through the flash kernel). Phases, one line each (or one line per item):
              then, on the multi_tenant traces, each instance's time between
              two telemetry-off times (in turns: off, ungrouped, grouped, off)
              and its ratio to their mean (on/off).
-8. flash check — the flash kernel against its plain version (the naive
+8. fleet   — the fleet modules (one line per item): ``workloads.device``'s six
+             generators on the card at the fleet benchmark's size (N = 10,000,
+             8 x 100,000; ms each), held there to their contracts (range,
+             determinism, seed sensitivity, independent samples, the Zipf head, a
+             sample made alone equal to its row, each scenario's own shape);
+             ``cdn.router.route_level`` on the card for the three modes,
+             bit-identical to numpy's; the level-major fleet on
+             ``benchmarks/fleet_bench.py``'s topology (8 edges -> 2 regionals ->
+             1 root, capacities 300 / 1,200 / 2,400, hash router) for all nine
+             kinds on host ``stationary`` traces (8 x 20,000: T cut from
+             100,000 to the depth at which the caches fill), every sample held
+             exactly to the port's oracle in the CPU workers (per-level hits,
+             final contents, per-node hits and evictions, origin misses), every
+             edge of every sample evicting and every upper level hitting for the
+             kinds without an admission gate (some node evicting for plfua,
+             plfua_dyn and tinylfu); plfua_dyn on ``churn`` made and routed on
+             the card (8 x 20,000), its refreshes on global time (6 of its
+             edges' before the last request); tinylfu with grouped telemetry on
+             ``multi_tenant`` (4 groups, W = T // 16), equal to the run without
+             telemetry and to the CPU run, its groups summing to the ungrouped
+             series, every level's series evicting and the cross-tenant
+             pressure > 0. Each line prints per-level CHR and evictions, origin
+             misses, ``fleet_report``'s management energy, ms a request and the
+             device's idle share (``timing.profile`` over the first 300
+             requests). Then the paper's CPU time: ``simulate.run_trace`` for
+             lfu, plfu and plfua at N = 100,000, cap = 2,000, one 100,000-request
+             sample, beside the kernel's device seconds on it (equal hits).
+9. flash check — the flash kernel against its plain version (the naive
              oracle, query rows in chunks of 1,024) on the card, TF32 off, each
              case in float32 (atol = rtol = 2e-5) and bfloat16 (atol 1e-4,
              rtol 2**-7: one rounding of the output): tests/test_kernels_flash.py's
@@ -114,7 +143,7 @@ through the flash kernel). Phases, one line each (or one line per item):
              before P V; decode with one live key dropped, or one garbage key
              let in at kv_len 1) against the same tolerance, which must reject each,
              and prints what the former 2e-2 tolerance read for them.
-9. serve   — smollm-360m at full width (32 layers, d_model 960, 15 heads, 5 KV
+10. serve  — smollm-360m at full width (32 layers, d_model 960, 15 heads, 5 KV
              heads, ~409 M parameters), weights from ``--seed`` through
              ``Model.init``, bf16 compute: the reference launcher's traffic (20
              objects, 40 requests from ``zipf.sample_trace(20, 40, seed=1)``)
@@ -123,12 +152,15 @@ through the flash kernel). Phases, one line each (or one line per item):
              16,384-token request (past the chunk threshold, max_new = 4); the
              flash counts set to 0 just before and read just after. Checks: cold
              and warm tokens equal, warm computed + saved = cold computed, the
-             launches = 32 x (prefills + decode steps) by instance.
-10. serve check — one request (prompt 128, max_new = 4) on the card and on the
+             launches = 32 x (prefills + decode steps) by instance. Then its
+             traffic priced by ``energy.serving_energy`` (CHR, the content
+             cache's management CPU seconds) at the card's power limit and the
+             H100 SXM's data-sheet bf16 peak (989 TFLOP/s).
+11. serve check — one request (prompt 128, max_new = 4) on the card and on the
              CPU (the plain path, the same weights, fed the card's tokens):
              every step's logits within 0.125, tokens equal where the top-2
              margin exceeds it.
-11. measure — the flash kernel at the served shapes (causal prefill 2,048;
+12. measure — the flash kernel at the served shapes (causal prefill 2,048;
              decode at kv_len 2,056) with its bound, plain version and
              ``scaled_dot_product_attention`` (timed only), each timed on the
              device with the host ahead (``torch.cuda._sleep`` holds the
@@ -138,7 +170,7 @@ through the flash kernel). Phases, one line each (or one line per item):
              prefill ms and tokens/s, decode ms a token, J a generated token at
              the power limit, and the device's busy time and idle share over
              one prefill and one request's decode (``torch.profiler``).
-12. kernels — one JSON line, an entry per kernel instance, with the trace
+13. kernels — one JSON line, an entry per kernel instance, with the trace
              lengths of cache_sim's time (``T``) and plain version's
              (``plain_T``) and the flash instances' shapes.
 
@@ -149,6 +181,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import math
 import multiprocessing
@@ -164,10 +197,11 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import serving  # noqa: E402
+from repro_torch import fleet, serving  # noqa: E402
 from repro_torch._device import card_info  # noqa: E402
+from repro_torch.cdn import router  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import energy, simulate, sketch, zipf  # noqa: E402
+from repro_torch.core import energy, policies, simulate, sketch, torch_cache, zipf  # noqa: E402
 from repro_torch.kernels.cache_sim import cache_sim as kernel  # noqa: E402
 from repro_torch.kernels.cache_sim import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as flash  # noqa: E402
@@ -175,6 +209,7 @@ from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E40
 from repro_torch.models import build  # noqa: E402
 from repro_torch.telemetry import spec as telemetry_spec  # noqa: E402
 from repro_torch.telemetry import timing  # noqa: E402
+from repro_torch.workloads import device as device_workloads  # noqa: E402
 from repro_torch.workloads import generators  # noqa: E402
 
 BASE_KINDS = ("lru", "lfu", "plfu", "plfua")
@@ -186,16 +221,19 @@ SAMPLES = 12
 # other programs' checks within the script's time
 BASE_CHECK_CASES = ((100, 2), (10_000, 200), (46_416, 4_225), (100_000, 2_000))
 BASE_CHECK_LEN = 10_000
-# (N, cap, T, explicit options): the admission programs' checks
+# (N, cap, T, explicit options): the admission programs' checks; at N = 100,000 (plain on the card)
+# cut from T = 20,000 to 10,000 to make room for the fleet phase (plfua_dyn's refresh there is
+# checked by the largest-heap case)
 ADMISSION_CHECK_CASES = (
     (10_000, 200, 20_500, {}),
-    (100_000, 2_000, 20_000, {}),
+    (100_000, 2_000, 10_000, {}),
     (130, 3, 2_000, dict(window=33, refresh=50, sketch_width=96, hot_size=7)),
 )
-# (N, cap, T): the sized and arc checks
-SIZED_CHECK_CASES = ((10_000, 200, 20_000), (100_000, 2_000, 20_000))
+# (N, cap, T): the sized and arc checks; at N = 100,000 (plain on the card) cut from T = 20,000 to
+# 10,000 to make room for the fleet phase within the script's time
+SIZED_CHECK_CASES = ((10_000, 200, 20_000), (100_000, 2_000, 10_000))
 SIZED_CHECK_LEN = 20_000  # the max_victims and unit-size checks, at N = 10,000
-ARC_CHECK_CASES = ((100, 2, 20_000), (10_000, 200, 20_000), (100_000, 2_000, 20_000))
+ARC_CHECK_CASES = ((100, 2, 20_000), (10_000, 200, 20_000), (100_000, 2_000, 10_000))
 #: (N, cap, T, scan options): the grid's largest heap (25,000 slots, 200,000 B of shared
 #: memory) and arc's largest lists, filled by one sweep over 95 % of the trace and then evicting
 #: (demoting) about 5,000 times a sample
@@ -254,8 +292,9 @@ BUDGET = dict(sizing="budget")
 #: telemetry: W = T // 16 (the reference's telemetry bench), 4 tenant groups on multi_tenant traces
 TEL_WINDOWS, TEL_GROUPS = 16, 4
 #: (N, cap, T) of the telemetry checks: the small one's plain runs in the CPU workers, the large
-#: one's on the card; both cut from T = 20,000 to stay in the script's time
-TEL_CHECK_CASES = ((10_000, 200, 10_000), (100_000, 2_000, 5_000))
+#: one's on the card; both cut from T = 20,000 to stay in the script's time (the large one to
+#: 5,000, then to 2,500 to make room for the fleet phase)
+TEL_CHECK_CASES = ((10_000, 200, 10_000), (100_000, 2_000, 2_500))
 #: (N, cap, T, options): the window edges W = 1 and W > T, T not a multiple of plfua_dyn's refresh
 TEL_EDGE_CASE = (130, 3, 2_010, dict(window=33, refresh=50, sketch_width=96, hot_size=7))
 #: what each telemetry instance replaces: tel_update, and plfua_dyn's refresh/churn rows
@@ -751,6 +790,332 @@ def run_telemetry(traces, offs: dict, checks: Checks, card, sms: int, seed: int)
     return entries
 
 
+# ------------------------------------------------------------------ the fleet
+#: benchmarks/fleet_bench.py's topology (``_three_tier``) at its full size: 8 edges -> 2 regionals ->
+#: 1 root over N = 10,000 ids, capacities 300 / 1,200 / 2,400, the hash router; wlfu's window is the
+#: fleet benchmarks' 2,048 (benchmarks/cdn_bench.py)
+FLEET_N, FLEET_WIDTHS, FLEET_CAPS, FLEET_WLFU_WINDOW = 10_000, (8, 2, 1), (300, 1_200, 2_400), 2_048
+#: the benchmark's 8 samples of 100,000 requests: the device traces are made at that size; the fleet
+#: runs (plfua_dyn's churn run too: 6 refreshes of its edges, 1 of its regionals) are cut to FLEET_LEN
+#: requests a sample, the depth at which the caches work: at 10,000 no cache of the fleet fills,
+#: at 20,000 every edge of every sample evicts (97 times or more, seed 0) and every upper level
+#: hits, for each kind without an admission gate; the idle share is read from a profiled run of the
+#: first FLEET_PROFILE_LEN requests
+FLEET_SAMPLES, FLEET_BENCH_LEN, FLEET_LEN, FLEET_PROFILE_LEN = 8, 100_000, 20_000, 300
+FLEET_KINDS = torch_cache.PORTED_KINDS
+#: the kinds that turn misses away (plfua's and plfua_dyn's hot set, tinylfu's duel): their edges
+#: need not fill, but the fleet must evict somewhere
+FLEET_GATED = ("plfua", "plfua_dyn", "tinylfu")
+#: the grouped run: tinylfu on multi_tenant traces of 4 tenants, W = T // 16 (as phase 7)
+FLEET_TEL_KIND = "tinylfu"
+#: the paper's CPU-time case: the pure-Python policies at N = 100,000, cap = 2,000, one sample
+CPU_TIME_KINDS, CPU_TIME_N, CPU_TIME_CAP, CPU_TIME_LEN = ("lfu", "plfu", "plfua"), 100_000, 2_000, 100_000
+
+
+def fleet_topology(kind: str):
+    return fleet.tree(n_objects=FLEET_N, widths=FLEET_WIDTHS, kinds=kind, capacities=FLEET_CAPS,
+                      window=FLEET_WLFU_WINDOW if kind == "wlfu" else 0, router="hash")
+
+
+def fleet_oracle(kind: str, trace: np.ndarray, assignment: np.ndarray) -> dict:
+    """One sample through the port's pure-Python oracle (a CPU worker)."""
+    topo = fleet_topology(kind)
+    ref = fleet.simulate_fleet_reference(topo, trace, assignment)
+    return {"hit": ref.level_hit, "in_cache": ref.in_cache(FLEET_N),
+            "hits": [[p.hits for p in lvl] for lvl in ref.levels],
+            "evictions": [[p.evictions for p in lvl] for lvl in ref.levels]}
+
+
+def fleet_cpu_run(kind: str, traces: np.ndarray, assignments: np.ndarray, window: int, n_groups: int,
+                  groups: np.ndarray) -> dict:
+    """The same fleet call on the CPU (a CPU worker): numpy outputs."""
+    with torch.inference_mode():
+        out = fleet.simulate_fleet_batch(fleet_topology(kind), traces, assignments,
+                                         telemetry_spec.TelemetrySpec(window, n_groups), groups=groups,
+                                         device="cpu")
+    return to_numpy(out)
+
+
+def to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
+    return tree.cpu().numpy()
+
+
+def same_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+
+
+def hold_to_oracle(label: str, kind: str, out: dict, futures: list) -> None:
+    """Each sample of a card run exactly equal to the oracle's: per-level hit series,
+    final contents, per-node hits and evictions, and the origin misses; and a run whose
+    caches work: for a kind without an admission gate every edge of every sample evicts and
+    every upper level hits, for the others some node evicts."""
+    host = to_numpy({k: out[k] for k in ("hit", "states", "tiers", "origin_miss")})
+    evictions = [t["evictions"] for t in host["tiers"]]
+    if kind in FLEET_GATED:
+        require(sum(int(e.sum()) for e in evictions) > 0, f"{label}: no node evicted")
+    else:
+        require(bool((evictions[0] > 0).all()), f"{label}: an edge never evicted, {evictions[0].min(axis=1)}")
+        upper_hits = [int(t["hits"].sum()) for t in host["tiers"][1:]]
+        require(all(h > 0 for h in upper_hits), f"{label}: an upper level never hit, {upper_hits}")
+    for s, future in enumerate(futures):
+        ref = future.result()
+        for l in range(len(FLEET_WIDTHS)):
+            require(np.array_equal(host["hit"][l][s], ref["hit"][l]), f"{label}: sample {s} level {l} hits")
+            require(np.array_equal(host["states"][l]["in_cache"][s], ref["in_cache"][l]),
+                    f"{label}: sample {s} level {l} final contents")
+            require(host["tiers"][l]["hits"][s].tolist() == ref["hits"][l], f"{label}: sample {s} level {l} node hits")
+            require(host["tiers"][l]["evictions"][s].tolist() == ref["evictions"][l],
+                    f"{label}: sample {s} level {l} node evictions")
+        require(np.array_equal(host["origin_miss"][s], ~np.any(ref["hit"], axis=0)), f"{label}: sample {s} origin")
+
+
+def fleet_line(topo, out: dict, wall_s: float, device_s: float, prof: tuple, card) -> str:
+    """What a fleet run's line prints: per-level CHR, origin misses, management energy, ms a request and
+    the idle share of a profiled prefix (``prof``: its trace and the host seconds the profiling took)."""
+    trace, profile_s = prof
+    rep = fleet.fleet_report(topo, out)
+    requests = out["hit"][0].numel()
+    evictions = [int(t["evictions"].sum()) for t in out["tiers"]]
+    edge_min = int(out["tiers"][0]["evictions"].min())
+    return (f"level_chr={json.dumps([round(c, 6) for c in rep.level_chr])} total_chr={rep.total_chr} "
+            f"evictions_by_level={evictions} edge_evictions_min={edge_min} "
+            f"origin_misses={rep.origin_requests} mgmt_energy_j={rep.mgmt_energy_j} "
+            f"ms_per_request={wall_s * 1e3 / requests} device_ms_per_request={device_s * 1e3 / requests} "
+            f"idle_share={trace.idle_share} profiled_kernels={trace.kernels} profiled_requests={FLEET_PROFILE_LEN} "
+            f"profile_s={profile_s:.3f} card={card.label!r}")
+
+
+def fleet_run(topo, traces, assignments, **kw) -> tuple[dict, float, float]:
+    """(outputs, host wall s, device s between CUDA events) of one batched fleet call on the card."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fleet.simulate_fleet_batch(topo, traces, assignments, device="cuda", **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def fleet_profile(topo, traces, assignments, name: str, **kw) -> tuple:
+    """(trace, host s) of a fleet call on the first FLEET_PROFILE_LEN requests of each sample under
+    ``timing.profile``, whose trace gives the device's idle share (the same call ran in full just
+    before, so nothing is built or loaded in it)."""
+    t0 = time.perf_counter()
+    tr = torch.as_tensor(traces[:, :FLEET_PROFILE_LEN], device="cuda")
+    asg = torch.as_tensor(assignments[:, :FLEET_PROFILE_LEN], device="cuda")
+    trace = timing.profile(fleet.simulate_fleet_batch, topo, tr, asg, device="cuda",
+                           profile_dir=Path(__file__).resolve().parent / "build" / "profile_fleet" / name, **kw)
+    return trace, time.perf_counter() - t0
+
+
+def device_trace_checks(seed: int) -> None:
+    """Each scenario generated on the card at the fleet benchmark's size, held to the generators'
+    contracts there: shape, dtype and range; the same seed gives the same traces and another seed
+    others; samples differ; the Zipf head dominates; a sample generated alone equals its row; and
+    each scenario's own shape."""
+    n = FLEET_N
+    try:
+        device_workloads.DeviceTraceSpec("stationary", n, overrides=(("n_phases", 3),))
+        require(False, "an unknown override was accepted")
+    except ValueError:
+        pass
+    for scenario in device_workloads.DEVICE_SCENARIO_NAMES:
+        t0 = time.perf_counter()
+        dspec = device_workloads.DeviceTraceSpec(scenario, n, n_samples=FLEET_SAMPLES, trace_len=FLEET_BENCH_LEN,
+                                                 seed=seed)
+        traces, ms = cuda_ms(lambda: device_workloads.make_traces_device(dspec, device="cuda"))
+        require(traces.is_cuda and traces.shape == (FLEET_SAMPLES, FLEET_BENCH_LEN) and traces.dtype == torch.int32,
+                f"{scenario}: {traces.shape} {traces.dtype}")
+        lo, hi = int(traces.min()), int(traces.max())
+        require(0 <= lo and hi < n, f"{scenario}: ids in [{lo}, {hi}]")
+        require(torch.equal(traces, device_workloads.make_traces_device(dspec, device="cuda")),
+                f"{scenario}: not deterministic")
+        other = dataclasses.replace(dspec, seed=seed + 1)
+        require(not torch.equal(traces, device_workloads.make_traces_device(other, device="cuda")),
+                f"{scenario}: seed-insensitive")
+        require(all(bool((traces[i] != traces[i + 1]).any()) for i in range(FLEET_SAMPLES - 1)),
+                f"{scenario}: two samples equal")
+        last = FLEET_SAMPLES - 1
+        require(torch.equal(device_workloads.gen_sample(dspec, device_workloads.sample_key(dspec, last),
+                                                        device="cuda"), traces[last]),
+                f"{scenario}: a sample generated alone differs from its row")
+        head = n // 10
+        if scenario == "churn":
+            counts = torch.bincount(traces.flatten().long(), minlength=n)
+            share = float(counts.sort(descending=True).values[:head].sum()) / traces.numel()
+        else:
+            share = float((traces < head).double().mean())
+        require(share > 0.25, f"{scenario}: head share {share}")
+        semantics = scenario_semantics(scenario, traces, n)
+        print(f"[fleet traces {scenario}] N={n} S={FLEET_SAMPLES} T={FLEET_BENCH_LEN} ms={ms} head_share={share} "
+              f"{semantics} deterministic=True seed_sensitive=True samples_independent=True "
+              f"row_independent=True elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+
+def scenario_semantics(scenario: str, traces: torch.Tensor, n: int) -> str:
+    """Each scenario's own shape, checked on the card: churn moves popularity between its first and
+    last phase, flash_crowd sends runs of requests to cold ids, diurnal's head swings between its
+    chunks, multi_tenant's tenants follow their Zipf(1) weights, and scan walks consecutive ids."""
+    tr = traces.long()
+    t_n = tr.shape[1]
+    if scenario == "churn":
+        first = torch.bincount(tr[:, : t_n // 5].flatten(), minlength=n).topk(100).indices
+        last = torch.bincount(tr[:, -(t_n // 5):].flatten(), minlength=n).topk(100).indices
+        moved = 100 - len(set(first.tolist()) & set(last.tolist()))
+        require(moved > 10, f"churn: {moved} of the top 100 ids moved")
+        return f"top100_moved={moved}"
+    if scenario == "flash_crowd":
+        cold = tr >= (3 * n) // 4
+        share = float(cold.double().mean())
+        require(share > 0.01, f"flash_crowd: cold share {share}")
+        return f"cold_share={share}"
+    if scenario == "diurnal":
+        heads = (tr < 10).double().view(tr.shape[0], 40, -1).mean(dim=(0, 2))
+        require(float(heads.max() - heads.min()) > 0.05, f"diurnal: head shares {heads.tolist()}")
+        return f"head10_share_min={float(heads.min())} max={float(heads.max())}"
+    if scenario == "multi_tenant":
+        shares = torch.bincount((tr // (n // 4)).flatten(), minlength=4).double() / tr.numel()
+        want = zipf.zipf_probs(4, 1.0)
+        require(np.abs(shares.cpu().numpy() - want).max() < 0.01, f"multi_tenant: tenant shares {shares.tolist()}")
+        return f"tenant_shares={[round(float(x), 4) for x in shares]}"
+    if scenario == "scan":
+        steps = (tr[:, 1:] - tr[:, :-1]) % (n - n // 2)
+        walked = float(((steps == 1) & (tr[:, 1:] >= n // 2)).double().mean())
+        require(walked > 0.02, f"scan: {walked} of the steps walk one id")
+        return f"walk_share={walked}"
+    return ""
+
+
+def router_checks(seed: int) -> None:
+    """route_level on the card, for the three modes, bit-identical to numpy's on the same trace."""
+    dspec = device_workloads.DeviceTraceSpec("stationary", FLEET_N, n_samples=FLEET_SAMPLES,
+                                             trace_len=FLEET_BENCH_LEN, seed=seed)
+    traces = device_workloads.make_traces_device(dspec, device="cuda")
+    host = traces.cpu().numpy()
+    for mode in router.ROUTER_MODES:
+        for n_nodes, level_seed in ((FLEET_WIDTHS[0], 0), (FLEET_WIDTHS[1], 1)):
+            got, ms = cuda_ms(lambda: router.route_level(traces, n_nodes, mode, seed=level_seed))
+            want = router.route_level(host, n_nodes, mode, seed=level_seed)
+            require(got.is_cuda and np.array_equal(got.cpu().numpy(), want),
+                    f"route_level {mode} n={n_nodes} on the card != numpy")
+            counts = np.bincount(want.ravel(), minlength=n_nodes)
+            print(f"[fleet router {mode}] n_nodes={n_nodes} seed={level_seed} S={FLEET_SAMPLES} T={FLEET_BENCH_LEN} "
+                  f"ms={ms} bit_identical=True load_min={counts.min()} load_max={counts.max()}", flush=True)
+
+
+def fleet_phase(seed: int, card) -> None:
+    """The fleet phase: device traces, routers, the level-major fleet for every kind held to the
+    oracle, plfua_dyn on device-made churn, tinylfu with grouped telemetry, and the paper's CPU time."""
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init) as pool:
+        # the two CPU runs first (the longest jobs), then the oracles, all overlapping the card's work
+        tenants = generators.multi_tenant(FLEET_N, FLEET_SAMPLES, FLEET_LEN, seed=seed, n_tenants=TEL_GROUPS)
+        tenant_assign = fleet_topology(FLEET_TEL_KIND).assignment(tenants)
+        groups = generators.tenant_groups(FLEET_N, TEL_GROUPS)
+        window = FLEET_LEN // TEL_WINDOWS
+        cpu_grouped = pool.submit(fleet_cpu_run, FLEET_TEL_KIND, tenants, tenant_assign, window, TEL_GROUPS, groups)
+        cpu_flat = pool.submit(fleet_cpu_run, FLEET_TEL_KIND, tenants, tenant_assign, window, 0, groups)
+        traces = generators.stationary(FLEET_N, FLEET_SAMPLES, FLEET_LEN, seed=seed)
+        assignments = fleet_topology("lru").assignment(traces)
+        oracles = {kind: [pool.submit(fleet_oracle, kind, traces[s], assignments[s]) for s in range(FLEET_SAMPLES)]
+                   for kind in FLEET_KINDS}
+
+        device_trace_checks(seed)
+        router_checks(seed)
+
+        dev_traces = torch.as_tensor(traces, device="cuda")
+        dev_assign = torch.as_tensor(assignments, device="cuda")
+        for kind in FLEET_KINDS:
+            t0 = time.perf_counter()
+            topo = fleet_topology(kind)
+            out, wall_s, device_s = fleet_run(topo, dev_traces, dev_assign)
+            prof = fleet_profile(topo, traces, assignments, kind)
+            hold_to_oracle(kind, kind, out, oracles[kind])
+            print(f"[fleet {kind}] N={FLEET_N} widths={list(FLEET_WIDTHS)} capacities={list(FLEET_CAPS)} router=hash "
+                  f"S={FLEET_SAMPLES} T={FLEET_LEN} scenario=stationary wall_s={wall_s} "
+                  f"{fleet_line(topo, out, wall_s, device_s, prof, card)} oracle=exact "
+                  f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+        # plfua_dyn on churn made on the card, routed there: its refreshes on global time
+        t0 = time.perf_counter()
+        topo = fleet_topology("plfua_dyn")
+        dspec = device_workloads.DeviceTraceSpec("churn", FLEET_N, n_samples=FLEET_SAMPLES, trace_len=FLEET_LEN,
+                                                 seed=seed)
+        churn = device_workloads.make_traces_device(dspec, device="cuda")
+        churn_assign = router.route_device(churn, FLEET_WIDTHS[0], "hash")
+        host_churn, host_churn_assign = churn.cpu().numpy(), churn_assign.cpu().numpy()
+        churn_oracle = [pool.submit(fleet_oracle, "plfua_dyn", host_churn[s], host_churn_assign[s])
+                        for s in range(FLEET_SAMPLES)]
+        spec = telemetry_spec.TelemetrySpec(FLEET_LEN // TEL_WINDOWS)
+        out, wall_s, device_s = fleet_run(topo, churn, churn_assign, telemetry=spec)
+        refreshes = [int(s[..., telemetry_spec.METRIC_INDEX["refreshes"]].sum(dim=-1).min()) for s in out["telemetry"]]
+        want = [FLEET_LEN // lvl[0].effective_refresh for lvl in topo.levels]
+        require(want[0] >= 2, "plfua_dyn's churn run: no request follows a refresh of its edges")
+        require(refreshes == want, f"plfua_dyn's refreshes per node {refreshes}, on global time {want}")
+        prof = fleet_profile(topo, host_churn, host_churn_assign, "plfua_dyn_churn")
+        hold_to_oracle("plfua_dyn churn", "plfua_dyn", out, churn_oracle)
+        print(f"[fleet plfua_dyn churn] traces=make_traces_device(churn) assignment=route_device(hash) "
+              f"S={FLEET_SAMPLES} T={FLEET_LEN} refreshes_per_node_by_level={refreshes} (global time: "
+              f"T // refresh = {want}) {fleet_line(topo, out, wall_s, device_s, prof, card)} "
+              f"oracle=exact elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+        # tinylfu with grouped telemetry on multi_tenant traces
+        t0 = time.perf_counter()
+        topo = fleet_topology(FLEET_TEL_KIND)
+        spec = telemetry_spec.TelemetrySpec(window, TEL_GROUPS)
+        dev_tenants = torch.as_tensor(tenants, device="cuda")
+        dev_tenant_assign = torch.as_tensor(tenant_assign, device="cuda")
+        out, wall_s, device_s = fleet_run(topo, dev_tenants, dev_tenant_assign, telemetry=spec, groups=groups)
+        plain_out, plain_wall_s, _ = fleet_run(topo, dev_tenants, dev_tenant_assign)
+        require(same_tree(to_numpy({k: out[k] for k in plain_out}), to_numpy(plain_out)),
+                "tinylfu: grouped telemetry changed the fleet's outputs")
+        require(same_tree(to_numpy(out), cpu_grouped.result()), "tinylfu grouped: the card != the CPU")
+        flat = cpu_flat.result()["telemetry"]
+        require(all(np.array_equal(s.sum(dim=-2).cpu().numpy(), f) for s, f in zip(out["telemetry"], flat)),
+                "tinylfu: the grouped series summed over the groups != the ungrouped series")
+        series_evictions = [int(s[..., telemetry_spec.METRIC_INDEX["evictions"]].sum()) for s in out["telemetry"]]
+        pressure = [int(p.sum()) for p in out["telemetry_pressure"]]
+        require(all(e > 0 for e in series_evictions) and sum(pressure) > 0,
+                f"tinylfu grouped: a level's series has no eviction {series_evictions}, or no pressure {pressure}")
+        prof = fleet_profile(topo, tenants, tenant_assign, "tinylfu_grouped", telemetry=spec, groups=groups)
+        rep = fleet.fleet_report(topo, out, telemetry=spec)
+        tenant_rows = rep.tenant_rows()
+        print(f"[fleet {FLEET_TEL_KIND} grouped] traces=multi_tenant groups={TEL_GROUPS} W={window} S={FLEET_SAMPLES} "
+              f"T={FLEET_LEN} telemetry_off_wall_s={plain_wall_s} wall_s={wall_s} "
+              f"on_off={wall_s / plain_wall_s} {fleet_line(topo, out, wall_s, device_s, prof, card)} "
+              f"tenant_p50_us={[r['p50_us'] for r in tenant_rows]} tenant_p99_us={[r['p99_us'] for r in tenant_rows]} "
+              f"pressure={[r['eviction_pressure'] for r in tenant_rows]} series_evictions_by_level={series_evictions} "
+              f"pressure_by_level={pressure} equals_off=True equals_cpu=True "
+              f"group_sum_equals_ungrouped=True elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    # the paper's CPU time: the pure-Python policies' management loop beside the kernel's device time
+    trace = zipf.sample_traces(CPU_TIME_N, 1, CPU_TIME_LEN, seed=seed)
+    dev_trace = torch.as_tensor(trace, device="cuda")
+    for kind in CPU_TIME_KINDS:
+        r = simulate.run_trace(policies.make_policy(kind, CPU_TIME_CAP, n_objects=CPU_TIME_N), trace[0])
+        kw = dict(kind=kind, n_objects=CPU_TIME_N, capacity=CPU_TIME_CAP)
+        kernel.cache_sim_cuda(dev_trace, **kw)  # warm-up
+        got, ms = cuda_ms(lambda: kernel.cache_sim_cuda(dev_trace, **kw))
+        require(int(got["hits"].sum()) == r.hits, f"{kind}: kernel hits {int(got['hits'].sum())} != policy {r.hits}")
+        print(f"[fleet paper cpu time {kind}] N={CPU_TIME_N} cap={CPU_TIME_CAP} T={CPU_TIME_LEN} chr={r.chr} "
+              f"evictions={r.evictions} cpu_s={r.cpu_time_s} wall_s={r.wall_time_s} "
+              f"mgmt_energy_j={energy.mgmt_energy_j(r.cpu_time_s)} kernel_device_s={ms / 1e3} "
+              f"kernel_j_at_power_limit={energy.device_energy_j(ms / 1e3, card.power_limit_w)} hits_equal=True "
+              f"card={card.label!r}", flush=True)
+    print(f"[fleet] elapsed_s={time.perf_counter() - t_phase:.3f}", flush=True)
+
+
 # -------------------------------------------------------------- serving path
 SERVE_ARCH = "smollm-360m"
 #: the reference launcher's traffic: 20 objects, 40 requests from zipf.sample_trace(20, 40, seed=1),
@@ -769,7 +1134,7 @@ SERVE_LOGIT_TOL = 0.125
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:42"  # _flash_kernel
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet)
-BF16_FLOPS_PER_S = 989e12
+BF16_FLOPS_PER_S = energy.H100_SXM_PEAK_BF16_FLOPS
 #: torch.cuda._sleep's cycles a second: the H100's top SM clock (1,980 MHz), so a sleep is at least as
 #: long as asked
 SLEEP_CYCLES_PER_S = 1.98e9
@@ -994,7 +1359,21 @@ def serve_path(model, seed: int, card) -> dict:
     print(f"[serve] path launches={launches} by_instance={json.dumps(by_instance)} = {cfg.n_layers} layers x "
           f"({prefills} prefills + {decode_steps} decode steps) cold_eq_warm=True "
           f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
-    return by_instance
+    return by_instance, dict(chr=cache.stats.chr, mgmt_cpu_s=report["mgmt_time_s"])
+
+
+def serving_energy_line(model, served: dict, card) -> None:
+    """The serve phase's traffic (its CHR and the content cache's management CPU seconds) priced by
+    ``energy.serving_energy`` at the card's power limit and the H100 SXM's data-sheet bf16 peak."""
+    rep = energy.serving_energy(served["chr"], SERVE_REQUESTS, model.n_params, SERVE_PROMPT, SERVE_NEW,
+                                served["mgmt_cpu_s"], power_w=card.power_limit_w,
+                                peak_flops=energy.H100_SXM_PEAK_BF16_FLOPS)
+    require(all(math.isfinite(v) and v >= 0 for v in rep.row().values()), f"serving energy {rep.row()}")
+    print(f"[energy serving] chr={served['chr']} requests={SERVE_REQUESTS} n_params={model.n_params} "
+          f"prompt={SERVE_PROMPT} new_tokens={SERVE_NEW} mgmt_cpu_s={served['mgmt_cpu_s']} efficiency=0.4 "
+          f"peak_flops={energy.H100_SXM_PEAK_BF16_FLOPS} power_w={card.power_limit_w} "
+          f"e_prefill_j_per_miss={rep.e_prefill_j} e_decode_j_per_request={rep.e_decode_j} "
+          f"row={json.dumps(rep.row())} card={card.label!r}", flush=True)
 
 
 def greedy_logits(model, tokens: np.ndarray, cache_len: int, forced=None) -> tuple[list, list]:
@@ -1400,26 +1779,30 @@ def main() -> int:
     entries += run_telemetry(traces, offs, checks, card, sms, seed)
     del traces, short, offs
 
-    # 8. flash check: the attention kernel against its plain version, f32 products in full f32
+    # 8. fleet: device traces, routers, the level-major fleet held to its oracle, the paper's CPU time
+    fleet_phase(seed, card)
+
+    # 9. flash check: the attention kernel against its plain version, f32 products in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = flash_checks(seed)
 
-    # 9. serve: smollm-360m at full width behind the content cache, every attention call on the kernel
+    # 10. serve: smollm-360m at full width behind the content cache, every attention call on the kernel
     t0 = time.perf_counter()
     model = build(get_config(SERVE_ARCH), device="cuda").init(torch.Generator(device="cuda").manual_seed(seed))
     print(f"[serve] model built and initialised from seed {seed}: {model.n_params} parameters "
           f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
-    by_instance = serve_path(model, seed, card)
+    by_instance, served = serve_path(model, seed, card)
+    serving_energy_line(model, served, card)
 
-    # 10. serve check: the card against the plain path on the CPU, the same weights
+    # 11. serve check: the card against the plain path on the CPU, the same weights
     serve_check(model, seed)
 
-    # 11. measure: the kernel at the served shapes beside its bound, plain version and SDPA; the engine
+    # 12. measure: the kernel at the served shapes beside its bound, plain version and SDPA; the engine
     entries += flash_measure(seed, worst, by_instance, sms)
     serve_measure(model, seed, card)
 
-    # 12. kernels
+    # 13. kernels
     print(json.dumps({"kernels": entries}))
     print(f"[total] elapsed_s={time.perf_counter() - t_start:.3f}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

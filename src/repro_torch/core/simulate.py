@@ -26,19 +26,23 @@ On the card each case also reports its device seconds (CUDA events around the
 launch) and the device energy per request at the card's power limit; on the
 CPU those fields are ``None``: not measured.
 
-The reference's ``run_trace`` and ``hit_miss_scatter`` time the pure-Python
-policies, which are not ported yet (ROADMAP.md module 5).
+:func:`run_trace` and :func:`hit_miss_scatter` are the paper's own
+measurement: they run one trace through a pure-Python policy object
+(:mod:`repro_torch.core.policies`) on the host and time its management loop
+in CPU seconds (``time.process_time``), the metric the paper converts to
+Joules (:func:`repro_torch.core.energy.mgmt_energy_j`).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Literal, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch._device import card_info, resolve_device
-from repro_torch.core import energy, sketch, zipf
+from repro_torch.core import energy, policies, sketch, zipf
 from repro_torch.kernels.cache_sim import ops
 from repro_torch.workloads import generators
 
@@ -166,3 +170,54 @@ def run_grid(
                  sizing=sizing)
         for c in cases
     ]
+
+
+@dataclasses.dataclass
+class SimResult:
+    """One trace through one pure-Python policy, with its loop's CPU and wall time."""
+
+    policy: str
+    n_objects: int
+    capacity: int
+    chr: float
+    hits: int
+    misses: int
+    evictions: int
+    cpu_time_s: float
+    wall_time_s: float
+    metadata_entries: int
+
+
+def run_trace(policy: policies.CachePolicy, trace: Sequence[int] | np.ndarray) -> SimResult:
+    """Run ``trace`` through ``policy``, timing the management loop only: the
+    trace becomes a Python list first, so decoding it is not timed."""
+    if isinstance(trace, np.ndarray):
+        trace = trace.tolist()
+    c0, w0 = time.process_time(), time.perf_counter()
+    policy.run(trace)
+    c1, w1 = time.process_time(), time.perf_counter()
+    return SimResult(
+        policy=policy.name,
+        n_objects=-1,
+        capacity=policy.capacity,
+        chr=policy.chr,
+        hits=policy.hits,
+        misses=policy.misses,
+        evictions=policy.evictions,
+        cpu_time_s=c1 - c0,
+        wall_time_s=w1 - w0,
+        metadata_entries=policy.metadata_entries,
+    )
+
+
+def hit_miss_scatter(policy: policies.CachePolicy, trace: np.ndarray, n_objects: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-object (hits, misses) counts: the data of the paper's Fig. 2
+    rank-order scatter."""
+    hits = np.zeros(n_objects, dtype=np.int64)
+    misses = np.zeros(n_objects, dtype=np.int64)
+    for x in trace.tolist():
+        if policy.request(x):
+            hits[x] += 1
+        else:
+            misses[x] += 1
+    return hits, misses

@@ -92,6 +92,23 @@ def _mix32(h: np.ndarray) -> np.ndarray:
     return h
 
 
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``h * c mod 2**32`` for int64 ``h`` in ``[0, 2**32)``, in two 16-bit
+    halves of ``c`` so that no product leaves int64's range."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def _mix32_i64(h: torch.Tensor) -> torch.Tensor:
+    """:func:`_mix32` on torch tensors, whose uint32 arithmetic is incomplete:
+    ``h`` is int64 with values in ``[0, 2**32)``, and so is the result, bit for
+    bit numpy's uint32 finalizer."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
 def _salted_table(ids, salts, modulus: int) -> np.ndarray:
     ids = np.asarray(ids, np.uint32)
     h = _mix32((ids[..., None] + np.uint32(1)) * np.asarray(salts, np.uint32))

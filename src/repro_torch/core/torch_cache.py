@@ -573,16 +573,17 @@ def _step_events(spec: PolicySpec, before: dict, state: dict, hit, x, rows, gidx
 
 
 def telemetry_series(spec: PolicySpec, telemetry, trace_len: int, hits, events: dict, groups_t=None,
-                     chunk_len=None) -> torch.Tensor:
-    """Bucket a run's events (``(S, T)`` per step, plfua_dyn's ``fired``/
-    ``churn`` per refresh period) into ``(S, n_windows, N_METRICS)`` int32,
-    or ``(S, n_windows, n_groups, N_METRICS)`` when ``telemetry.n_groups >
-    0`` (``groups_t``: each position's group, required then). Every position
-    is a request and every miss a fill offer (a flat cache). ``chunk_len``
-    defaults to plfua_dyn's refresh period."""
+                     chunk_len=None, active=None) -> torch.Tensor:
+    """Bucket a run's events (``(..., T)`` per step, plfua_dyn's ``fired``/
+    ``churn`` per refresh period) into ``(..., n_windows, N_METRICS)`` int32,
+    or ``(..., n_windows, n_groups, N_METRICS)`` when ``telemetry.n_groups >
+    0`` (``groups_t``: each position's group, required then). ``active=None``
+    is a flat cache: every position is a request and every miss a fill offer;
+    a fleet node passes the positions routed to it and unserved below.
+    ``chunk_len`` defaults to plfua_dyn's refresh period."""
     if chunk_len is None:
         chunk_len = spec.effective_refresh if spec.kind == "plfua_dyn" else None
-    common = dict(hits=hits, fills=events["fill"], aging=events.get("aging"), fired=events.get("fired"),
+    common = dict(hits=hits, active=active, fills=events["fill"], aging=events.get("aging"), fired=events.get("fired"),
                   hit_bytes=events.get("hit_bytes"), miss_bytes=events.get("miss_bytes"), chunk_len=chunk_len)
     if telemetry.n_groups:
         if groups_t is None:

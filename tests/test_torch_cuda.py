@@ -650,3 +650,83 @@ def test_reduced_engine_on_the_card_matches_cpu(cuda_device, exact_f32):
         {k: v for k, v in cpu_report.items() if k != "mgmt_time_s"}
     prefills = card_report["cache_misses"]
     assert cpu_launches == 0 and launches == cfg.n_layers * (prefills + card_report["decode_tokens"])
+
+
+# ------------------------------------------------------------------ the fleet
+def _fleet_topo(kind, **kw):
+    from repro_torch import fleet
+
+    return fleet.tree(n_objects=128, widths=(4, 2, 1), kinds=kind, capacities=(4, 9, 23), **kw)
+
+
+def _same_tree(got, want, path="out"):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _same_tree(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, tuple):
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_tree(a, b, f"{path}[{i}]")
+    else:
+        assert got.is_cuda and got.dtype == want.dtype, path
+        assert torch.equal(got.cpu(), want), path
+
+
+FLEET_BYTES = generators.object_sizes(128, dist="lognormal", corr=0.5, seed=11, median=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kw", [
+    ("lfu", {}), ("plfua_dyn", dict(refresh=200)), ("arc", {}),
+    ("gdsf", dict(capacity_bytes=tuple(int(c * FLEET_BYTES.mean()) for c in (4, 9, 23)))),
+])
+def test_fleet_on_the_card_equals_the_cpu(cuda_device, kind, kw):
+    """The level-major engine on the card gives the CPU's results exactly,
+    with grouped telemetry on (tests/test_torch_fleet.py's size)."""
+    from repro_torch import fleet, telemetry
+
+    topo = _fleet_topo(kind, **kw)
+    traces = generators.multi_tenant(128, 2, 1_200, seed=29, n_tenants=4)
+    assignments = topo.assignment(traces)
+    spec = telemetry.TelemetrySpec(100, 4)
+    groups = generators.tenant_groups(128, 4)
+    args = (topo, traces, assignments, spec, FLEET_BYTES, groups)
+    _same_tree(fleet.simulate_fleet_batch(*args, device=cuda_device), fleet.simulate_fleet_batch(*args, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["hash", "sticky", "round_robin"])
+def test_route_level_on_the_card_equals_numpy(cuda_device, mode):
+    from repro_torch.cdn import router
+
+    rng = np.random.default_rng(5)
+    trace = rng.integers(0, 2**31 - 1, size=(3, 20_000), dtype=np.int64).astype(np.int32)
+    for n, seed in ((1, 0), (2, 1), (7, 3), (1_000, 2**31 - 1)):
+        want = router.route_level(trace, n, mode, session_len=64, seed=seed)
+        got = router.route_level(torch.as_tensor(trace, device=cuda_device), n, mode, session_len=64, seed=seed)
+        assert got.is_cuda and got.dtype == torch.int32
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["stationary", "churn", "flash_crowd", "diurnal", "multi_tenant", "scan"])
+def test_device_generators_on_the_card(cuda_device, scenario):
+    """The device generators' contracts on the card (tests/test_torch_device_workloads.py)."""
+    from repro_torch.workloads.device import DeviceTraceSpec, gen_sample, make_traces_device, sample_key
+
+    make = lambda seed, s=3: make_traces_device(DeviceTraceSpec(scenario, 400, n_samples=s, trace_len=6_000,
+                                                                seed=seed), device=cuda_device)
+    a = make(5)
+    assert a.is_cuda and a.shape == (3, 6_000) and a.dtype == torch.int32
+    assert int(a.min()) >= 0 and int(a.max()) < 400
+    assert torch.equal(a, make(5)) and not torch.equal(a, make(6))
+    assert bool((a[0] != a[1]).any())
+    dspec = DeviceTraceSpec(scenario, 400, n_samples=3, trace_len=6_000, seed=5)
+    assert torch.equal(gen_sample(dspec, sample_key(dspec, 2), device=cuda_device), a[2])
+    assert torch.equal(make(5, s=1)[0], a[0])
+    tr = a.cpu().numpy()
+    if scenario == "churn":
+        share = np.sort(np.bincount(tr.ravel(), minlength=400))[::-1][:40].sum() / tr.size
+    else:
+        share = (tr < 40).mean()
+    assert share > 0.25

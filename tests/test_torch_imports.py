@@ -41,7 +41,14 @@ def test_port_files_exist():
                   "serving/scheduler.py", "core/policies.py", "configs/__init__.py", "launch/serve.py"):
         assert f"src/repro_torch/{entry}" in names, entry
     assert (ROOT / "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu").is_file()
-    assert len(names) >= 40
+    # the fleet slice: device traces, the router, the fleet engine and its host copies, the
+    # measurement modules
+    for entry in ("workloads/device.py", "cdn/__init__.py", "cdn/router.py", "fleet/__init__.py",
+                  "fleet/placement.py", "fleet/topology.py", "fleet/sim.py", "fleet/reference.py",
+                  "fleet/report.py", "telemetry/latency.py", "telemetry/oracle.py", "telemetry/export.py",
+                  "telemetry/dashboard.py", "core/simulate.py", "core/energy.py"):
+        assert f"src/repro_torch/{entry}" in names, entry
+    assert len(names) >= 53
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
