@@ -19,9 +19,10 @@ in stamp order (``kernel.arc_plan``: its tags and links). ``flash_attention``
 blocks and merged by the last one).
 Two main paths: the paper's grid through cache_sim, and the serving path
 (smollm-360m at full width behind the content cache, every attention call
-through the flash kernel); the fleet phase drives the N-tier fleet engine,
-which steps the plain PyTorch policies (no kernel of its own). Phases, one
-line each (or one line per item):
+through the flash kernel); the fleet, placed and hierarchy phases drive the
+N-tier fleet engines, which step the plain PyTorch policies (no kernel of
+their own), and the fleet front serves the model behind a tree of content
+caches. Phases, one line each (or one line per item):
 
 1. device  — the card's name and count, and ``nvidia-smi``'s name and power limit.
 2. build   — nvcc builds the six cache_sim sources and the flash source from
@@ -129,7 +130,33 @@ line each (or one line per item):
              requests). Then the paper's CPU time: ``simulate.run_trace`` for
              lfu, plfu and plfua at N = 100,000, cap = 2,000, one 100,000-request
              sample, beside the kernel's device seconds on it (equal hits).
-9. flash check — the flash kernel against its plain version (the naive
+9. placed  — the time-major placed engine (one line a run): ``fleet_bench.py``'s
+             placement sweep at its full width (plfu on the fleet topology,
+             N = 10,000, capacities 300 / 1,200 / 2,400, hash router, 4
+             ``stationary`` samples of 13,500) under lcd, prob(0.5), admit and
+             prob(1.0); gdsf under byte budgets (the byte benchmark's lognormal
+             catalogue, each capacity x the mean size) with admit and ungrouped
+             telemetry, on the first 5,500 requests of the samples; the mixed
+             tree (lru / plfua_dyn / plfua_dyn under lcd / admit / prob(0.5),
+             periods 3,000 and 4,500: chunks of 1,500) on ``churn`` made and
+             routed on the card, 4 x 9,000, with telemetry.
+             Every sample equals the oracle (CPU workers), every run the same
+             call on the CPU, prob(1.0) the level-major lce call bit for bit;
+             the levels ``PLACED_EVICTING`` names evict in every sample and the
+             admit levels ``PLACED_REFUSING`` names turn a fill away in every
+             sample; the mixed tree's levels refresh 3 and 2 times. Each line:
+             per-level CHR and evictions, origin misses, ``fleet_report``'s
+             management and placement J, ms a request, the idle share and the
+             kernels a position over the first 300 positions
+             (``torch.profiler``), the fills each level turned away. Then
+             lcd's management-J saving and ΔCHR against prob(1.0) (not gated).
+10. hierarchy — ``cdn_bench.py``'s full two-tier topology (4 edges at 300, a
+             parent at 1,200, N = 10,000, hash) for plfua, plfua_dyn and
+             tinylfu on 8 ``churn`` samples of 20,000: each sample equal to
+             ``cdn.simulate_hierarchy_reference`` (CPU workers), the parent
+             evicting; ``hierarchy_report``'s edge, parent and total CHR and
+             management J; plfua_dyn's total CHR against plfua's (not gated).
+11. flash check — the flash kernel against its plain version (the naive
              oracle, query rows in chunks of 1,024) on the card, TF32 off, each
              case in float32 (atol = rtol = 2e-5) and bfloat16 (atol 1e-4,
              rtol 2**-7: one rounding of the output): tests/test_kernels_flash.py's
@@ -143,7 +170,7 @@ line each (or one line per item):
              before P V; decode with one live key dropped, or one garbage key
              let in at kv_len 1) against the same tolerance, which must reject each,
              and prints what the former 2e-2 tolerance read for them.
-10. serve  — smollm-360m at full width (32 layers, d_model 960, 15 heads, 5 KV
+12. serve  — smollm-360m at full width (32 layers, d_model 960, 15 heads, 5 KV
              heads, ~409 M parameters), weights from ``--seed`` through
              ``Model.init``, bf16 compute: the reference launcher's traffic (20
              objects, 40 requests from ``zipf.sample_trace(20, 40, seed=1)``)
@@ -156,11 +183,18 @@ line each (or one line per item):
              traffic priced by ``energy.serving_energy`` (CHR, the content
              cache's management CPU seconds) at the card's power limit and the
              H100 SXM's data-sheet bf16 peak (989 TFLOP/s).
-11. serve check — one request (prompt 128, max_new = 4) on the card and on the
+13. fleet front — the same model behind ``FleetContentCache.from_topology``
+             (2 edges -> 1 parent, lru at 2 / 4 objects, lcd): 12 requests over
+             6 objects (``zipf.sample_trace(6, 12, seed=4)``), 2,048-token
+             prompts, max_new = 8; its tier stats equal a model-free replay of
+             the same lookups and offers through a second front, each hit's
+             tokens equal its object's first serve's, and the flash launches
+             are 32 x (prefills + decode steps), counted from 0.
+14. serve check — one request (prompt 128, max_new = 4) on the card and on the
              CPU (the plain path, the same weights, fed the card's tokens):
              every step's logits within 0.125, tokens equal where the top-2
              margin exceeds it.
-12. measure — the flash kernel at the served shapes (causal prefill 2,048;
+15. measure — the flash kernel at the served shapes (causal prefill 2,048;
              decode at kv_len 2,056) with its bound, plain version and
              ``scaled_dot_product_attention`` (timed only), each timed on the
              device with the host ahead (``torch.cuda._sleep`` holds the
@@ -170,7 +204,7 @@ line each (or one line per item):
              prefill ms and tokens/s, decode ms a token, J a generated token at
              the power limit, and the device's busy time and idle share over
              one prefill and one request's decode (``torch.profiler``).
-13. kernels — one JSON line, an entry per kernel instance, with the trace
+16. kernels — one JSON line, an entry per kernel instance, with the trace
              lengths of cache_sim's time (``T``) and plain version's
              (``plain_T``) and the flash instances' shapes.
 
@@ -197,7 +231,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import fleet, serving  # noqa: E402
+from repro_torch import cdn, fleet, serving  # noqa: E402
 from repro_torch._device import card_info  # noqa: E402
 from repro_torch.cdn import router  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -817,11 +851,12 @@ def fleet_topology(kind: str):
                       window=FLEET_WLFU_WINDOW if kind == "wlfu" else 0, router="hash")
 
 
-def fleet_oracle(kind: str, trace: np.ndarray, assignment: np.ndarray) -> dict:
-    """One sample through the port's pure-Python oracle (a CPU worker)."""
-    topo = fleet_topology(kind)
-    ref = fleet.simulate_fleet_reference(topo, trace, assignment)
-    return {"hit": ref.level_hit, "in_cache": ref.in_cache(FLEET_N),
+def fleet_oracle(kind, trace: np.ndarray, assignment: np.ndarray, sizes=None) -> dict:
+    """One sample through the port's pure-Python oracle (a CPU worker); ``kind`` names a
+    fleet_topology or is the topology itself."""
+    topo = fleet_topology(kind) if isinstance(kind, str) else kind
+    ref = fleet.simulate_fleet_reference(topo, trace, assignment, sizes=sizes)
+    return {"hit": ref.level_hit, "in_cache": ref.in_cache(topo.n_objects),
             "hits": [[p.hits for p in lvl] for lvl in ref.levels],
             "evictions": [[p.evictions for p in lvl] for lvl in ref.levels]}
 
@@ -866,9 +901,14 @@ def hold_to_oracle(label: str, kind: str, out: dict, futures: list) -> None:
         require(bool((evictions[0] > 0).all()), f"{label}: an edge never evicted, {evictions[0].min(axis=1)}")
         upper_hits = [int(t["hits"].sum()) for t in host["tiers"][1:]]
         require(all(h > 0 for h in upper_hits), f"{label}: an upper level never hit, {upper_hits}")
+    equal_to_oracle(label, host, futures)
+
+
+def equal_to_oracle(label: str, host: dict, futures: list) -> None:
+    """Each sample of a run's host outputs equal to the oracle's (one future a sample)."""
     for s, future in enumerate(futures):
         ref = future.result()
-        for l in range(len(FLEET_WIDTHS)):
+        for l in range(len(ref["hit"])):
             require(np.array_equal(host["hit"][l][s], ref["hit"][l]), f"{label}: sample {s} level {l} hits")
             require(np.array_equal(host["states"][l]["in_cache"][s], ref["in_cache"][l]),
                     f"{label}: sample {s} level {l} final contents")
@@ -1116,6 +1156,205 @@ def fleet_phase(seed: int, card) -> None:
     print(f"[fleet] elapsed_s={time.perf_counter() - t_phase:.3f}", flush=True)
 
 
+# --------------------------------------------------------- the placed fleet engine
+#: benchmarks/fleet_bench.py::fleet_placement_sweep at its full width: plfu on the fleet topology, its 4
+#: stationary samples, the placements below; prob(1.0) is also held to the level-major (lce) call
+PLACED_SAMPLES, PLACED_SWEEP, PLACED_KIND = 4, ("lcd", "prob(0.5)", "admit", "prob(1.0)"), "plfu"
+#: the mixed tree on churn made on the card: plfua_dyn periods 3,000 and 4,500 make chunks of 1,500
+PLACED_MIXED = dict(kinds=("lru", "plfua_dyn", "plfua_dyn"), refresh=(0, 3_000, 4_500),
+                    placements=("lcd", "admit", "prob(0.5)"))
+#: depths, from the oracle on the CPU at seed 0 (PERF.md §4): PLACED_LEN is the least multiple of 500 at
+#: which, in every sample, every level of the admit and prob(1.0) runs evicts, the root of the lcd and
+#: prob(0.5) runs evicts, and every admit level turns a fill away (the last of them, admit's root, at
+#: 13,123); lcd's edges and regionals and prob(0.5)'s regionals evict at no depth up to 20,000. The gdsf run
+#: takes the first PLACED_BYTES_LEN requests of the same samples, where every level of it evicts and turns a
+#: fill away (from 5,316 on): its byte loop runs all of its 8 victims at every step (no host sync), about
+#: 6 times plfu's kernels a position. The mixed run is cut to 9,000, the least common multiple of its two
+#: periods (its levels refresh 3 and 2 times, both at its last position): its root would evict from about
+#: 18,500 on, and its regionals, under admit and a 2,400-id hot set, never fill.
+PLACED_LEN, PLACED_BYTES_LEN, PLACED_MIXED_LEN = 13_500, 5_500, 9_000
+#: per run: the levels that must evict in every sample, and the admit levels that must turn a fill away
+PLACED_EVICTING = {"lcd": (2,), "prob(0.5)": (2,), "admit": (0, 1, 2), "prob(1.0)": (0, 1, 2),
+                   "gdsf admit bytes": (0, 1, 2), "mixed": ()}
+PLACED_REFUSING = {"admit": (0, 1, 2), "gdsf admit bytes": (0, 1, 2)}
+
+
+def placed_topology(placements, kind=PLACED_KIND, **kw):
+    return fleet.tree(n_objects=FLEET_N, widths=FLEET_WIDTHS, kinds=kind, capacities=FLEET_CAPS, router="hash",
+                      placements=placements, **kw)
+
+
+def placed_cpu_run(topo, traces: np.ndarray, assignments: np.ndarray, sizes=None, window: int = 0) -> dict:
+    """The same placed call on the CPU (a CPU worker): numpy outputs."""
+    with torch.inference_mode():
+        tel = telemetry_spec.TelemetrySpec(window) if window else None
+        return to_numpy(fleet.simulate_fleet_batch(topo, traces, assignments, tel, sizes, device="cpu"))
+
+
+def refusals(label: str, out: dict) -> list:
+    """Per level, the fills each sample's admit gate turned away: from the fill offers of a run with
+    telemetry (misses minus offers), else the misses that were not filled (exact for plfu, which
+    admits every offered miss)."""
+    if "telemetry" in out:
+        idx = telemetry_spec.METRIC_INDEX
+        return [(s[..., idx["misses"]] - s[..., idx["fill_offers"]]).sum(dim=(1, 2)).cpu().numpy()
+                for s in out["telemetry"]]
+    require(label in PLACED_SWEEP, f"{label}: refusals need telemetry")
+    return [(t["requests"] - t["hits"] - t["inserts"]).sum(dim=1).cpu().numpy() for t in out["tiers"]]
+
+
+def hold_placed(label: str, out: dict, futures: list, cpu_future) -> list:
+    """A placed run: every sample equal to the oracle, the card equal to the CPU run, and the
+    run's caches working (PLACED_EVICTING, PLACED_REFUSING). Returns the refusals per level."""
+    host = to_numpy(out)
+    evictions = [t["evictions"].sum(axis=1) for t in host["tiers"]]
+    for l in PLACED_EVICTING[label]:
+        require(bool((evictions[l] > 0).all()), f"{label}: level {l} does not evict in every sample {evictions[l]}")
+    refused = refusals(label, out)
+    for l in PLACED_REFUSING.get(label, ()):
+        require(bool((refused[l] > 0).all()), f"{label}: admit level {l} turns no fill away {refused[l]}")
+    equal_to_oracle(label, host, futures)
+    require(same_tree(host, cpu_future.result()), f"{label}: the card != the CPU")
+    return [int(r.sum()) for r in refused]
+
+
+def placed_line(topo, out: dict, wall_s: float, device_s: float, prof: tuple, refused: list, card) -> str:
+    rep = fleet.fleet_report(topo, out)
+    return (f"{fleet_line(topo, out, wall_s, device_s, prof, card)} placement_energy_j={rep.placement_energy_j} "
+            f"turned_away_by_level={refused} kernels_per_position={prof[0].kernels / FLEET_PROFILE_LEN}")
+
+
+def placed_phase(pool, seed: int, card) -> dict:
+    """The time-major placed engine on the card: the placement sweep, gdsf under byte budgets with
+    admit, and the mixed tree on churn made on the card, each held to the oracle and the CPU;
+    prob(1.0) held to the level-major call. Returns the sweep's reports."""
+    t_phase = time.perf_counter()
+    traces = generators.stationary(FLEET_N, PLACED_SAMPLES, PLACED_LEN, seed=seed)
+    assignments = placed_topology("lcd").assignment(traces)
+    sizes = simulate.bytes_catalogue(FLEET_N)
+    bytes_topo = placed_topology("admit", kind="gdsf",
+                                 capacity_bytes=tuple(simulate.bytes_budget(sizes, c) for c in FLEET_CAPS))
+    runs = [(pl, placed_topology(pl), PLACED_LEN, {}) for pl in PLACED_SWEEP]
+    runs.append(("gdsf admit bytes", bytes_topo, PLACED_BYTES_LEN,
+                 dict(sizes=sizes, window=PLACED_BYTES_LEN // TEL_WINDOWS)))
+    cpu = {label: pool.submit(placed_cpu_run, topo, traces[:, :t_n], assignments[:, :t_n], **kw)
+           for label, topo, t_n, kw in runs}
+    oracles = {label: [pool.submit(fleet_oracle, topo, traces[s, :t_n], assignments[s, :t_n], kw.get("sizes"))
+                       for s in range(PLACED_SAMPLES)] for label, topo, t_n, kw in runs}
+
+    dev_traces = torch.as_tensor(traces, device="cuda")
+    dev_assign = torch.as_tensor(assignments, device="cuda")
+    reports = {}
+    for label, topo, t_n, kw in runs:
+        t0 = time.perf_counter()
+        call = {} if "sizes" not in kw else dict(sizes=kw["sizes"], telemetry=telemetry_spec.TelemetrySpec(kw["window"]))
+        out, wall_s, device_s = fleet_run(topo, dev_traces[:, :t_n], dev_assign[:, :t_n], **call)
+        prof = fleet_profile(topo, traces, assignments, f"placed_{label.replace(' ', '_')}", **call)
+        refused = hold_placed(label, out, oracles[label], cpu[label])
+        reports[label] = fleet.fleet_report(topo, out)
+        extra = ""
+        if label == "prob(1.0)":
+            lce, lce_wall_s, _ = fleet_run(placed_topology("lce"), dev_traces, dev_assign)
+            require(same_tree(to_numpy({k: out[k] for k in lce}), to_numpy(lce)), "prob(1.0) != the level-major lce call")
+            extra = f" equals_level_major_lce=True level_major_wall_s={lce_wall_s}"
+        print(f"[placed {label}] kind={topo.levels[0][0].kind} N={FLEET_N} widths={list(FLEET_WIDTHS)} "
+              f"capacities={list(FLEET_CAPS)} placements={list(topo.placements)} router=hash S={PLACED_SAMPLES} "
+              f"T={t_n} scenario=stationary {'sizes=lognormal budget=capacities x mean size ' if kw else ''}"
+              f"wall_s={wall_s} {placed_line(topo, out, wall_s, device_s, prof, refused, card)} oracle=exact "
+              f"equals_cpu=True{extra} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    lcd, lce = reports["lcd"], reports["prob(1.0)"]
+    print(f"[placed lcd_vs_lce] mgmt_saving={1 - lcd.mgmt_energy_j / lce.mgmt_energy_j} "
+          f"dchr={lcd.total_chr - lce.total_chr} lcd_mgmt_j={lcd.mgmt_energy_j} lce_mgmt_j={lce.mgmt_energy_j} "
+          f"lcd_placement_j={lcd.placement_energy_j} lce_placement_j={lce.placement_energy_j} "
+          f"(lce = the prob(1.0) run; reported, not gated) card={card.label!r}", flush=True)
+
+    # the mixed tree on churn made and routed on the card
+    t0 = time.perf_counter()
+    topo = placed_topology(PLACED_MIXED["placements"], kind=PLACED_MIXED["kinds"], refresh=PLACED_MIXED["refresh"])
+    dspec = device_workloads.DeviceTraceSpec("churn", FLEET_N, n_samples=PLACED_SAMPLES, trace_len=PLACED_MIXED_LEN,
+                                             seed=seed)
+    churn = device_workloads.make_traces_device(dspec, device="cuda")
+    churn_assign = router.route_device(churn, FLEET_WIDTHS[0], "hash")
+    host_churn, host_assign = churn.cpu().numpy(), churn_assign.cpu().numpy()
+    window = PLACED_MIXED_LEN // TEL_WINDOWS
+    cpu_mixed = pool.submit(placed_cpu_run, topo, host_churn, host_assign, window=window)
+    mixed_oracle = [pool.submit(fleet_oracle, topo, host_churn[s], host_assign[s]) for s in range(PLACED_SAMPLES)]
+    spec = telemetry_spec.TelemetrySpec(window)
+    out, wall_s, device_s = fleet_run(topo, churn, churn_assign, telemetry=spec)
+    refreshes = [int(s[..., telemetry_spec.METRIC_INDEX["refreshes"]].sum(dim=-1).min()) for s in out["telemetry"]]
+    want = [PLACED_MIXED_LEN // lvl[0].effective_refresh if lvl[0].kind == "plfua_dyn" else 0 for lvl in topo.levels]
+    require(refreshes == want, f"mixed: refreshes per node {refreshes}, on global time {want}")
+    prof = fleet_profile(topo, host_churn, host_assign, "placed_mixed", telemetry=spec)
+    refused = hold_placed("mixed", out, mixed_oracle, cpu_mixed)
+    print(f"[placed mixed] kinds={list(PLACED_MIXED['kinds'])} placements={list(topo.placements)} "
+          f"refresh={list(PLACED_MIXED['refresh'])} chunk={fleet.sim._dyn_chunk(topo)} "
+          f"traces=make_traces_device(churn) assignment=route_device(hash) S={PLACED_SAMPLES} T={PLACED_MIXED_LEN} "
+          f"refreshes_per_node_by_level={refreshes} wall_s={wall_s} "
+          f"{placed_line(topo, out, wall_s, device_s, prof, refused, card)} oracle=exact equals_cpu=True "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    print(f"[placed] elapsed_s={time.perf_counter() - t_phase:.3f}", flush=True)
+    return reports
+
+
+#: benchmarks/cdn_bench.py::cdn_hierarchy's full topology: 4 edges at 300 in front of a parent at 1,200,
+#: N = 10,000, hash router, on churn; 8 samples at the fleet phase's depth
+HIER_EDGES, HIER_EDGE_CAP, HIER_PARENT_CAP, HIER_KINDS = 4, 300, 1_200, ("plfua", "plfua_dyn", "tinylfu")
+
+
+def hierarchy_spec(kind: str):
+    return cdn.two_tier(kind, FLEET_N, n_edges=HIER_EDGES, edge_capacity=HIER_EDGE_CAP,
+                        parent_capacity=HIER_PARENT_CAP, router="hash")
+
+
+def hierarchy_oracle(kind: str, trace: np.ndarray, assignment: np.ndarray) -> dict:
+    """One sample through ``cdn.simulate_hierarchy_reference`` (a CPU worker)."""
+    ref = cdn.simulate_hierarchy_reference(hierarchy_spec(kind), trace, assignment)
+    edge_in, parent_in = ref.in_cache(FLEET_N)
+    return {"edge_hit": ref.edge_hit, "parent_hit": ref.parent_hit, "edge_in": edge_in, "parent_in": parent_in,
+            "edge_evictions": [p.evictions for p in ref.edges], "parent_evictions": ref.parent.evictions}
+
+
+def hierarchy_phase(pool, seed: int, card) -> None:
+    """The two-tier hierarchy on the card, each sample equal to its oracle."""
+    t_phase = time.perf_counter()
+    traces = generators.churn(FLEET_N, FLEET_SAMPLES, FLEET_LEN, seed=seed)
+    assignments = hierarchy_spec("plfua").assignment(traces)
+    oracles = {kind: [pool.submit(hierarchy_oracle, kind, traces[s], assignments[s]) for s in range(FLEET_SAMPLES)]
+               for kind in HIER_KINDS}
+    dev_traces, dev_assign = torch.as_tensor(traces, device="cuda"), torch.as_tensor(assignments, device="cuda")
+    total = {}
+    for kind in HIER_KINDS:
+        t0 = time.perf_counter()
+        hspec = hierarchy_spec(kind)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = cdn.simulate_hierarchy_batch(hspec, dev_traces, dev_assign, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t1
+        host = to_numpy(out)
+        for s, future in enumerate(oracles[kind]):
+            ref = future.result()
+            for key, got in (("edge_hit", host["edge_hit"][s]), ("parent_hit", host["parent_hit"][s]),
+                             ("edge_in", host["edge_states"]["in_cache"][s]),
+                             ("parent_in", host["parent_state"]["in_cache"][s]),
+                             ("edge_evictions", host["edge"]["evictions"][s]),
+                             ("parent_evictions", host["parent"]["evictions"][s])):
+                require(np.array_equal(got, ref[key]), f"hierarchy {kind}: sample {s} {key}")
+        require(int(host["parent"]["evictions"].sum()) > 0, f"hierarchy {kind}: the parent never evicted")
+        rep = cdn.hierarchy_report(hspec, out)
+        total[kind] = rep.total_chr
+        print(f"[hierarchy {kind}] edges={HIER_EDGES}x{HIER_EDGE_CAP} parent={HIER_PARENT_CAP} N={FLEET_N} router=hash "
+              f"scenario=churn S={FLEET_SAMPLES} T={FLEET_LEN} edge_chr={rep.edge_chr} parent_chr={rep.parent_chr} "
+              f"total_chr={rep.total_chr} origin={rep.origin_requests} "
+              f"edge_evictions={int(host['edge']['evictions'].sum())} "
+              f"parent_evictions={int(host['parent']['evictions'].sum())} mgmt_cpu_s={rep.mgmt_cpu_s} "
+              f"mgmt_energy_j={rep.mgmt_energy_j} wall_s={wall_s} ms_per_request={wall_s * 1e3 / traces.size} "
+              f"oracle=exact card={card.label!r} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    print(f"[hierarchy] churn_plfua_dyn_total_chr={total['plfua_dyn']} churn_plfua_total_chr={total['plfua']} "
+          f"plfua_dyn_minus_plfua={total['plfua_dyn'] - total['plfua']} (the reference's acceptance property; "
+          f"reported, not gated) elapsed_s={time.perf_counter() - t_phase:.3f}", flush=True)
+
+
 # -------------------------------------------------------------- serving path
 SERVE_ARCH = "smollm-360m"
 #: the reference launcher's traffic: 20 objects, 40 requests from zipf.sample_trace(20, 40, seed=1),
@@ -1360,6 +1599,58 @@ def serve_path(model, seed: int, card) -> dict:
           f"({prefills} prefills + {decode_steps} decode steps) cold_eq_warm=True "
           f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
     return by_instance, dict(chr=cache.stats.chr, mgmt_cpu_s=report["mgmt_time_s"])
+
+
+#: the fleet front: 2 edges -> 1 parent under lcd, 12 requests over 6 objects, the serve phase's prompts
+FRONT_OBJECTS, FRONT_REQUESTS, FRONT_TRACE_SEED = 6, 12, 4
+FRONT_TREE = dict(widths=(2, 1), kinds="lru", capacities=(2, 4), placements="lcd")
+
+
+def fleet_front(model, seed: int, card) -> None:
+    """smollm-360m behind ``FleetContentCache.from_topology``: the fleet's tier stats equal a model-free
+    replay of the same lookups and offers through a second front on the host, and every hit generates
+    its object's first, missed serve's tokens; the flash counts set to 0 just before and read after."""
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 2)
+    prompts = {i: rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32) for i in range(FRONT_OBJECTS)}
+    trace = zipf.sample_trace(FRONT_OBJECTS, FRONT_REQUESTS, seed=FRONT_TRACE_SEED)
+    reqs = [serving.Request(int(x), prompts[int(x)], SERVE_NEW) for x in trace]
+    topo = fleet.tree(n_objects=FRONT_OBJECTS, **FRONT_TREE)
+    front = serving.FleetContentCache.from_topology(topo)
+    engine = serving.ServeEngine(model, SERVE_CACHE_LEN, content_cache=front)
+    torch.cuda.synchronize()
+    for instance in flash.LAUNCHES:
+        flash.LAUNCHES[instance] = 0
+    out = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    wall_s = time.perf_counter() - t0
+    replay = serving.FleetContentCache.from_topology(topo)
+    for x in trace.tolist():
+        if replay.lookup(int(x)) is None:
+            replay.offer(int(x), int(x))
+    counts = lambda tiers: {name: (s.hits, s.misses, s.inserts, s.evictions) for name, s in tiers.items()}
+    require(counts(front.tier_stats()) == counts(replay.tier_stats()),
+            f"fleet front {counts(front.tier_stats())} != its replay {counts(replay.tier_stats())}")
+    first = {}
+    for r in out:
+        if not r.prefill_skipped:
+            first.setdefault(r.obj_id, r.new_tokens)
+    hits = [r for r in out if r.prefill_skipped]
+    require(bool(hits) and front.parent_fills > 0, f"the fleet front never served a hit from the parent: {out}")
+    require(all(r.new_tokens == first[r.obj_id] for r in hits), "a hit's tokens differ from its first serve's")
+    prefills = FRONT_REQUESTS - len(hits)
+    require(launches == {flash.INSTANCES[0]: cfg.n_layers * prefills,
+                         flash.INSTANCES[1]: cfg.n_layers * FRONT_REQUESTS * SERVE_NEW},
+            f"fleet front launches {launches}")
+    stats = front.stats
+    print(f"[fleet front] arch={cfg.name} topology=2 edges -> 1 parent {json.dumps(FRONT_TREE)} "
+          f"requests={FRONT_REQUESTS} objects={FRONT_OBJECTS} prompt={SERVE_PROMPT} max_new={SERVE_NEW} "
+          f"fleet_chr={stats.chr} hits={len(hits)} parent_fills={front.parent_fills} "
+          f"tier_stats={json.dumps(counts(front.tier_stats()))} tokens_saved={engine.stats.prefill_tokens_saved} "
+          f"launches={json.dumps(launches)} mgmt_time_s={stats.mgmt_time_s} tier_stats_equal_replay=True "
+          f"hit_tokens_equal_first_serve=True wall_s={wall_s:.3f} card={card.label!r}", flush=True)
 
 
 def serving_energy_line(model, served: dict, card) -> None:
@@ -1782,27 +2073,36 @@ def main() -> int:
     # 8. fleet: device traces, routers, the level-major fleet held to its oracle, the paper's CPU time
     fleet_phase(seed, card)
 
-    # 9. flash check: the attention kernel against its plain version, f32 products in full f32
+    # 9. placed and 10. hierarchy: the time-major placed engine and the two-tier hierarchy, held to
+    # their oracles in the CPU workers
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init) as pool:
+        placed_phase(pool, seed, card)
+        hierarchy_phase(pool, seed, card)
+
+    # 11. flash check: the attention kernel against its plain version, f32 products in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = flash_checks(seed)
 
-    # 10. serve: smollm-360m at full width behind the content cache, every attention call on the kernel
+    # 12. serve: smollm-360m at full width behind the content cache, every attention call on the kernel
     t0 = time.perf_counter()
     model = build(get_config(SERVE_ARCH), device="cuda").init(torch.Generator(device="cuda").manual_seed(seed))
     print(f"[serve] model built and initialised from seed {seed}: {model.n_params} parameters "
           f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
     by_instance, served = serve_path(model, seed, card)
     serving_energy_line(model, served, card)
+    # 13. fleet front: the same model behind the serving fleet front
+    fleet_front(model, seed, card)
 
-    # 11. serve check: the card against the plain path on the CPU, the same weights
+    # 14. serve check: the card against the plain path on the CPU, the same weights
     serve_check(model, seed)
 
-    # 12. measure: the kernel at the served shapes beside its bound, plain version and SDPA; the engine
+    # 15. measure: the kernel at the served shapes beside its bound, plain version and SDPA; the engine
     entries += flash_measure(seed, worst, by_instance, sms)
     serve_measure(model, seed, card)
 
-    # 13. kernels
+    # 16. kernels
     print(json.dumps({"kernels": entries}))
     print(f"[total] elapsed_s={time.perf_counter() - t_start:.3f}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

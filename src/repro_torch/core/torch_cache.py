@@ -202,8 +202,7 @@ def state_to_numpy(spec: PolicySpec, state: dict) -> dict:
 def _masked_argmin(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """argmin over the last dim of ``values`` where mask, lowest index on ties
     (``torch.argmin`` returns the first minimal index)."""
-    masked = torch.where(mask, values, torch.full_like(values, _I32_MAX))
-    return masked.argmin(dim=-1)
+    return torch.where(mask, values, _I32_MAX).argmin(dim=-1)
 
 
 def _i32(b: torch.Tensor) -> torch.Tensor:
@@ -218,8 +217,8 @@ class _Budget:
     row (``None`` = unit sizes), and the room-making that precedes an
     insert."""
 
-    def __init__(self, spec, sizes, x, cap_bytes):
-        self.spec, self.sizes = spec, sizes
+    def __init__(self, spec, sizes, x, cap_bytes, sync=True):
+        self.spec, self.sizes, self.sync = spec, sizes, sync
         self.size_x = _sz(sizes, x)
         self.cap_b = spec.capacity_bytes if cap_bytes is None else cap_bytes
 
@@ -230,21 +229,24 @@ class _Budget:
         whole budget evicts nothing. lfu and tinylfu zero each victim's key,
         and gdsf's ``credit`` ratchets to each victim's score. ``need``
         never turns back to true, so once no sample needs a victim the
-        reference's remaining iterations change nothing and are skipped."""
+        reference's remaining iterations change nothing and are skipped;
+        finding that out waits for the device, so with ``sync`` off every
+        iteration runs."""
         in_cache, count, nbytes = state["in_cache"], state["count"], state["bytes"]
         size_x, cap_b = self.size_x, self.cap_b
         want_fits = want & (size_x <= cap_b)
         for _ in range(self.spec.effective_max_victims):
             need = want_fits & (nbytes + size_x > cap_b) & (count > 0)
-            if not bool(need.any()):
+            if self.sync and not bool(need.any()):
                 break
             v = _masked_argmin(key, in_cache)
             kv = key[rows, v]
             if credit is not None:
-                credit.copy_(torch.where(need, kv, credit))
+                torch.where(need, kv, credit, out=credit)
             in_cache[rows, v] = in_cache[rows, v] & ~need
-            count -= _i32(need)
-            nbytes -= _i32(need) * _sz(self.sizes, v)
+            gone = _i32(need)
+            count -= gone
+            nbytes -= gone * _sz(self.sizes, v)
             if self.spec.kind in ("lfu", "tinylfu"):
                 key[rows, v] = torch.where(need, 0, kv)
 
@@ -414,7 +416,8 @@ def _arc_step(state, rows, x, cap, fill):
     return hit
 
 
-def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, sizes=None, cap_bytes=None):
+def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, sizes=None, cap_bytes=None, *,
+         sync=True):
     """One request per sample: ``x`` is ``(S,)`` ids, ``state`` batched.
     Updates ``state`` in place and returns ``(state, hit (S,) bool)``. The
     order of operations is the reference's.
@@ -427,7 +430,10 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, si
     size row shared by the samples (``None`` = unit sizes) and ``cap_bytes``
     overrides ``spec.capacity_bytes``; both are consulted only when
     ``spec.size_aware``. plfua_dyn's hot-set refresh is not a step: see
-    :func:`refresh_hot`."""
+    :func:`refresh_hot`. Under a byte budget the step asks the device after
+    each victim whether another is needed; ``sync=False`` runs the whole
+    ``effective_max_victims`` bound instead (the same result, no wait on
+    the device)."""
     in_cache, count = state["in_cache"], state["count"]
     dev = in_cache.device
     rows = arange(in_cache.shape[0], dev)
@@ -440,7 +446,7 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, si
         sizes = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
     if spec.capacity_bytes:
         cap_bytes = None if cap_bytes is None else torch.as_tensor(cap_bytes, device=dev)
-        budget = _Budget(spec, sizes, x, cap_bytes)
+        budget = _Budget(spec, sizes, x, cap_bytes, sync)
     else:
         budget = None
     if spec.kind == "wlfu":
@@ -459,7 +465,9 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, si
         admitted = state["hot"][rows, x]
     else:
         admitted = True
-    want = ~hit & admitted & fill
+    want = ~hit if admitted is True else ~hit & admitted
+    if fill is not True:
+        want = want & fill
     key = state["last"] if spec.kind == "lru" else state["score"] if spec.kind == "gdsf" else state["freq"]
     credit = state.get("L")
     if budget is not None:
@@ -485,7 +493,7 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, si
     else:
         # PLFU/PLFUA/GDSF: freq[x] of a non-cached object *is* the parked entry
         freq = state["freq"]
-        freq[rows, x] += hit | admitted
+        freq[rows, x] += 1 if admitted is True else hit | admitted
         if spec.kind == "gdsf":
             # every request touches, so x re-prices under the post-eviction
             # credit (int32: the shift and the floor division wrap and floor

@@ -1,5 +1,6 @@
-"""Fleet subsystem: declarative N-tier cache topologies, the level-major
-engine on the card, a pure-Python reference oracle, and per-tier reports.
+"""Fleet subsystem: declarative N-tier cache topologies, the level-major and
+placed engines on the card, a pure-Python reference oracle, and per-tier
+reports.
 
     from repro_torch import fleet, workloads
     topo = fleet.tree(n_objects=10_000, widths=(8, 2, 1),
@@ -10,11 +11,14 @@ engine on the card, a pure-Python reference oracle, and per-tier reports.
     out = fleet.simulate_fleet_batch(topo, traces, topo.assignment(traces))
     print(fleet.fleet_report(topo, out).rows())
 
-``routers=`` picks a router kind per level (sticky edges over hashed
-regionals, or the ``"tree"`` parent map). Topologies with a non-lce
-placement need the time-major placed engine, which is not ported yet
-(ROADMAP.md module 8); nor are the multi-device and streaming engines
-(modules 11 and 9).
+Cross-tier placement (``placements=`` per level: ``lce`` / ``lcd`` /
+``prob(p)`` / ``admit``, see :mod:`repro_torch.fleet.placement`) decides which
+tiers store a copy on the fill path; a topology with a non-lce placement runs
+the time-major placed engine. ``routers=`` picks a router kind per level
+(sticky edges over hashed regionals, or the ``"tree"`` parent map). The
+two-tier API in :mod:`repro_torch.cdn` is a wrapper over depth-2 topologies.
+The multi-device and streaming engines are not ported (ROADMAP.md modules 11
+and 9).
 """
 from repro_torch.fleet import placement
 from repro_torch.fleet.reference import FleetReferenceResult, build_policy, simulate_fleet_reference
@@ -28,11 +32,12 @@ from repro_torch.fleet.report import (
     placement_ops,
 )
 from repro_torch.fleet.sim import masked_scan, simulate_fleet, simulate_fleet_batch, tier_counters
-from repro_torch.fleet.topology import Topology, level_assignments, tree
+from repro_torch.fleet.topology import Topology, from_hierarchy, level_assignments, tree
 
 __all__ = [
     "Topology",
     "tree",
+    "from_hierarchy",
     "placement",
     "placement_ops",
     "level_assignments",

@@ -17,16 +17,18 @@ fill path; *placement* decides which of them store a copy:
                    the current victim's.
 
 Placement gates insertion only: a tier's policy metadata still sees every
-consulted request. The level-major fleet engine runs all-``lce`` topologies;
-the placed engine (ROADMAP.md module 8) is not ported yet, and with it the
-torch form of the placement hash. The pure-Python oracle
-(:mod:`repro_torch.fleet.reference`) uses this module on the host.
+consulted request. The level-major fleet engine runs all-``lce`` topologies,
+the time-major placed engine every other one; the placed engine draws the
+``prob(p)`` coins of a whole call at once (:func:`coin_table`, on torch
+tensors), the pure-Python oracle (:mod:`repro_torch.fleet.reference`) and the
+serving front one at a time on the host, bit-identical.
 """
 from __future__ import annotations
 
 import re
 
 import numpy as np
+import torch
 
 from repro_torch.core import sketch
 
@@ -36,6 +38,7 @@ __all__ = [
     "validate",
     "prob_fill",
     "fill_hash_u32",
+    "coin_table",
     "admit_params",
 ]
 
@@ -48,6 +51,11 @@ _PROB_RE = re.compile(r"^prob\(([0-9.eE+-]+)\)$")
 #: use in the repo (sketch buckets, bloom bits, routers).
 _T_SALT = 0x2545F491
 _LEVEL_SALT = 0x9E3779B9
+_U32 = 0xFFFFFFFF
+
+
+def _level_salt(level: int) -> int:
+    return ((level + 1) * _LEVEL_SALT) & _U32
 
 
 def parse(spec: str) -> tuple[str, float | None]:
@@ -79,31 +87,58 @@ def validate(spec: str) -> str:
 
 def fill_hash_u32(t, level: int):
     """Deterministic uint32 coin for the ``prob(p)`` placement at trace
-    position ``t`` (a scalar or an array), level ``level``: uint32 lowbias32
-    arithmetic, identical across processes and platforms."""
+    position ``t`` (a scalar, an array or a torch tensor), level ``level``:
+    uint32 lowbias32 arithmetic, identical across processes and platforms. A
+    tensor gives int64 values in ``[0, 2**32)`` on its device (torch's uint32
+    arithmetic is incomplete, so it computes in int64 masked to 32 bits, as
+    :func:`repro_torch.cdn.router.route_level` does), bit for bit numpy's."""
+    if isinstance(t, torch.Tensor):
+        key = (sketch._mul32((t.to(torch.int64) + 1) & _U32, _T_SALT)) ^ _level_salt(level)
+        return sketch._mix32_i64(key)
     u = np.uint32
     t_arr = np.asarray(t, np.uint32)
     scalar = t_arr.ndim == 0
     if scalar:
         t_arr = t_arr.reshape(1)  # array ops wrap silently; scalar ops warn
-    level_salt = ((level + 1) * _LEVEL_SALT) & 0xFFFFFFFF
     key = (t_arr + u(1)) * u(_T_SALT)
-    key = key ^ u(level_salt)
+    key = key ^ u(_level_salt(level))
     mixed = sketch._mix32(key)
     return mixed[0] if scalar else mixed
+
+
+def _threshold(p: float) -> int:
+    return int(round(float(p) * 4294967296.0))  # p * 2**32
 
 
 def prob_fill(t, level: int, p: float):
     """The ``prob(p)`` coin: True where the hash falls below ``p``'s
     threshold; ``p >= 1`` is constant True (== lce) and ``p <= 0`` constant
     False (== lcd's floor only)."""
-    thr = int(round(float(p) * 4294967296.0))  # p * 2**32
+    thr = _threshold(p)
     shape = np.shape(np.asarray(t))
     if thr >= 1 << 32:
         return np.ones(shape, bool) if shape else np.asarray(True)
     if thr <= 0:
         return np.zeros(shape, bool) if shape else np.asarray(False)
     return fill_hash_u32(t, level) < np.uint32(thr)
+
+
+def coin_table(placements, n_positions: int, device) -> torch.Tensor | None:
+    """Every ``prob(p)`` coin of a call: ``(L, n_positions)`` bool on
+    ``device``, row ``l`` the coins of level ``l`` at positions ``0 ..
+    n_positions - 1`` (:func:`prob_fill`'s), or ``None`` when no level
+    draws one. Levels of another placement, and the constant ends ``p >= 1``
+    and ``p <= 0``, which the placed engine keeps as constants, get rows of
+    False."""
+    parsed = [parse(p) for p in placements]
+    drawn = [l for l, (kind, p) in enumerate(parsed) if kind == "prob" and 0 < _threshold(p) < 1 << 32]
+    if not drawn:
+        return None
+    t = torch.arange(n_positions, dtype=torch.int64, device=device)
+    table = torch.zeros((len(parsed), n_positions), dtype=torch.bool, device=device)
+    for l in drawn:
+        table[l] = fill_hash_u32(t, l) < _threshold(parsed[l][1])
+    return table
 
 
 def admit_params(level_specs) -> tuple[int, int]:

@@ -11,9 +11,8 @@ Within one level every node shares ``kind`` / ``n_objects`` / ``window`` (a
 level's nodes step as one batch of state rows), but nodes may differ in
 ``capacity`` / ``capacity_bytes``, and different levels are fully independent
 (e.g. LRU edges over PLFU regionals over a TinyLFU root). :func:`tree` builds
-symmetric N-tier topologies in one call. ``from_hierarchy`` (a ``cdn``
-two-tier spec as a topology) waits for the port of ``cdn`` (ROADMAP.md
-module 10).
+symmetric N-tier topologies in one call, :func:`from_hierarchy` the depth-2
+topology of a :class:`repro_torch.cdn.HierarchySpec`.
 """
 from __future__ import annotations
 
@@ -24,7 +23,6 @@ import numpy as np
 
 import torch
 
-from repro_torch.cdn import router as router_mod
 from repro_torch.core import torch_cache
 from repro_torch.core.torch_cache import PolicySpec
 from repro_torch.fleet import placement as placement_mod
@@ -32,6 +30,7 @@ from repro_torch.fleet import placement as placement_mod
 __all__ = [
     "Topology",
     "ancestry_path",
+    "from_hierarchy",
     "level_assignments",
     "tree",
 ]
@@ -109,6 +108,9 @@ class Topology:
     routers: tuple[str, ...] = ()
 
     def __post_init__(self):
+        # the router comes in at call time: repro_torch.cdn imports this module (cdn.hierarchy)
+        from repro_torch.cdn import router as router_mod
+
         if not self.levels or any(not lvl for lvl in self.levels):
             raise ValueError("topology needs at least one non-empty level")
         if len(self.parents) != len(self.levels) - 1:
@@ -215,6 +217,8 @@ class Topology:
     def assignment(self, trace: np.ndarray, seed: int = 0) -> np.ndarray:
         """Route a (..., T) trace to edges (on the host, shared by the oracle
         and the fleet engine)."""
+        from repro_torch.cdn import router as router_mod
+
         return router_mod.route(
             trace, self.n_edges, self.router, session_len=self.session_len,
             seed=seed,
@@ -231,6 +235,8 @@ def level_assignments(topo: Topology, trace, assignment):
 
     The numpy and torch results are bit-identical: the fleet engine and the
     pure-Python oracle both call this, which keeps routed levels exact."""
+    from repro_torch.cdn import router as router_mod
+
     if isinstance(trace, torch.Tensor):
         outs = [torch.as_tensor(assignment, device=trace.device).to(torch.int32)]
         parent_map = lambda pmap: torch.as_tensor(pmap, dtype=torch.int32, device=trace.device)[outs[-1].long()]
@@ -327,4 +333,16 @@ def tree(
         levels=levels, parents=parents, router=router,
         session_len=session_len, level_names=tuple(level_names),
         placements=tuple(placements), routers=tuple(routers),
+    )
+
+
+def from_hierarchy(hspec) -> Topology:
+    """The depth-2 Topology of a :class:`repro_torch.cdn.HierarchySpec`: its
+    edges under its one parent, all-lce."""
+    return Topology(
+        levels=(tuple(hspec.edges), (hspec.parent,)),
+        parents=((0,) * len(hspec.edges),),
+        router=hspec.router,
+        session_len=hspec.session_len,
+        level_names=("edge", "parent"),
     )

@@ -10,8 +10,9 @@ Two differences from the reference, both from PyTorch's mutable tensors: the
 model carries its weights (``ServeEngine(model, cache_len, ...)``, no
 ``params``), and decode writes K/V into its cache in place, so the engine
 decodes on a copy of a cache that the content cache holds (a hit, or an
-admitted miss): a stored payload stays bit-unchanged for the next hit. On the card every attention
-call of prefill and decode runs the flash kernel.
+admitted miss): a stored payload stays bit-unchanged for the next hit. The content cache is a
+``ContentCache`` or a ``FleetContentCache``. On the card every attention call of prefill and
+decode runs the flash kernel.
 """
 from __future__ import annotations
 
@@ -74,20 +75,20 @@ class ServeEngine:
     # ------------------------------------------------------------- serving
     def _prefill_state(self, req: Request):
         """Content-cache-aware prefill: returns ((kv_cache, next_pos,
-        last_logits), skipped)."""
+        last_logits), skipped, held): ``held`` whether the content cache holds
+        the payload (a hit, or a miss some node stored)."""
         if self.content is not None:
             payload = self.content.lookup(req.obj_id)
             if payload is not None:
                 self.stats.prefill_tokens_saved += len(req.tokens)
-                return payload, True
+                return payload, True, True
         tokens = torch.as_tensor(np.asarray(req.tokens, np.int32), device=self.model.device)[None, :]
         logits, cache = self.model.prefill({"tokens": tokens}, self.cache_len)
         self.stats.prefill_tokens_computed += len(req.tokens)
         # a copy of the last row, so that the (1, S, V) logits are freed
         payload = (cache, len(req.tokens), logits[:, -1, :].clone())
-        if self.content is not None:
-            self.content.offer(req.obj_id, payload)
-        return payload, False
+        held = self.content is not None and self.content.offer(req.obj_id, payload)
+        return payload, False, held
 
     def generate(self, req: Request) -> Result:
         """Greedy decode for one request (B=1 reference path)."""
@@ -96,7 +97,7 @@ class ServeEngine:
             if self.telemetry is not None
             else None
         )
-        state, skipped = self._prefill_state(req)
+        state, skipped, held = self._prefill_state(req)
         cache, pos, last_logits = state
         if pre is not None:
             s = self.content.stats
@@ -111,7 +112,7 @@ class ServeEngine:
                     sz * int(not skipped),
                 )
             )
-        if self.content is not None and self.content.peek(req.obj_id) is state:
+        if held:
             # decode writes in place: keep the payload the content cache holds intact
             cache = {name: c.clone() for name, c in cache.items()}
         out = []

@@ -11,8 +11,9 @@
 * **profile** — with ``profile_dir``, one more untimed call runs under
   ``torch.profiler`` after the timed ones (the counterpart of the
   reference's ``jax.profiler.trace``), writing a Chrome trace into the
-  directory; :class:`DeviceTrace` summarises the device's kernels in it and
-  the share of their span in which no kernel ran.
+  directory (on the card its CUDA activity only); :class:`DeviceTrace`
+  summarises the device's kernels in it and the share of their span in
+  which no kernel ran.
 
 ``Timing.j_per_step`` prices the measured device time at the card's power
 limit (:func:`repro_torch.core.energy.device_energy_j`), an upper bound on the
@@ -67,25 +68,29 @@ def _busy_and_span(intervals: list[tuple[float, float]]) -> tuple[float, float]:
 
 
 def profile(fn, *args, profile_dir, **kwargs) -> DeviceTrace:
-    """Run ``fn(*args, **kwargs)`` once under ``torch.profiler`` (CPU and,
-    where there is a card, CUDA activity) and write its Chrome trace to
-    ``profile_dir/trace.json``. Kernels launched by the port's own libraries
-    are traced too: CUPTI records every kernel on the device."""
+    """Run ``fn(*args, **kwargs)`` once under ``torch.profiler`` and write its
+    Chrome trace to ``profile_dir/trace.json``. Where there is a card it
+    records CUDA activity only (the kernels and the runtime calls that launch
+    them): recording every host op too slows the host several times over, which
+    inflates the idle share it measures and costs seconds a call. Elsewhere it
+    records the host's ops. Kernels launched by the port's own libraries are
+    traced too: CUPTI records every kernel on the device."""
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    activity = torch.profiler.ProfilerActivity
+    activities = [activity.CUDA if torch.cuda.is_available() else activity.CPU]
     with torch.profiler.profile(activities=activities) as prof:
         fn(*args, **kwargs)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     path = out / "trace.json"
     prof.export_chrome_trace(str(path))
-    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
-               if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
-    busy_us, span_us = _busy_and_span(kernels)
-    return DeviceTrace(path=path, kernels=len(kernels), busy_s=busy_us / 1e6, span_s=span_us / 1e6)
+    # the raw kineto events: ``prof.events()`` builds a Python event tree first, which costs about a
+    # millisecond a kernel (minutes for a call of a few hundred thousand launches)
+    kernels = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and e.end_ns() > e.start_ns()]
+    busy_ns, span_ns = _busy_and_span(kernels)
+    return DeviceTrace(path=path, kernels=len(kernels), busy_s=busy_ns / 1e9, span_s=span_ns / 1e9)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -730,3 +730,56 @@ def test_device_generators_on_the_card(cuda_device, scenario):
     else:
         share = (tr < 40).mean()
     assert share > 0.25
+
+
+# ------------------------------------------------------ the placed engine
+@pytest.mark.cuda
+@pytest.mark.parametrize("placements,kind,kw", [
+    ("lcd", "plfu", {}),
+    ("admit", "arc", {}),
+    ("prob(0.5)", "tinylfu", {}),
+    (("lcd", "admit", "prob(0.5)"), ("lru", "plfua_dyn", "plfua_dyn"), dict(refresh=(0, 150, 225))),
+    ("admit", "gdsf", dict(capacity_bytes=tuple(int(c * FLEET_BYTES.mean()) for c in (4, 9, 23)))),
+])
+def test_placed_fleet_on_the_card_equals_the_cpu(cuda_device, placements, kind, kw):
+    """The time-major placed engine on the card gives the CPU's results exactly, placement
+    sketches and grouped telemetry included (tests/test_torch_placement.py's size)."""
+    from repro_torch import fleet, telemetry
+
+    topo = _fleet_topo(kind, placements=placements, **kw)
+    assert topo.has_placement
+    traces = generators.multi_tenant(128, 2, 900, seed=31, n_tenants=4)
+    assignments = topo.assignment(traces)
+    args = (topo, traces, assignments, telemetry.TelemetrySpec(100, 4), FLEET_BYTES, generators.tenant_groups(128, 4))
+    got = fleet.simulate_fleet_batch(*args, device=cuda_device)
+    _same_tree(got, fleet.simulate_fleet_batch(*args, device="cpu"))
+    assert int(sum(t["evictions"].sum() for t in got["tiers"])) > 0
+
+
+@pytest.mark.cuda
+def test_coin_table_on_the_card_equals_numpy(cuda_device):
+    from repro_torch.fleet import placement
+
+    pls = ("prob(0.5)", "lcd", "prob(0.01)", "prob(0.99)")
+    table = placement.coin_table(pls, 1 << 20, cuda_device)
+    assert table.is_cuda and table.shape == (4, 1 << 20)
+    t = np.arange(1 << 20)
+    for l, pl in enumerate(pls):
+        kind, p = placement.parse(pl)
+        want = placement.prob_fill(t, l, p) if kind == "prob" else np.zeros(t.size, bool)
+        np.testing.assert_array_equal(table[l].cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plfua", "plfua_dyn", "tinylfu"])
+def test_hierarchy_on_the_card_equals_the_cpu(cuda_device, kind):
+    from repro_torch import cdn
+
+    hspec = cdn.two_tier(kind, 128, n_edges=4, edge_capacity=7, parent_capacity=24,
+                         refresh=150 if kind == "plfua_dyn" else 0)
+    traces = generators.churn(128, 3, 1_000, seed=13)
+    assignments = hspec.assignment(traces)
+    got = cdn.simulate_hierarchy_batch(hspec, traces, assignments, device=cuda_device)
+    _same_tree(got, cdn.simulate_hierarchy_batch(hspec, traces, assignments, device="cpu"))
+    rep = cdn.hierarchy_report(hspec, got)
+    assert rep.n_requests == 3_000 and 0.0 < rep.total_chr <= 1.0

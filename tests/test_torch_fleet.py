@@ -211,18 +211,6 @@ def test_ungrouped_telemetry_matches_reference():
     assert out["telemetry"][0].shape == (4, 16, telemetry.N_METRICS)
 
 
-def test_placed_topology_is_not_run():
-    """lcd needs the placed engine (ROADMAP.md module 8): the level-major
-    engine refuses it rather than ignore the placement."""
-    topo = _topo3(fleet, "lru", placements="lcd")
-    assert topo.has_placement
-    trace = workloads.make_traces("stationary", N, 1, 200, seed=1)[0]
-    with pytest.raises(NotImplementedError, match="module 8"):
-        fleet.simulate_fleet(topo, trace, topo.assignment(trace), device="cpu")
-    with pytest.raises(NotImplementedError, match="module 8"):
-        fleet.simulate_fleet_batch(topo, trace[None], topo.assignment(trace)[None], device="cpu")
-
-
 def test_fleet_report_reads_the_port_result():
     """fleet_report over the port's result equals the reference's over its own."""
     topo, ref_topo = _topo3(fleet, "plfua"), _topo3(ref_fleet, "plfua")

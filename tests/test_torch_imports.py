@@ -48,7 +48,10 @@ def test_port_files_exist():
                   "fleet/report.py", "telemetry/latency.py", "telemetry/oracle.py", "telemetry/export.py",
                   "telemetry/dashboard.py", "core/simulate.py", "core/energy.py"):
         assert f"src/repro_torch/{entry}" in names, entry
-    assert len(names) >= 53
+    # the placed engine's slice: the two-tier hierarchy, its oracle and report, the serving fleet front
+    for entry in ("cdn/hierarchy.py", "cdn/reference.py", "cdn/report.py", "serving/fleet_cache.py"):
+        assert f"src/repro_torch/{entry}" in names, entry
+    assert len(names) >= 57
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
