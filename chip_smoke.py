@@ -57,8 +57,10 @@ caches. Phases, one line each (or one line per item):
              links' places. With unit
              sizes and capacity_bytes == capacity each byte program must give
              the object-count program's outputs. The plain version runs on the
-             card for N > 10,000 and in CPU worker processes, overlapping the
-             card's work, for N <= 10,000.
+             card for N > 10,000 (the program checks' in four card worker
+             processes, beside the shard phase's world, 10b; the telemetry
+             checks' in the main process, alone on the card) and in CPU
+             worker processes for N <= 10,000, overlapping the card's work.
 4. grid    — ``simulate.run_grid``: the paper's 60 cases x 12 samples x 100,000
              requests for the seven object-count kinds, gdsf with the
              byte-capacity catalogue, arc, and gdsf under the byte budget, and
@@ -156,6 +158,35 @@ caches. Phases, one line each (or one line per item):
              ``cdn.simulate_hierarchy_reference`` (CPU workers), the parent
              evicting; ``hierarchy_report``'s edge, parent and total CHR and
              management J; plfua_dyn's total CHR against plfua's (not gated).
+10a. stream — the streaming engine (``fleet.FleetStream``): the fleet
+             phase's lru, plfua_dyn churn (+telemetry, refreshes inside chunks
+             on gcd sub-chunks) and tinylfu grouped runs (sample 0, T =
+             20,000) as 8 chunks of 2,500, and the placed phase's plfu admit run
+             (sample 0, T = 13,500) as 9 chunks of 1,500, each bit for bit its
+             bounded call's sample 0 (hits, node hits, counters, states, origin
+             misses, stitched series) and equal to that sample's oracle; the
+             fast compact-lane rows of ``benchmarks/stream_bench.py`` (lru and
+             tinylfu at N = 2**16, capacity 2**12, 24 chunks of 1,024, seeds 40
+             and 41; plfua_dyn with a refresh of 4 chunks) through
+             ``stream_fleet`` (the next chunk generated on a side CUDA stream),
+             each equal to the cache_sim program on its concatenated chunks
+             (hits, ``in_cache``, freq or stamps, inserts), lru and tinylfu
+             evicting; the acceptance width (N = 2**20, capacity 2**16, 8
+             chunks of 2,048) timed, and the 10**8-request row extrapolated
+             from it. Each line: ms a chunk, µs a request, requests/s, kernels
+             a chunk and the idle share over the first chunk (``torch.profiler``,
+             CUDA activity only), J a request (the CPU-core model, and at the
+             power limit, an upper bound).
+10b. shard — a gloo world of 2 ranks (``python3 chip_smoke.py --shard-rank R``,
+             ``init_method=file://build/shard/init``, each rank on cuda:0, a
+             card operand of a collective staged through the host) started
+             beside phase 3's program checks under a 420 s deadline that kills it: the
+             edge-sharded level-major run (plfu, the fleet phase's sample 0),
+             the edge-sharded placed run (plfu admit, the placed phase's sample
+             0; one all-reduce a position) and the sample-sharded run (plfua_dyn
+             on the fleet phase's churn, 4 samples a rank), every rank's whole
+             result bit for bit the single-process call's. One card shows only
+             that the paths are correct.
 11. flash check — the flash kernel against its plain version (the naive
              oracle, query rows in chunks of 1,024) on the card, TF32 off, each
              case in float32 (atol = rtol = 2e-5) and bfloat16 (atol 1e-4,
@@ -219,6 +250,7 @@ import dataclasses
 import json
 import math
 import multiprocessing
+import os
 import shutil
 import subprocess
 import sys
@@ -294,6 +326,13 @@ ZERO_CAPACITY_KINDS = ("wlfu", "tinylfu", "plfua_dyn", "arc")
 # the largest N whose plain version runs in a CPU worker, not on the card
 CPU_PLAIN_MAX_N = 10_000
 CPU_WORKERS = 6
+#: the CPU workers' niceness: while the check phase runs the card workers and the shard world on
+#: the host's 8 cores, the CPU workers, whose plain runs are compared only after the grid, take
+#: what is left
+CPU_WORKER_NICE = 10
+#: processes that run the larger checks' plain versions on the card, beside the main process (each
+#: plain run is bound by its host's launches, one core a process)
+CARD_PLAIN_WORKERS = 4
 SCAN_KW = dict(n_sweeps=6, sweep_len_frac=0.06)  # benchmarks/scan_bench.py's full setting
 SCAN_N, SCAN_CAP, SCAN_SAMPLES, SCAN_LEN, SCAN_SEED = 6_000, 300, 8, 50_000, 33
 SCAN_KINDS = (("lru", {}), ("lfu", {}), ("arc", {}), ("tinylfu", dict(doorkeeper=256)))
@@ -420,8 +459,20 @@ def option_text(spec, sizes_dist: str | None = None) -> str:
 
 
 # ------------------------------------------------------------------ CPU workers
-def _worker_init() -> None:
+def host_cpu() -> str:
+    """The host's CPU as ``/proc/cpuinfo`` shows its first core (vendor, family, model, MHz; a virtual
+    machine may hide the model name) and its core count: the script's times are the host's launches,
+    so a whole run's time is read beside it."""
+    first = Path("/proc/cpuinfo").read_text().split("\n\n")[0]
+    info = {k.strip(): v.strip() for k, _, v in (line.partition(":") for line in first.splitlines())}
+    return (f"{info.get('vendor_id')} family {info.get('cpu family')} model {info.get('model')} "
+            f"({info.get('model name')}) {info.get('cpu MHz')} MHz x {os.cpu_count()}")
+
+
+def _worker_init(nice: int = 0) -> None:
     torch.set_num_threads(1)
+    if nice:
+        os.nice(nice)
 
 
 def plain(traces: torch.Tensor, **kw) -> dict:
@@ -437,6 +488,12 @@ def cpu_plain(traces: np.ndarray, kw: dict) -> dict:
     return {k: v.numpy() for k, v in outs.items()}
 
 
+def card_plain(traces: np.ndarray, kw: dict) -> dict:
+    """The plain version on the card (a card worker process, untimed: it shares the card): numpy
+    outputs."""
+    return {k: v.cpu().numpy() for k, v in plain(torch.as_tensor(traces, device="cuda"), **kw).items()}
+
+
 def cpu_grid_case(kind: str, options: str, seed: int) -> tuple:
     """The smallest grid case of a row through the plain version on the CPU."""
     kw = {"": {}, "sized": SIZED, "bytes": BUDGET}[options]
@@ -447,12 +504,15 @@ def cpu_grid_case(kind: str, options: str, seed: int) -> tuple:
 
 class Checks:
     """Kernel runs on the card, each held to the plain version: on the card
-    at once, or in a CPU worker (small N) and compared when it comes back."""
+    in a card worker while there is a ``card_pool`` (the main process goes on
+    with the next check), else at once; or in a CPU worker (small N);
+    compared when it comes back."""
 
-    def __init__(self, pool, seed: int):
-        self.pool, self.seed = pool, seed
+    def __init__(self, pool, seed: int, card_pool):
+        self.pool, self.seed, self.card_pool = pool, seed, card_pool
         self.worst = dict.fromkeys(kernel.INSTANCES, 0)
         self.pending = []
+        self.pending_card = []
         self.count = 0
         self.plain_ms = {}  # instance -> (ms, T) of its last plain run on the card
 
@@ -487,6 +547,9 @@ class Checks:
         if n <= CPU_PLAIN_MAX_N:
             future = self.pool.submit(cpu_plain, traces, kw)
             self.pending.append((future, got, program, line + " plain=cpu", what, t1))
+        elif self.card_pool is not None:
+            future = self.card_pool.submit(card_plain, traces, kw)
+            self.pending_card.append((future, got, program, line + " plain=card_worker", what, t1))
         else:
             want, ms = cuda_ms(lambda: plain(torch.as_tensor(traces, device="cuda"), **kw))
             self.plain_ms[program] = (ms, trace_len)
@@ -499,11 +562,19 @@ class Checks:
         require(err == 0, f"kernel != plain version: {what}")
         self.worst[program] = max(self.worst[program], err)
 
-    def finish(self) -> None:
-        """Wait for the CPU workers' plain runs and compare them."""
-        for future, got, program, line, what, t1 in self.pending:
+    def finish_card(self) -> None:
+        """Wait for the card workers' plain runs and compare them; later checks run their plain
+        version in the main process, alone on the card."""
+        self.finish(self.pending_card)
+        self.pending_card = []
+        self.card_pool = None
+
+    def finish(self, pending=None) -> None:
+        """Wait for the workers' plain runs (the CPU workers' by default) and compare them."""
+        for future, got, program, line, what, t1 in self.pending if pending is None else pending:
             self.compare(got, future.result(), program, line, what, t1)
-        self.pending = []
+        if pending is None:
+            self.pending = []
 
 
 def same_outputs(a: dict, b: dict) -> bool:
@@ -1053,12 +1124,22 @@ def router_checks(seed: int) -> None:
                   f"ms={ms} bit_identical=True load_min={counts.min()} load_max={counts.max()}", flush=True)
 
 
-def fleet_phase(seed: int, card) -> None:
+def row0(out: dict) -> dict:
+    """Sample 0 of a batched fleet result: the single-sample result of its trace."""
+    return fleet.sim._map(lambda v: v[0], out)
+
+
+def fleet_phase(seed: int, card) -> dict:
     """The fleet phase: device traces, routers, the level-major fleet for every kind held to the
-    oracle, plfua_dyn on device-made churn, tinylfu with grouped telemetry, and the paper's CPU time."""
+    oracle, plfua_dyn on device-made churn, tinylfu with grouped telemetry, and the paper's CPU time.
+    Returns what the stream and shard phases reuse: sample 0's trace, assignment, bounded result and
+    oracle result of the lru, plfu, plfua_dyn churn and tinylfu grouped runs, and the churn run's
+    whole batch."""
     t_phase = time.perf_counter()
+    keep = {}
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init) as pool:
+    with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init,
+                                                initargs=(CPU_WORKER_NICE,)) as pool:
         # the two CPU runs first (the longest jobs), then the oracles, all overlapping the card's work
         tenants = generators.multi_tenant(FLEET_N, FLEET_SAMPLES, FLEET_LEN, seed=seed, n_tenants=TEL_GROUPS)
         tenant_assign = fleet_topology(FLEET_TEL_KIND).assignment(tenants)
@@ -1066,6 +1147,7 @@ def fleet_phase(seed: int, card) -> None:
         window = FLEET_LEN // TEL_WINDOWS
         cpu_grouped = pool.submit(fleet_cpu_run, FLEET_TEL_KIND, tenants, tenant_assign, window, TEL_GROUPS, groups)
         cpu_flat = pool.submit(fleet_cpu_run, FLEET_TEL_KIND, tenants, tenant_assign, window, 0, groups)
+        tenant_oracle = pool.submit(fleet_oracle, FLEET_TEL_KIND, tenants[0], tenant_assign[0])
         traces = generators.stationary(FLEET_N, FLEET_SAMPLES, FLEET_LEN, seed=seed)
         assignments = fleet_topology("lru").assignment(traces)
         oracles = {kind: [pool.submit(fleet_oracle, kind, traces[s], assignments[s]) for s in range(FLEET_SAMPLES)]
@@ -1082,6 +1164,9 @@ def fleet_phase(seed: int, card) -> None:
             out, wall_s, device_s = fleet_run(topo, dev_traces, dev_assign)
             prof = fleet_profile(topo, traces, assignments, kind)
             hold_to_oracle(kind, kind, out, oracles[kind])
+            if kind in ("lru", "plfu"):
+                keep[kind] = dict(trace=traces[0], assignment=assignments[0], row=row0(out),
+                                  oracle=oracles[kind][0].result(), wall_s=wall_s)
             print(f"[fleet {kind}] N={FLEET_N} widths={list(FLEET_WIDTHS)} capacities={list(FLEET_CAPS)} router=hash "
                   f"S={FLEET_SAMPLES} T={FLEET_LEN} scenario=stationary wall_s={wall_s} "
                   f"{fleet_line(topo, out, wall_s, device_s, prof, card)} oracle=exact "
@@ -1105,6 +1190,9 @@ def fleet_phase(seed: int, card) -> None:
         require(refreshes == want, f"plfua_dyn's refreshes per node {refreshes}, on global time {want}")
         prof = fleet_profile(topo, host_churn, host_churn_assign, "plfua_dyn_churn")
         hold_to_oracle("plfua_dyn churn", "plfua_dyn", out, churn_oracle)
+        keep["plfua_dyn churn"] = dict(trace=host_churn[0], assignment=host_churn_assign[0], row=row0(out),
+                                       oracle=churn_oracle[0].result(), telemetry=spec, out=out,
+                                       traces=churn, assignments=churn_assign, wall_s=wall_s)
         print(f"[fleet plfua_dyn churn] traces=make_traces_device(churn) assignment=route_device(hash) "
               f"S={FLEET_SAMPLES} T={FLEET_LEN} refreshes_per_node_by_level={refreshes} (global time: "
               f"T // refresh = {want}) {fleet_line(topo, out, wall_s, device_s, prof, card)} "
@@ -1129,6 +1217,8 @@ def fleet_phase(seed: int, card) -> None:
         require(all(e > 0 for e in series_evictions) and sum(pressure) > 0,
                 f"tinylfu grouped: a level's series has no eviction {series_evictions}, or no pressure {pressure}")
         prof = fleet_profile(topo, tenants, tenant_assign, "tinylfu_grouped", telemetry=spec, groups=groups)
+        keep["tinylfu grouped"] = dict(trace=tenants[0], assignment=tenant_assign[0], row=row0(out),
+                                       oracle=tenant_oracle.result(), telemetry=spec, groups=groups, wall_s=wall_s)
         rep = fleet.fleet_report(topo, out, telemetry=spec)
         tenant_rows = rep.tenant_rows()
         print(f"[fleet {FLEET_TEL_KIND} grouped] traces=multi_tenant groups={TEL_GROUPS} W={window} S={FLEET_SAMPLES} "
@@ -1154,6 +1244,7 @@ def fleet_phase(seed: int, card) -> None:
               f"kernel_j_at_power_limit={energy.device_energy_j(ms / 1e3, card.power_limit_w)} hits_equal=True "
               f"card={card.label!r}", flush=True)
     print(f"[fleet] elapsed_s={time.perf_counter() - t_phase:.3f}", flush=True)
+    return keep
 
 
 # --------------------------------------------------------- the placed fleet engine
@@ -1224,10 +1315,12 @@ def placed_line(topo, out: dict, wall_s: float, device_s: float, prof: tuple, re
             f"turned_away_by_level={refused} kernels_per_position={prof[0].kernels / FLEET_PROFILE_LEN}")
 
 
-def placed_phase(pool, seed: int, card) -> dict:
+def placed_phase(pool, seed: int, card, keep: dict) -> dict:
     """The time-major placed engine on the card: the placement sweep, gdsf under byte budgets with
     admit, and the mixed tree on churn made on the card, each held to the oracle and the CPU;
-    prob(1.0) held to the level-major call. Returns the sweep's reports."""
+    prob(1.0) held to the level-major call. Returns the sweep's reports, and adds to ``keep`` sample
+    0 of the admit run (trace, assignment, bounded result, oracle result) for the stream and shard
+    phases."""
     t_phase = time.perf_counter()
     traces = generators.stationary(FLEET_N, PLACED_SAMPLES, PLACED_LEN, seed=seed)
     assignments = placed_topology("lcd").assignment(traces)
@@ -1252,6 +1345,9 @@ def placed_phase(pool, seed: int, card) -> dict:
         prof = fleet_profile(topo, traces, assignments, f"placed_{label.replace(' ', '_')}", **call)
         refused = hold_placed(label, out, oracles[label], cpu[label])
         reports[label] = fleet.fleet_report(topo, out)
+        if label == "admit":
+            keep["placed admit"] = dict(trace=traces[0, :t_n], assignment=assignments[0, :t_n], row=row0(out),
+                                        oracle=oracles[label][0].result(), wall_s=wall_s)
         extra = ""
         if label == "prob(1.0)":
             lce, lce_wall_s, _ = fleet_run(placed_topology("lce"), dev_traces, dev_assign)
@@ -1353,6 +1449,302 @@ def hierarchy_phase(pool, seed: int, card) -> None:
     print(f"[hierarchy] churn_plfua_dyn_total_chr={total['plfua_dyn']} churn_plfua_total_chr={total['plfua']} "
           f"plfua_dyn_minus_plfua={total['plfua_dyn'] - total['plfua']} (the reference's acceptance property; "
           f"reported, not gated) elapsed_s={time.perf_counter() - t_phase:.3f}", flush=True)
+
+
+# --------------------------------------------------------- the streaming fleet engine
+#: the fleet phase's runs (8 -> 2 -> 1, T = 20,000, sample 0) as 8 chunks of 2,500 (its window of 1,250
+#: divides a chunk), the placed phase's admit run (T = 13,500) as 9 chunks of 1,500
+STREAM_CHUNK, STREAM_PLACED_CHUNK = 2_500, 1_500
+STREAM_LEVEL_MAJOR = ("lru", "plfua_dyn churn", "tinylfu grouped")
+#: benchmarks/stream_bench.py's reduced rows (N = 2**16, capacity 2**12, 24 chunks of 1,024 on
+#: ``stationary``, seeds 40 and 41) and plfua_dyn with a refresh of 4 chunks (seed 42; 8 chunks, two
+#: refreshes: it admits only hot ids, fewer of which arrive than it has slots, so at this width it
+#: evicted in none of 24 chunks), through
+#: ``stream_fleet``: (kind, seed, options, chunks); the acceptance width (N = 2**20, capacity 2**16, chunks of 2,048) timed over 8
+#: chunks, the acceptance row's 100,001,792 requests extrapolated from it, not run
+STREAM_FAST_N, STREAM_FAST_CAP, STREAM_FAST_CHUNK = 1 << 16, 1 << 12, 1_024
+STREAM_FAST_ROWS = (("lru", 40, {}, 24), ("tinylfu", 41, {}, 24), ("plfua_dyn", 42, {"refresh": 4 * 1_024}, 8))
+STREAM_FULL_N, STREAM_FULL_CAP, STREAM_FULL_CHUNK, STREAM_FULL_CHUNKS = 1 << 20, 1 << 16, 2_048, 8
+STREAM_ACCEPT_REQUESTS = 100_001_792  # BENCH_PR10.json's fleet_stream/lru_flat_n1048576 (48,829 chunks)
+
+
+def done_future(value) -> concurrent.futures.Future:
+    future = concurrent.futures.Future()
+    future.set_result(value)
+    return future
+
+
+def stream_push(fs, trace, assignment, chunk_len: int) -> tuple:
+    """Push a card trace through ``fs`` chunk by chunk, the first chunk under ``timing.profile``
+    (CUDA activity only, no trace file): (each chunk's result, the host wall s of the other chunks to
+    the last one's end on the device, the first chunk's profile, the host s it took)."""
+    part = lambda c: (trace[c: c + chunk_len], None if assignment is None else assignment[c: c + chunk_len])
+    outs = []
+    t0 = time.perf_counter()
+    prof = timing.profile(lambda: outs.append(fs.push(*part(0))), profile_dir=None)
+    profile_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs += [fs.push(*part(c)) for c in range(chunk_len, trace.shape[0], chunk_len)]
+    fs.block()
+    return outs, time.perf_counter() - t0, prof, profile_s
+
+
+def stream_result(fs, outs) -> dict:
+    """A stream's run in ``simulate_fleet``'s single-sample layout."""
+    st = fs.stats()
+    res = {"hit": tuple(torch.cat([o["hit"][l] for o in outs]) for l in range(len(outs[0]["hit"]))),
+           "node_hit": tuple(torch.cat([o["node_hit"][l] for o in outs], dim=-1) for l in range(len(outs[0]["hit"]))),
+           "tiers": st.tiers, "states": fs.states(), "origin_miss": torch.cat([o["origin_miss"] for o in outs])}
+    if st.telemetry is not None:
+        res["telemetry"] = st.telemetry
+    if st.telemetry_pressure is not None:
+        res["telemetry_pressure"] = st.telemetry_pressure
+    return res
+
+
+def hold_stream(label: str, res: dict, kept: dict) -> None:
+    """A stream run bit for bit the bounded call's sample 0 (every key the stream returns) and
+    equal to that sample's oracle."""
+    want = {k: kept["row"][k] for k in res}
+    require(same_tree(to_numpy(res), to_numpy(want)), f"stream {label}: != the bounded call's sample 0")
+    host = fleet.sim._map(lambda v: v[None], to_numpy({k: res[k] for k in ("hit", "states", "tiers", "origin_miss")}))
+    equal_to_oracle(f"stream {label}", host, [done_future(kept["oracle"])])
+
+
+def stream_line(requests: int, chunks: int, wall_s: float, prof, profile_s: float, card) -> str:
+    """A stream line's times over ``chunks`` timed chunks of ``requests`` requests in ``wall_s``."""
+    return (f"ms_per_chunk={wall_s * 1e3 / chunks} us_per_request={wall_s * 1e6 / requests} "
+            f"requests_per_s={requests / wall_s} kernels_per_chunk={prof.kernels} "
+            f"idle_share_first_chunk={prof.idle_share} profile_s={profile_s:.3f} "
+            f"j_per_step={energy.mgmt_energy_j(wall_s) / requests} (core.energy's CPU-core model over the wall "
+            f"clock) j_per_request_at_power_limit_upper_bound={card.power_limit_w * wall_s / requests} "
+            f"card={card.label!r}")
+
+
+def stream_profile(make, push_args: tuple) -> tuple:
+    """(trace, host s) of a fresh stream's first chunk under ``timing.profile`` (CUDA activity only,
+    no trace file)."""
+    t0 = time.perf_counter()
+    fs = make()
+    trace = timing.profile(fs.push, *push_args, profile_dir=None)
+    return trace, time.perf_counter() - t0
+
+
+def fast_topology(kind: str, n: int, cap: int, opts: dict):
+    return fleet.tree(n_objects=n, widths=(1,), kinds=kind, capacities=cap, **{k: (v,) for k, v in opts.items()})
+
+
+def fast_row(kind: str, seed: int, opts: dict, n: int, cap: int, chunk_len: int, n_chunks: int, card) -> tuple:
+    """One fast row through ``stream_fleet`` (double-buffered generation): (stats, the stream, its
+    first chunk's profile and profile s)."""
+    cfg = fleet.StreamConfig(topo=fast_topology(kind, n, cap, opts), chunk_len=chunk_len, fast=True)
+    dspec = device_workloads.DeviceTraceSpec("stationary", n, n_samples=1, trace_len=chunk_len, seed=seed)
+    fs = fleet.FleetStream(cfg, device="cuda")
+    st = fleet.stream_fleet(cfg, dspec, n_chunks, device="cuda", stream=fs)
+    first = device_workloads.gen_stream_chunk(dspec, 0, 0, device="cuda")
+    prof, profile_s = stream_profile(lambda: fleet.FleetStream(cfg, device="cuda"), (first,))
+    return st, fs, dspec, prof, profile_s
+
+
+def stream_phase(keep: dict, card) -> None:
+    """The streaming engine on the card: the fleet phase's runs as chunks (level-major), the placed
+    phase's admit run as chunks (placed), each bit for bit the bounded call's sample 0 and equal to
+    its oracle; the fast rows through ``stream_fleet``, each equal to the cache_sim program on the
+    concatenated chunks; the acceptance width timed."""
+    t_phase = time.perf_counter()
+    for label in STREAM_LEVEL_MAJOR:
+        t0 = time.perf_counter()
+        kept = keep[label]
+        kind = label.split()[0]
+        topo = fleet_topology(kind)
+        tel = kept.get("telemetry")
+        cfg = fleet.StreamConfig(topo=topo, chunk_len=STREAM_CHUNK, telemetry=tel)
+        kw = dict(groups=kept["groups"]) if "groups" in kept else {}
+        trace = torch.as_tensor(kept["trace"], device="cuda")
+        assignment = torch.as_tensor(kept["assignment"], device="cuda")
+        fs = fleet.FleetStream(cfg, device="cuda", **kw)
+        outs, wall_s, prof, profile_s = stream_push(fs, trace, assignment, STREAM_CHUNK)
+        res = stream_result(fs, outs)
+        hold_stream(label, res, kept)
+        st = fs.stats()
+        evictions = [int(t["evictions"].sum()) for t in st.tiers]
+        sub = [fleet.stream._sub_len(lvl[0], STREAM_CHUNK) for lvl in topo.levels]
+        print(f"[stream level-major {label}] N={FLEET_N} widths={list(FLEET_WIDTHS)} capacities={list(FLEET_CAPS)} "
+              f"T={FLEET_LEN} chunk={STREAM_CHUNK} chunks={st.chunks} refresh_sub_chunks={sub} "
+              f"telemetry={None if tel is None else (tel.window, tel.n_groups)} total_chr={st.total_chr} "
+              f"evictions_by_level={evictions} origin_misses={st.origin_misses} "
+              f"{stream_line(st.requests - STREAM_CHUNK, st.chunks - 1, wall_s, prof, profile_s, card)} "
+              f"(chunks 2 to {st.chunks} timed, the first profiled) bounded_wall_s_{FLEET_SAMPLES}_samples="
+              f"{kept['wall_s']} equals_bounded=True oracle=exact "
+              f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    # the placed engine's admit run as chunks
+    t0 = time.perf_counter()
+    kept = keep["placed admit"]
+    topo = placed_topology("admit")
+    cfg = fleet.StreamConfig(topo=topo, chunk_len=STREAM_PLACED_CHUNK)
+    trace = torch.as_tensor(kept["trace"], device="cuda")
+    assignment = torch.as_tensor(kept["assignment"], device="cuda")
+    fs = fleet.FleetStream(cfg, device="cuda")
+    outs, wall_s, prof, profile_s = stream_push(fs, trace, assignment, STREAM_PLACED_CHUNK)
+    hold_stream("placed admit", stream_result(fs, outs), kept)
+    st = fs.stats()
+    timed = st.requests - STREAM_PLACED_CHUNK
+    print(f"[stream placed admit] kind={PLACED_KIND} N={FLEET_N} widths={list(FLEET_WIDTHS)} T={trace.shape[0]} "
+          f"chunk={STREAM_PLACED_CHUNK} chunks={st.chunks} total_chr={st.total_chr} "
+          f"evictions_by_level={[int(t['evictions'].sum()) for t in st.tiers]} origin_misses={st.origin_misses} "
+          f"ms_per_position={wall_s * 1e3 / timed} kernels_per_position={prof.kernels / STREAM_PLACED_CHUNK} "
+          f"{stream_line(timed, st.chunks - 1, wall_s, prof, profile_s, card)} (chunks 2 to {st.chunks} timed, "
+          f"the first profiled) bounded_wall_s_{PLACED_SAMPLES}_samples={kept['wall_s']} equals_bounded=True "
+          f"oracle=exact "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    # the fast rows, each held to the cache_sim program on its concatenated chunks
+    fast_ms = {}
+    for kind, seed, opts, n_chunks in STREAM_FAST_ROWS:
+        t0 = time.perf_counter()
+        n, cap, g_n = STREAM_FAST_N, STREAM_FAST_CAP, STREAM_FAST_CHUNK
+        st, fs, dspec, prof, profile_s = fast_row(kind, seed, opts, n, cap, g_n, n_chunks, card)
+        traces = torch.cat([device_workloads.gen_stream_chunk(dspec, 0, c, device="cuda")
+                            for c in range(n_chunks)])[None]
+        got = ops.cache_sim_outputs(traces, kind=kind, n_objects=n, capacity=cap, device="cuda", **opts)
+        state = fs.states()[0]
+        require(int(got["hits"][0]) == st.hits, f"fast {kind}: hits {st.hits} != the kernel's {int(got['hits'][0])}")
+        require(torch.equal(got["in_cache"][0], state["in_cache"]), f"fast {kind}: in_cache != the kernel's")
+        if kind == "lru":
+            seen = torch.zeros_like(state["in_cache"]).scatter_(0, traces[0].long(), True)
+            row, field = torch.where(seen, state["last"] + 1, 0), "stamps"
+        else:
+            row, field = state["freq"], "freq"
+        require(torch.equal(got["freq"][0], row.to(torch.int32)), f"fast {kind}: {field} != the kernel's")
+        if "inserts" in state:
+            require(int(got["inserts"][0]) == int(state["inserts"]), f"fast {kind}: inserts != the kernel's")
+        evictions = int(got["inserts"][0]) - int(state["count"])
+        require(kind == "plfua_dyn" or evictions > 0, f"fast {kind}: the cache never evicted")
+        fast_ms[kind] = st.elapsed_s * 1e3 / st.chunks
+        print(f"[stream fast {kind}] N={n} cap={cap} chunk={g_n} chunks={n_chunks} seed={seed} "
+              f"options={json.dumps(opts)} lanes={min(2 * g_n, cap + g_n) + g_n} total_chr={st.total_chr} "
+              f"evictions={evictions} {stream_line(st.requests, st.chunks, st.elapsed_s, prof, profile_s, card)} "
+              f"equals_cache_sim=True (hits, in_cache, {field}) elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    # the acceptance width: timed only
+    t0 = time.perf_counter()
+    st, fs, _, prof, profile_s = fast_row("lru", 40, {}, STREAM_FULL_N, STREAM_FULL_CAP, STREAM_FULL_CHUNK,
+                                          STREAM_FULL_CHUNKS, card)
+    ms = st.elapsed_s * 1e3 / st.chunks
+    n_accept = -(-STREAM_ACCEPT_REQUESTS // STREAM_FULL_CHUNK)
+    print(f"[stream fast lru full width] N={STREAM_FULL_N} cap={STREAM_FULL_CAP} chunk={STREAM_FULL_CHUNK} "
+          f"chunks={st.chunks} count={int(fs.states()[0]['count'])} total_chr={st.total_chr} "
+          f"{stream_line(st.requests, st.chunks, st.elapsed_s, prof, profile_s, card)} "
+          f"ms_per_chunk_n65536={fast_ms['lru']} ms_per_request_ratio_to_n65536="
+          f"{(ms / STREAM_FULL_CHUNK) / (fast_ms['lru'] / STREAM_FAST_CHUNK)} "
+          f"extrapolated_acceptance_row_h={ms * n_accept / 3.6e6} (an extrapolation: {n_accept} chunks x "
+          f"ms_per_chunk; not run) elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    print(f"[stream] elapsed_s={time.perf_counter() - t_phase:.3f}", flush=True)
+
+
+# ----------------------------------------------- the multi-device fleet on torch.distributed
+#: a gloo world of 2 ranks on the one card (NCCL takes one rank a device): each rank one process on
+#: cuda:0, its collectives' operands staged through the host
+SHARD_WORLD, SHARD_TIMEOUT_S = 2, 420
+SHARD_DIR = Path(__file__).resolve().parent / "build" / "shard"
+
+
+def shard_rank(rank: int, world: int, seed: int, t_start: float) -> None:
+    """One rank of the shard phase's world: the edge-sharded level-major run (plfu, the fleet phase's
+    sample 0), the edge-sharded placed run (plfu admit, the placed phase's sample 0) and the
+    sample-sharded device run (plfua_dyn on the fleet phase's churn, 8 samples), each whole result
+    and its wall time written to ``SHARD_DIR``."""
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{SHARD_DIR}/init", world_size=world,
+                                         rank=rank)
+    mesh = fleet.fleet_mesh(device="cuda")
+    out = {}
+
+    def timed(name, fn, *args, **kw):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        out[name] = (to_numpy(res), time.perf_counter() - t0)
+
+    traces = generators.stationary(FLEET_N, FLEET_SAMPLES, FLEET_LEN, seed=seed)
+    timed("level-major plfu", fleet.simulate_fleet_sharded, fleet_topology("plfu"), traces[0],
+          fleet_topology("lru").assignment(traces)[0], mesh=mesh, device="cuda")
+    placed = generators.stationary(FLEET_N, PLACED_SAMPLES, PLACED_LEN, seed=seed)
+    timed("placed admit", fleet.simulate_fleet_sharded, placed_topology("admit"), placed[0],
+          placed_topology("lcd").assignment(placed)[0], mesh=mesh, device="cuda")
+    dspec = device_workloads.DeviceTraceSpec("churn", FLEET_N, n_samples=FLEET_SAMPLES, trace_len=FLEET_LEN,
+                                             seed=seed)
+    timed("device plfua_dyn churn", fleet.simulate_fleet_device, fleet_topology("plfua_dyn"), dspec, mesh=mesh,
+          device="cuda")
+    out["total_s"] = time.perf_counter() - t_start  # the process's life, its start-up included
+    torch.save(out, SHARD_DIR / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def shard_start(seed: int) -> list:
+    """Start the shard phase's world (it runs beside the check phase: both only check, neither
+    times anything reported)."""
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed), "--shard-rank",
+                              str(r), "--shard-world", str(SHARD_WORLD)], env=env,
+                             stdout=open(SHARD_DIR / f"rank{r}.log", "w"), stderr=subprocess.STDOUT)
+            for r in range(SHARD_WORLD)]
+
+
+def shard_wait(procs: list, deadline: float) -> None:
+    """Wait for the world until ``deadline`` (``time.monotonic()``): as soon as a rank exits non-zero,
+    or at the deadline, kill the ranks still running (a rank left alone would block in a collective)."""
+    try:
+        while any(p.poll() is None for p in procs) and all(p.returncode in (None, 0) for p in procs):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        log = (SHARD_DIR / f"rank{r}.log").read_text()[-3000:]
+        require(p.returncode == 0, f"shard rank {r} exited {p.returncode} (killed if < 0: at the deadline, or "
+                                   f"after another rank failed): {log}")
+
+
+def shard_phase(keep: dict, card) -> None:
+    """Each rank's whole result bit for bit the single-process call's (the fleet and placed phases'
+    sample 0, the churn run's 8 samples with its traces and assignments)."""
+    t_phase = time.perf_counter()
+    ranks = [torch.load(SHARD_DIR / f"rank{r}.pt", weights_only=False) for r in range(SHARD_WORLD)]
+    churn = keep["plfua_dyn churn"]
+    single = {
+        "level-major plfu": (keep["plfu"]["row"], keep["plfu"]["wall_s"], "fleet phase, 8 samples"),
+        "placed admit": (keep["placed admit"]["row"], keep["placed admit"]["wall_s"], "placed phase, 4 samples"),
+        "device plfua_dyn churn": (churn["out"], churn["wall_s"], "fleet phase, 8 samples, +telemetry"),
+    }
+    for name, (want, single_wall_s, single_what) in single.items():
+        walls = []
+        for r, got in enumerate(ranks):
+            res, wall_s = got[name]
+            walls.append(wall_s)
+            if name.startswith("device"):
+                res, traces, assignments = res
+                require(np.array_equal(traces, churn["traces"].cpu().numpy()), f"shard {name}: rank {r} traces")
+                require(np.array_equal(assignments, churn["assignments"].cpu().numpy()),
+                        f"shard {name}: rank {r} assignments")
+            require(same_tree(res, to_numpy({k: want[k] for k in res})), f"shard {name}: rank {r} != one process")
+        print(f"[shard {name}] world={SHARD_WORLD} backend=gloo (operands staged through the host) device=cuda:0 "
+              f"equals_single_process=True (every rank, every key) sharded_wall_s_by_rank={walls} "
+              f"single_process_wall_s={single_wall_s} ({single_what}) (one card, the world beside the check "
+              f"phase: correctness only, not a speed) card={card.label!r}", flush=True)
+    print(f"[shard] rank_process_s={[round(r['total_s'], 3) for r in ranks]} (start-up, gloo, three runs) "
+          f"elapsed_s={time.perf_counter() - t_phase:.3f}", flush=True)
 
 
 # -------------------------------------------------------------- serving path
@@ -1884,11 +2276,18 @@ def spill_stores(lib) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    seed = parser.parse_args().seed
+    parser.add_argument("--shard-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--shard-world", type=int, default=SHARD_WORLD, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    seed = args.seed
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("[device] no CUDA device: chip_smoke.py runs on the card", file=sys.stderr)
         return 1
+    if args.shard_rank is not None:
+        with torch.inference_mode():
+            shard_rank(args.shard_rank, args.shard_world, seed, t_start)
+        return 0
 
     # 1. device
     t0 = time.perf_counter()
@@ -1901,12 +2300,13 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[device] name={name!r} count={count} sms={sms} power_limit_w={card.power_limit_w} "
           f"max_sm_clock_mhz={card.max_sm_clock_mhz} torch={torch.__version__} cuda={torch.version.cuda} "
-          f"elapsed_s={time.perf_counter() - t0:.3f}")
+          f"host_cpu={host_cpu()!r} elapsed_s={time.perf_counter() - t0:.3f}")
     print(smi)
 
     # the CPU workers: plain runs of the small checks and the grid's CPU references
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init) as pool:
+    with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init,
+                                                initargs=(CPU_WORKER_NICE,)) as pool:
         # 2. build: one nvcc per source, all started together (programs of one source share its
         # build), the flash kernel's among them
         t0 = time.perf_counter()
@@ -1928,10 +2328,24 @@ def main() -> int:
         print(f"[build] sources={len(built)} programs={len(kernel.PROGRAMS)} + flash_attention "
               f"elapsed_s={time.perf_counter() - t0:.3f}")
 
-        # 3. check: every program == its plain version, exactly
+        # 3. check: every program == its plain version, exactly. The program checks run their plain
+        # versions on the card in CARD_PLAIN_WORKERS processes, beside the shard phase's world (two
+        # ranks on the card, phase 10b): none of them times anything kept. The telemetry checks follow
+        # alone on the card, their plain versions in this process (their ms go into the kernels line).
         t0 = time.perf_counter()
-        checks = Checks(pool, seed)
-        run_checks(checks, seed)
+        shard_deadline = time.monotonic() + SHARD_TIMEOUT_S
+        shard_procs = shard_start(seed)
+        try:
+            with concurrent.futures.ProcessPoolExecutor(CARD_PLAIN_WORKERS, mp_context=ctx,
+                                                        initializer=_worker_init) as card_pool:
+                checks = Checks(pool, seed, card_pool)
+                run_checks(checks, seed)
+                n_card = len(checks.pending_card)
+                checks.finish_card()
+        finally:
+            shard_wait(shard_procs, shard_deadline)
+        print(f"[check] program checks done ({n_card} plain runs in {CARD_PLAIN_WORKERS} card workers; the "
+              f"shard world beside them) elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
         run_telemetry_checks(checks, seed)
         print(f"[check] card phase done: {checks.count} checks, {len(checks.pending)} plain runs "
               f"still in CPU workers elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
@@ -2070,15 +2484,25 @@ def main() -> int:
     entries += run_telemetry(traces, offs, checks, card, sms, seed)
     del traces, short, offs
 
-    # 8. fleet: device traces, routers, the level-major fleet held to its oracle, the paper's CPU time
-    fleet_phase(seed, card)
+    # the fleet engines' phases in inference mode, as the plain runs: their steps are thousands of
+    # small ops, each cheaper without autograd's bookkeeping (the outputs are the same)
+    with torch.inference_mode():
+        # 8. fleet: device traces, routers, the level-major fleet held to its oracle, the paper's CPU time
+        keep = fleet_phase(seed, card)
 
-    # 9. placed and 10. hierarchy: the time-major placed engine and the two-tier hierarchy, held to
-    # their oracles in the CPU workers
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init) as pool:
-        placed_phase(pool, seed, card)
-        hierarchy_phase(pool, seed, card)
+        # 9. placed and 10. hierarchy: the time-major placed engine and the two-tier hierarchy, held to
+        # their oracles in the CPU workers
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init,
+                                                    initargs=(CPU_WORKER_NICE,)) as pool:
+            placed_phase(pool, seed, card, keep)
+            hierarchy_phase(pool, seed, card)
+
+        # 10a. stream and 10b. shard: the streaming engine and the sharded runs, held to the fleet and
+        # placed phases' bounded calls and oracle results
+        stream_phase(keep, card)
+        shard_phase(keep, card)
+        del keep
 
     # 11. flash check: the attention kernel against its plain version, f32 products in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2104,7 +2528,7 @@ def main() -> int:
 
     # 16. kernels
     print(json.dumps({"kernels": entries}))
-    print(f"[total] elapsed_s={time.perf_counter() - t_start:.3f}")
+    print(f"[total] host_cpu={host_cpu()!r} elapsed_s={time.perf_counter() - t_start:.3f}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -280,26 +281,25 @@ def _wlfu_step(spec, state, rows, x, cap, fill, budget):
     insert = ~hit & fill
     if budget is not None:
         insert = budget.insert(state, rows, freq, insert)
-        in_cache[rows, x] = in_cache[rows, x] | insert
+        in_cache[rows, x] = hit | insert
         return hit
     need_evict = insert & (count >= cap)
     victim = _masked_argmin(freq, in_cache)
-    in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
-    in_cache[rows, x] = in_cache[rows, x] | insert
-    count += insert
-    count -= _i32(need_evict)
+    in_cache[rows, victim] = in_cache[rows, victim] > need_evict  # a & ~b
+    in_cache[rows, x] = hit | insert
+    count += insert > need_evict  # need_evict implies insert
     return hit
 
 
-def _tinylfu_step(spec, state, rows, x, cap, fill, budget):
+def _tinylfu_step(spec, state, rows, x, cap, fill, budget, table, btab):
     """TinyLFU: sketch add (gated by the doorkeeper when it is on), then
     aging, then an admission duel of the request against the LFU victim by
     post-aging estimate; LFU eviction semantics (a victim's count dies, an
     insert restarts at 1). Under a byte budget "full" means x does not fit
-    as it is, and a won duel makes room with the bounded loop."""
+    as it is, and a won duel makes room with the bounded loop. ``table`` and
+    ``btab`` are the sketch bucket and bloom rows of the ids."""
     in_cache, count, freq, rows_sk, seen = (
         state[k] for k in ("in_cache", "count", "freq", "sketch", "seen"))
-    table, btab = _tables(spec, in_cache.device)
     idx = table[x]
     if spec.doorkeeper:
         bloom = state["bloom"]
@@ -334,14 +334,13 @@ def _tinylfu_step(spec, state, rows, x, cap, fill, budget):
     else:
         insert = ~hit & (~full | admit) & fill
         need_evict = ~hit & full & admit & fill
-        in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
+        in_cache[rows, victim] = in_cache[rows, victim] > need_evict  # a & ~b
         freq[rows, victim] = torch.where(need_evict, 0, freq[rows, victim])
-        count += insert
-        count -= _i32(need_evict)
+        count += insert > need_evict  # need_evict implies insert
         state["inserts"] += insert
     fx = freq[rows, x]
     freq[rows, x] = torch.where(hit, fx + 1, torch.where(insert, 1, fx))
-    in_cache[rows, x] = in_cache[rows, x] | insert
+    in_cache[rows, x] = hit | insert
     return hit
 
 
@@ -417,7 +416,7 @@ def _arc_step(state, rows, x, cap, fill):
 
 
 def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, sizes=None, cap_bytes=None, *,
-         sync=True):
+         sync=True, table=None, bloom_tab=None):
     """One request per sample: ``x`` is ``(S,)`` ids, ``state`` batched.
     Updates ``state`` in place and returns ``(state, hit (S,) bool)``. The
     order of operations is the reference's.
@@ -433,7 +432,13 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, si
     :func:`refresh_hot`. Under a byte budget the step asks the device after
     each victim whether another is needed; ``sync=False`` runs the whole
     ``effective_max_victims`` bound instead (the same result, no wait on
-    the device)."""
+    the device).
+
+    ``table``/``bloom_tab`` override the spec's sketch bucket ``(N, DEPTH)``
+    and doorkeeper bloom ``(N, BLOOM_DEPTH)`` rows (int64 on the state's
+    device): the streaming fast path steps a compact state whose lane ids are
+    not the object ids, so it gathers the objects' own rows and passes them
+    in. ``None`` reads the spec's own tables."""
     in_cache, count = state["in_cache"], state["count"]
     dev = in_cache.device
     rows = arange(in_cache.shape[0], dev)
@@ -451,15 +456,19 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, si
         budget = None
     if spec.kind == "wlfu":
         return state, _wlfu_step(spec, state, rows, x, cap, fill, budget)
+    if spec.kind in SKETCH_KINDS:
+        own_table, own_bloom = _tables(spec, dev)
+        table = own_table if table is None else table
+        bloom_tab = own_bloom if bloom_tab is None else bloom_tab
     if spec.kind == "tinylfu":
-        return state, _tinylfu_step(spec, state, rows, x, cap, fill, budget)
+        return state, _tinylfu_step(spec, state, rows, x, cap, fill, budget, table, bloom_tab)
 
     # lru and the frequency family: lfu / plfu / plfua / plfua_dyn / gdsf
     hit = in_cache[rows, x]
     if spec.kind == "plfua_dyn":
         # the step only feeds the sketch; a dynamic hot set gates admission
         # only, so a cached object keeps hitting after it leaves the set
-        sketch.rows_add(state["sketch"], _tables(spec, dev)[0][x])
+        sketch.rows_add(state["sketch"], table[x])
         admitted = state["hot"][rows, x] | hit
     elif spec.kind == "plfua":
         admitted = state["hot"][rows, x]
@@ -478,13 +487,12 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, si
         if spec.kind == "gdsf":
             # the aging credit ratchets to the evicted victim's priority
             credit.copy_(torch.where(need_evict, key[rows, victim], credit))
-        in_cache[rows, victim] = in_cache[rows, victim] & ~need_evict
+        in_cache[rows, victim] = in_cache[rows, victim] > need_evict  # a & ~b
         if spec.kind == "lfu":
             # in-memory LFU: eviction destroys the metadata -> restart from 1
             key[rows, victim] = torch.where(need_evict, 0, key[rows, victim])
         insert = want
-        count += want
-        count -= _i32(need_evict)
+        count += want > need_evict  # need_evict implies want
         if spec.kind == "plfua_dyn":
             state["inserts"] += want
     if spec.kind == "lru":
@@ -499,7 +507,8 @@ def step(spec: PolicySpec, state: dict, x: torch.Tensor, cap=None, fill=None, si
             # credit (int32: the shift and the floor division wrap and floor
             # as the reference's)
             key[rows, x] = credit + (freq[rows, x] << GDSF_SHIFT) // _sz(sizes, x)
-    in_cache[rows, x] = in_cache[rows, x] | insert
+    # an eviction only clears, and never x's bit when x misses: x's bit is still ``hit``
+    in_cache[rows, x] = hit | insert
     return state, hit
 
 
@@ -702,6 +711,98 @@ def simulate(spec, trace, telemetry=None, sizes=None, groups=None, *, cap_bytes=
                          device=device)
     hits, state = out[0][0], {k: v[0] for k, v in out[1].items()}
     return (hits, state) if telemetry is None else (hits, state, out[2][0])
+
+
+def stream_sub_len(spec: PolicySpec, chunk_len: int) -> int:
+    """Refresh sub-chunk length of one streaming chunk: ``gcd(refresh,
+    chunk_len)`` tiles the chunk exactly, and every whole multiple of the
+    refresh period lands on a sub-chunk boundary, so a stream of chunks of
+    any length refreshes at the bounded run's positions."""
+    return math.gcd(spec.effective_refresh, chunk_len)
+
+
+def refresh_fires(refresh: int, chunk_len: int, t_n: int, t0: int = 0) -> list:
+    """plfua_dyn's global-time refresh rule, the one every engine follows:
+    ``t_n`` positions from global position ``t0`` in chunks of ``chunk_len``
+    (the last one cut short at ``t_n``), each True where it is whole and its
+    global end is a multiple of ``refresh``. A bounded run (``t0 = 0``) thus
+    never refreshes after a partial tail period, and a stream chunk in
+    :func:`stream_sub_len` sub-chunks refreshes where the bounded run over
+    the concatenated chunks does."""
+    return [(c + 1) * chunk_len <= t_n and (t0 + (c + 1) * chunk_len) % refresh == 0
+            for c in range(-(-t_n // chunk_len))]
+
+
+def _scan_chunk(spec: PolicySpec, state: dict, trace, active, cap, t0: int, *, instrument=False, sizes=None,
+                cap_bytes=None, gidx=None, n_groups=0):
+    """One chunk of an unbatched ``state``'s request stream, from global
+    position ``t0``, through the level-major engine's scan on one row; the
+    result is copied into ``state``. See :func:`stream_chunked_scan`."""
+    from repro_torch.fleet import sim  # the fleet engine imports this module
+
+    dev = state["count"].device
+    trace = torch.as_tensor(trace, device=dev).long()[None]
+    active = torch.ones_like(trace, dtype=torch.bool) if active is None else torch.as_tensor(active, device=dev)[None]
+    if sizes is not None:
+        sizes = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+    limit = lambda v: None if v is None else torch.as_tensor(v, device=dev).reshape(1)
+    work = {k: v.unsqueeze(0) for k, v in state.items()}
+    # the occupancy a skipped position carries forward, from before the chunk
+    init = {"count": work["count"].clone()[:, None]}
+    if instrument and gidx is not None:
+        init["count_g"] = _group_counts(work["in_cache"], gidx, n_groups)[:, None]
+    out = sim.masked_scan(spec, work, trace, torch.zeros_like(trace), active, limit(cap), instrument=instrument,
+                          sizes=sizes if spec.size_aware else None, cap_bytes=limit(cap_bytes), gidx=gidx,
+                          n_groups=n_groups, t0=t0)
+    for k, v in out[0].items():
+        state[k].copy_(v[0])
+    hits = out[1][0]
+    if not instrument:
+        return state, hits
+    # the sample's (or the row's) series; fired is one a sub-chunk already
+    ev = {k: v if k == "fired" else v[0] for k, v in out[2].items()}
+    for k in ("count", "count_g"):
+        if k in ev:
+            ev[k] = sim._carry_forward(out[2][k], active[:, None], init[k])[0, 0]
+    if sizes is not None:
+        sz = sizes[trace[0]]
+        ev["hit_bytes"] = torch.where(active[0] & hits, sz, 0)
+        ev["miss_bytes"] = torch.where(active[0] & ~hits, sz, 0)
+    return state, hits, ev
+
+
+def stream_chunked_scan(spec: PolicySpec, state: dict, trace, active=None, cap=None, *, t0: int, instrument=False,
+                        sizes=None, cap_bytes=None, gidx=None, n_groups=0):
+    """One chunk of a plfua_dyn request stream whose global start position
+    is ``t0``, on an unbatched state (``(N,)`` rows, ``()`` scalars) that it
+    steps **in place**. A sub-chunk (:func:`stream_sub_len`) whose global end
+    is a whole multiple of the refresh period refreshes the hot set
+    (:func:`refresh_fires`), so K chunks back to back are bit for bit one
+    :func:`simulate` over their concatenation (a partial tail period of that
+    concatenation never refreshes in either). ``active`` (``(G,)`` bool)
+    skips the positions where it is False; ``cap``/``cap_bytes`` override
+    the spec's limits.
+
+    Returns ``(state, hits)`` (hits masked by ``active``), or with
+    ``instrument`` ``(state, hits, events)``: the per-step ``fill``,
+    ``evict``, ``count`` (and ``evict_g``/``count_g`` with ``gidx``, see
+    :func:`group_scatter_arrays`; ``hit_bytes``/``miss_bytes`` with
+    ``sizes``) as ``(G, ...)`` series, and ``fired``/``churn``
+    (``churn_g``) one a sub-chunk."""
+    if spec.kind != "plfua_dyn":
+        raise ValueError(f"stream_chunked_scan runs plfua_dyn, got {spec.kind!r}")
+    return _scan_chunk(spec, state, trace, active, cap, t0, instrument=instrument, sizes=sizes, cap_bytes=cap_bytes,
+                       gidx=gidx, n_groups=n_groups)
+
+
+def run_chunk(spec: PolicySpec, state: dict, trace, t0: int = 0, sizes=None):
+    """One streaming chunk of a flat cache: steps the unbatched ``state``
+    over the ``(G,)`` trace **in place** and returns ``(state, hits)``, the
+    state being the one given. ``t0`` is the chunk's global start position,
+    which only plfua_dyn reads (its global-time refresh). K calls over
+    consecutive chunks are bit for bit one :func:`simulate` over the
+    concatenated trace."""
+    return _scan_chunk(spec, state, trace, None, None, t0, sizes=sizes)
 
 
 def chr_of(hits: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ id-prefix [0, hot_size).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -49,7 +50,14 @@ def sample_traces(
     alpha: float = PAPER_ALPHA,
     seed: int = 0,
 ) -> np.ndarray:
-    """(n_samples, trace_len) int32 — the paper's 12-sample replication."""
+    """(n_samples, trace_len) int32 — the paper's 12-sample replication.
+    A fresh copy of traces drawn once per argument tuple: the grid's cases
+    share one N's traces across its six cache rates and every policy."""
+    return _sample_traces(n_objects, n_samples, trace_len, alpha, seed).copy()
+
+
+@functools.lru_cache(maxsize=16)
+def _sample_traces(n_objects: int, n_samples: int, trace_len: int, alpha: float, seed: int) -> np.ndarray:
     return np.stack(
         [sample_trace(n_objects, trace_len, alpha, seed=seed * 7919 + i) for i in range(n_samples)]
     )

@@ -17,8 +17,13 @@ tiers store a copy on the fill path; a topology with a non-lce placement runs
 the time-major placed engine. ``routers=`` picks a router kind per level
 (sticky edges over hashed regionals, or the ``"tree"`` parent map). The
 two-tier API in :mod:`repro_torch.cdn` is a wrapper over depth-2 topologies.
-The multi-device and streaming engines are not ported (ROADMAP.md modules 11
-and 9).
+
+:mod:`repro_torch.fleet.stream` runs an unbounded request stream as
+fixed-shape chunks (``FleetStream``, ``stream_fleet``), bit for bit the
+bounded engines over the concatenated trace, with a compact-lane fast path
+for one flat cache. :mod:`repro_torch.fleet.shard` runs the fleet over the
+ranks of a ``torch.distributed`` process group, sharded by edges
+(``simulate_fleet_sharded``) or by trace samples (``simulate_fleet_device``).
 """
 from repro_torch.fleet import placement
 from repro_torch.fleet.reference import FleetReferenceResult, build_policy, simulate_fleet_reference
@@ -31,7 +36,9 @@ from repro_torch.fleet.report import (
     mgmt_ops,
     placement_ops,
 )
+from repro_torch.fleet.shard import fleet_mesh, mesh_size, simulate_fleet_device, simulate_fleet_sharded
 from repro_torch.fleet.sim import masked_scan, simulate_fleet, simulate_fleet_batch, tier_counters
+from repro_torch.fleet.stream import FAST_KINDS, FleetStream, StreamConfig, StreamStats, stream_fleet
 from repro_torch.fleet.topology import Topology, from_hierarchy, level_assignments, tree
 
 __all__ = [
@@ -54,4 +61,13 @@ __all__ = [
     "mgmt_ops",
     "masked_scan",
     "tier_counters",
+    "fleet_mesh",
+    "mesh_size",
+    "simulate_fleet_sharded",
+    "simulate_fleet_device",
+    "StreamConfig",
+    "StreamStats",
+    "FleetStream",
+    "stream_fleet",
+    "FAST_KINDS",
 ]

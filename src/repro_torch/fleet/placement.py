@@ -123,18 +123,18 @@ def prob_fill(t, level: int, p: float):
     return fill_hash_u32(t, level) < np.uint32(thr)
 
 
-def coin_table(placements, n_positions: int, device) -> torch.Tensor | None:
+def coin_table(placements, n_positions: int, device, start: int = 0) -> torch.Tensor | None:
     """Every ``prob(p)`` coin of a call: ``(L, n_positions)`` bool on
-    ``device``, row ``l`` the coins of level ``l`` at positions ``0 ..
-    n_positions - 1`` (:func:`prob_fill`'s), or ``None`` when no level
-    draws one. Levels of another placement, and the constant ends ``p >= 1``
+    ``device``, row ``l`` the coins of level ``l`` at positions ``start ..
+    start + n_positions - 1`` (:func:`prob_fill`'s; a stream chunk starts at
+    its global position), or ``None`` when no level draws one. Levels of another placement, and the constant ends ``p >= 1``
     and ``p <= 0``, which the placed engine keeps as constants, get rows of
     False."""
     parsed = [parse(p) for p in placements]
     drawn = [l for l, (kind, p) in enumerate(parsed) if kind == "prob" and 0 < _threshold(p) < 1 << 32]
     if not drawn:
         return None
-    t = torch.arange(n_positions, dtype=torch.int64, device=device)
+    t = torch.arange(start, start + n_positions, dtype=torch.int64, device=device)
     table = torch.zeros((len(parsed), n_positions), dtype=torch.bool, device=device)
     for l in drawn:
         table[l] = fill_hash_u32(t, l) < _threshold(parsed[l][1])

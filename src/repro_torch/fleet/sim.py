@@ -94,28 +94,41 @@ def _streams(rows, active, r_n: int):
     return s_idx, t_idx, row, j_idx, slot[row], perm, slot, length
 
 
-def _refresh_schedule(t_idx, row, perm, r_n: int, t_n: int, refresh: int) -> dict:
-    """plfua_dyn's refreshes on global time, in stream steps: refresh ``b``
-    (from 0, after position ``(b + 1) * refresh - 1``) reaches a row after
-    its requests up to that position. Returns ``{j: [(b, slots)]}``: the
-    refreshes due before step ``j`` (after the last step at ``j = J``), in
-    order, each with the rows' slots (see :func:`_streams`)."""
-    n_fire = t_n // refresh
-    if not n_fire:
+def _refresh_schedule(t_idx, row, perm, r_n: int, c_len: int, fires: list) -> dict:
+    """plfua_dyn's refreshes on global time, in stream steps: the refresh
+    after refresh chunk ``c`` (positions of chunks of ``c_len``; ``fires[c]``
+    says whether it refreshes) reaches a row after its requests in chunks up
+    to ``c``. Returns ``{j: [(c, slots)]}``: the refreshes due before step
+    ``j`` (after the last step at ``j = J``), in order, each with the rows'
+    slots (see :func:`_streams`)."""
+    fired = [c for c, f in enumerate(fires) if f]
+    if not fired:
         return {}
-    # requests of each row in each period, then how many come before each period's end
-    per = torch.zeros((r_n, n_fire + 1), dtype=torch.long, device=row.device)
-    per.index_put_((row, torch.clamp(t_idx // refresh, max=n_fire)), torch.ones_like(row), accumulate=True)
-    due = per[:, :n_fire].cumsum(dim=1)[perm].cpu().numpy()
+    # requests of each row between two refreshes, then how many come before each refresh
+    ends = torch.as_tensor([(c + 1) * c_len for c in fired], device=row.device)
+    per = torch.zeros((r_n, len(fired) + 1), dtype=torch.long, device=row.device)
+    per.index_put_((row, torch.searchsorted(ends, t_idx, right=True)), torch.ones_like(row), accumulate=True)
+    due = per[:, :len(fired)].cumsum(dim=1)[perm].cpu().numpy()
     schedule: dict = {}
-    for b in range(n_fire):
+    for b, c in enumerate(fired):
         for j in np.unique(due[:, b]).tolist():
-            schedule.setdefault(j, []).append((b, np.flatnonzero(due[:, b] == j)))
+            schedule.setdefault(j, []).append((c, np.flatnonzero(due[:, b] == j)))
     return schedule
 
 
+def refresh_chunks(spec: PolicySpec, t_n: int, t0=None) -> tuple[int, list]:
+    """plfua_dyn's refresh chunks over ``t_n`` positions: their length and
+    whether each fires (``torch_cache.refresh_fires``). A bounded run
+    (``t0=None``) takes whole refresh periods from position 0; a stream
+    chunk whose global start is ``t0`` takes :func:`torch_cache
+    .stream_sub_len` sub-chunks."""
+    refresh = spec.effective_refresh
+    c_len = refresh if t0 is None else torch_cache.stream_sub_len(spec, t_n)
+    return c_len, torch_cache.refresh_fires(refresh, c_len, t_n, t0 or 0)
+
+
 def masked_scan(spec: PolicySpec, state: dict, traces, rows, active, cap=None, *, instrument=False, sizes=None,
-                cap_bytes=None, gidx=None, n_groups=0):
+                cap_bytes=None, gidx=None, n_groups=0, t0=None):
     """Step a batched state of ``R`` rows over ``(S, T)`` traces: at position
     ``t`` sample ``s``'s request steps row ``rows[s, t]`` if ``active[s, t]``,
     and no row changes otherwise. ``cap``/``cap_bytes`` are ``None`` (the
@@ -133,7 +146,9 @@ def masked_scan(spec: PolicySpec, state: dict, traces, rows, active, cap=None, *
     with more than ``j`` requests, in place, as a prefix of the rows sorted
     by stream length. A level takes as many steps as its busiest row has
     requests, and a refresh reaches each row between the same two of its
-    requests as on global time."""
+    requests as on global time. ``t0`` makes the traces one chunk of a
+    stream starting at that global position: plfua_dyn then refreshes, and
+    emits its per-chunk events, on :func:`refresh_chunks`' sub-chunks."""
     dev = traces.device
     s_n, t_n = traces.shape
     r_n = state["count"].shape[0]
@@ -148,8 +163,12 @@ def masked_scan(spec: PolicySpec, state: dict, traces, rows, active, cap=None, *
     cap_j = None if cap is None else torch.as_tensor(cap, device=dev)[perm]
     cap_b_j = None if cap_bytes is None else torch.as_tensor(cap_bytes, device=dev)[perm]
     hits_j = torch.zeros((j_n, r_n), dtype=torch.bool, device=dev)
-    refresh = spec.effective_refresh if spec.kind == "plfua_dyn" else 0
-    schedule = _refresh_schedule(t_idx, row, perm, r_n, t_n, refresh) if refresh else {}
+    refresh = spec.kind == "plfua_dyn"
+    if refresh:
+        c_len, fires = refresh_chunks(spec, t_n, t0)
+        schedule = _refresh_schedule(t_idx, row, perm, r_n, c_len, fires)
+    else:
+        schedule = {}
     ev_j = {}
     if instrument:
         buffer = lambda dtype, *shape: torch.zeros((j_n, r_n) + shape, dtype=dtype, device=dev)
@@ -159,8 +178,8 @@ def masked_scan(spec: PolicySpec, state: dict, traces, rows, active, cap=None, *
         if gidx is not None:
             ev_j.update(evict_g=buffer(torch.int32, n_groups), count_g=buffer(torch.int32, n_groups))
         if refresh:
-            n_chunks = -(-t_n // refresh)
-            fired = torch.arange(n_chunks, device=dev) < t_n // refresh
+            n_chunks = len(fires)
+            fired = torch.as_tensor(fires, dtype=torch.bool, device=dev)
             churn = torch.zeros((r_n, n_chunks), dtype=torch.int32, device=dev)
             if gidx is not None:
                 churn_g = torch.zeros((r_n, n_chunks, n_groups), dtype=torch.int32, device=dev)
@@ -276,10 +295,11 @@ def stack_level_state(specs: tuple[PolicySpec, ...], n_samples: int | None = Non
     return {k: torch.stack([n[k] for n in nodes], dim=dim) for k in nodes[0]}
 
 
-def _carry_forward(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _carry_forward(values: torch.Tensor, mask: torch.Tensor, init=None) -> torch.Tensor:
     """``(S, T[, G])`` values of the stepped rows -> ``(S, K, T[, G])``: node
     ``k``'s value at ``t`` is the one of its last step at or before ``t``
-    (``mask``: ``(S, K, T)``, the node's steps), 0 before its first."""
+    (``mask``: ``(S, K, T)``, the node's steps), before its first ``init``
+    (``(S, K[, G])``, a stream chunk's starting value) or 0."""
     t_n = mask.shape[-1]
     last = torch.where(mask, torch.arange(t_n, device=mask.device), -1).cummax(dim=-1).values
     idx = last.clamp(min=0)
@@ -287,22 +307,25 @@ def _carry_forward(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if values.dim() == 3:
         idx = idx.unsqueeze(-1).expand(src.shape)
         last = last.unsqueeze(-1)
-    return torch.where(last >= 0, torch.gather(src, 2, idx), 0)
+    before = 0 if init is None else init.unsqueeze(2)
+    return torch.where(last >= 0, torch.gather(src, 2, idx), before)
 
 
-def _node_events(events: dict, node_active, k_n: int) -> dict:
+def _node_events(events: dict, node_active, k_n: int, init=None) -> dict:
     """The stepped rows' events as each node's ``(S, K, T[, G])`` series, zero
-    where the node is inactive, occupancy carried forward; plfua_dyn's
-    per-period events as ``(S, K, C[, G])``."""
+    where the node is inactive, occupancy carried forward (from ``init``'s
+    ``count``/``count_g`` where given); plfua_dyn's per-period events as
+    ``(S, K, C[, G])``."""
     s_n = node_active.shape[0]
+    init = init or {}
     masked = lambda v: torch.where(node_active.view(node_active.shape + (1,) * (v.dim() - 2)), v.unsqueeze(1), 0)
     out = {"fill": node_active & events["fill"].unsqueeze(1), "evict": masked(events["evict"]),
-           "count": _carry_forward(events["count"], node_active)}
+           "count": _carry_forward(events["count"], node_active, init.get("count"))}
     if "aging" in events:
         out["aging"] = node_active & events["aging"].unsqueeze(1)
     if "evict_g" in events:
         out["evict_g"] = masked(events["evict_g"])
-        out["count_g"] = _carry_forward(events["count_g"], node_active)
+        out["count_g"] = _carry_forward(events["count_g"], node_active, init.get("count_g"))
     if "fired" in events:
         out["fired"] = events["fired"].expand(s_n, k_n, -1)
         out["churn"] = events["churn"].view(s_n, k_n, -1)
@@ -312,17 +335,27 @@ def _node_events(events: dict, node_active, k_n: int) -> dict:
 
 
 def run_level(specs: tuple[PolicySpec, ...], traces, assign, demand, *, instrument=False, sizes=None, gidx=None,
-              n_groups=0):
+              n_groups=0, state=None, t0=None):
     """One level over ``(S, T)`` traces: ``assign`` is each request's node at
     this level and ``demand`` whether it reaches the level (unserved below).
     Returns ``(states (S, K, ...), node hits (S, K, T), node active (S, K,
     T))``, plus with ``instrument`` each node's events (see
-    :func:`masked_scan`)."""
+    :func:`masked_scan`). The level starts from zero, or from ``state``
+    (``(S, K, ...)``, left as it is) at the global position ``t0`` of a
+    stream (see :func:`masked_scan`)."""
     s0 = specs[0]
     k_n = len(specs)
     s_n = traces.shape[0]
     dev = traces.device
-    state = {k: v.flatten(0, 1) for k, v in stack_level_state(specs, s_n, dev).items()}
+    if state is None:
+        state = stack_level_state(specs, s_n, dev)
+    init = None
+    if instrument and t0 is not None:
+        init = {"count": state["count"]}
+        if gidx is not None:
+            init["count_g"] = torch_cache._group_counts(state["in_cache"].flatten(0, 1), gidx, n_groups).view(
+                s_n, k_n, n_groups)
+    state = {k: v.flatten(0, 1) for k, v in state.items()}
     rows = arange(s_n, dev)[:, None] * k_n + assign.long()
     caps = [s.capacity for s in specs]
     cap = None if len(set(caps)) == 1 else torch.tensor(caps * s_n, dtype=torch.int32, device=dev)
@@ -330,23 +363,26 @@ def run_level(specs: tuple[PolicySpec, ...], traces, assign, demand, *, instrume
     if s0.capacity_bytes and len({s.capacity_bytes for s in specs}) > 1:
         cap_bytes = torch.tensor([s.capacity_bytes for s in specs] * s_n, dtype=torch.int32, device=dev)
     out = masked_scan(s0, state, traces, rows, demand, cap, instrument=instrument, sizes=sizes,
-                      cap_bytes=cap_bytes, gidx=gidx, n_groups=n_groups)
+                      cap_bytes=cap_bytes, gidx=gidx, n_groups=n_groups, t0=t0)
     states = {k: v.view((s_n, k_n) + v.shape[1:]) for k, v in out[0].items()}
     node_active = (assign.unsqueeze(1) == arange(k_n, dev)[:, None]) & demand.unsqueeze(1)
     node_hits = node_active & out[1].unsqueeze(1)
     if not instrument:
         return states, node_hits, node_active
-    return states, node_hits, node_active, _node_events(out[2], node_active, k_n)
+    return states, node_hits, node_active, _node_events(out[2], node_active, k_n, init)
 
 
-def level_series(spec: PolicySpec, telemetry, trace_len: int, hits, active, events: dict, groups_t=None):
+def level_series(spec: PolicySpec, telemetry, trace_len: int, hits, active, events: dict, groups_t=None,
+                 chunk_len=None):
     """Bucket one level's node events into ``(S, K, n_windows, N_METRICS)``
     (a group axis before N_METRICS when ``telemetry.n_groups > 0``): the
     level-major engine has no placement gate, so every miss of an active node
-    is a fill offer."""
+    is a fill offer. ``chunk_len`` is plfua_dyn's refresh chunk (the period
+    when ``None``; a stream's sub-chunk)."""
     if groups_t is not None:
         groups_t = groups_t.unsqueeze(-2)
-    return torch_cache.telemetry_series(spec, telemetry, trace_len, hits, events, groups_t=groups_t, active=active)
+    return torch_cache.telemetry_series(spec, telemetry, trace_len, hits, events, groups_t=groups_t, active=active,
+                                        chunk_len=chunk_len)
 
 
 def _level_byte_events(events: dict, hits, active, sz_t) -> None:
@@ -503,7 +539,7 @@ def _row_limits(level_specs, n_samples: int, key: str) -> list:
 
 
 def _placed_prelude(topo: Topology, n_samples: int, device, *, instrument=False, sizes=None, gidx=None,
-                    n_groups=0):
+                    n_groups=0, level0_states=None, level0_caps=None, edge_group=None):
     """The placed engine's set-up: per-level specs, the plfua_dyn levels, the
     zero carry, ``inputs`` and ``step_t``, the body run at every position.
 
@@ -533,13 +569,31 @@ def _placed_prelude(topo: Topology, n_samples: int, device, *, instrument=False,
     ``hit``, ``stored`` (x cached after the step), and under ``instrument``
     ``drop`` (occupancy lost), ``gate``, ``count`` ``(S, K_l)``, tinylfu's
     ``aging``, and grouped ``evict_g``/``count_g``. Nothing in it waits for
-    the device."""
+    the device.
+
+    Edge sharding (one sample): ``level0_states`` ``(K_0, ...)`` and
+    ``level0_caps`` ``(K_0,)`` are this process's contiguous share of the
+    edges, and ``edge_group`` its group (``offset``, its first edge, and
+    ``sum(tensor)``, the group's all-reduce). A request routed to another
+    process's edge steps level 0's spare row here; the probe rebuilds the
+    global edge-served bit with one ``edge_group.sum`` a position, and the
+    upper levels run replicated. ``stored`` at level 0 is then this
+    process's alone. Telemetry and byte-capacity levels are refused there."""
+    if edge_group is not None:
+        if instrument:
+            raise NotImplementedError("telemetry is single-device (no edge mesh)")
+        if any(lvl[0].capacity_bytes for lvl in topo.levels):
+            raise NotImplementedError("byte-capacity placement is single-device")
+        if n_samples != 1 or level0_states is None or level0_caps is None:
+            raise ValueError("an edge group runs one sample from level0_states and level0_caps")
     L = topo.n_levels
     dev = resolve_device(device)
     n_s = n_samples
     specs = [lvl[0] for lvl in topo.levels]
     parsed = [placement_mod.parse(p) for p in topo.placements]
     widths = [len(lvl) for lvl in topo.levels]
+    if edge_group is not None:
+        widths[0] = int(level0_states["count"].shape[0])
     spare = [n_s * k for k in widths]  # a level's spare row, the last of its S * K + 1
     by_signature: dict = {}
     for l, spec in enumerate(specs):
@@ -556,9 +610,13 @@ def _placed_prelude(topo: Topology, n_samples: int, device, *, instrument=False,
     for g in groups:
         parts: dict = {}
         for l in g:
-            for k, v in stack_level_state(topo.levels[l], n_s, dev).items():
-                if k != "in_cache":
-                    v = v.flatten(0, 1)
+            level = stack_level_state(topo.levels[l], n_s, dev) if l or edge_group is None else {
+                k: v.unsqueeze(0) for k, v in level0_states.items()}
+            for k, v in level.items():
+                v = v.flatten(0, 1)
+                if k == "in_cache":
+                    in_cache[start[l]: start[l] + spare[l]] = v
+                else:
                     parts.setdefault(k, []).append(torch.cat([v, v[:1]]))
         g0 = start[g[0]]
         joint = {"in_cache": in_cache[g0: start[g[-1]] + spare[g[-1]] + 1],
@@ -568,7 +626,8 @@ def _placed_prelude(topo: Topology, n_samples: int, device, *, instrument=False,
             states[l] = {k: v[start[l] - g0: start[l] - g0 + spare[l] + 1] for k, v in joint.items()}
         # per-row limits when the group's rows differ in them (else the spec's, read by the step)
         for out, key in ((caps, "capacity"), (caps_b, "capacity_bytes")):
-            rows = [v for l in g for v in _row_limits(topo.levels[l], n_s, key)]
+            rows = [v for l in g for v in (_row_limits(topo.levels[l], n_s, key) if l or edge_group is None or
+                                           key != "capacity" else list(level0_caps) + list(level0_caps)[:1])]
             out.append(None if len(set(rows)) == 1 or (key == "capacity_bytes" and not specs[g[0]].capacity_bytes)
                        else as_i32(rows))
     # each group's spare rows a slot (a sample of a level), group-relative
@@ -610,11 +669,20 @@ def _placed_prelude(topo: Topology, n_samples: int, device, *, instrument=False,
 
     def inputs(traces, assigns) -> dict:
         xs = traces.t().long().contiguous()
-        own = torch.stack([arange(n_s, dev)[:, None] * widths[l] + a.long() for l, a in enumerate(assigns)])
+        assigns = [a.long() for a in assigns]
+        if edge_group is not None:
+            # another process's edge: this one steps its spare row
+            local = assigns[0] - edge_group.offset
+            own0 = (local >= 0) & (local < widths[0])
+            assigns[0] = torch.where(own0, local, spare[0])
+        own = torch.stack([arange(n_s, dev)[:, None] * widths[l] + a for l, a in enumerate(assigns)])
         joint_rows = own.permute(2, 0, 1) + starts[:, None]  # (T, L, S)
-        return {"x": xs, "rows": joint_rows,
-                "group_rows": [(joint_rows[:, g] - start[g[0]]).flatten(1) for g in groups],
-                "group_x": [xs.repeat(1, len(g)) for g in groups]}
+        out = {"x": xs, "rows": joint_rows,
+               "group_rows": [(joint_rows[:, g] - start[g[0]]).flatten(1) for g in groups],
+               "group_x": [xs.repeat(1, len(g)) for g in groups]}
+        if edge_group is not None:
+            out["own0"] = own0.t().contiguous()
+        return out
 
     def duel(gi, st, x, rows_g, cap, cap_b):
         """The admit placement over group ``gi``'s consulted slots: feed and age each slot's placement
@@ -644,6 +712,10 @@ def _placed_prelude(topo: Topology, n_samples: int, device, *, instrument=False,
         # probe the miss path bottom-up on the pre-update membership, every level in one gather: a
         # request reaches level l iff no level below holds x
         in_c = in_cache[rows, x]
+        if edge_group is not None:
+            # one collective rebuilds the global edge-served bit (one process owns the edge)
+            edge = edge_group.sum((in_c[0] & inp["own0"]).to(torch.int32)) > 0
+            in_c = torch.cat([edge[None], in_c[1:]])
         held = in_c.cumsum(dim=0)
         act = held == in_c  # nothing below l holds x
         hits = act & in_c
@@ -764,24 +836,27 @@ def _placed_untile(chunks: list, n_levels: int):
     return out
 
 
-def _fire_schedule(specs, dyn_levels, trace_len: int, chunk_len: int) -> np.ndarray:
-    """``(n_chunks, n_dyn)`` bool: a level refreshes after a chunk whose end is a whole multiple of its
-    own period and lies within the trace (a partial tail period never fires)."""
+def _fire_schedule(specs, dyn_levels, trace_len: int, chunk_len: int, t0: int = 0) -> np.ndarray:
+    """``(n_chunks, n_dyn)`` bool: each plfua_dyn level's ``torch_cache.refresh_fires`` over the
+    chunks of ``trace_len`` positions from global position ``t0`` (a stream chunk's start)."""
     n_chunks = -(-trace_len // chunk_len)
-    return np.array([[(c + 1) * chunk_len <= trace_len and (c + 1) * chunk_len % specs[l].effective_refresh == 0
-                      for l in dyn_levels] for c in range(n_chunks)], bool).reshape(n_chunks, len(dyn_levels))
+    fires = [torch_cache.refresh_fires(specs[l].effective_refresh, chunk_len, trace_len, t0) for l in dyn_levels]
+    return np.array(fires, bool).reshape(len(dyn_levels), n_chunks).T
 
 
-def _placed_run(topo: Topology, traces, assigns, *, instrument=False, sizes=None, gidx=None, n_groups=0):
+def _placed_run(topo: Topology, traces, assigns, *, instrument=False, sizes=None, gidx=None, n_groups=0,
+                level0_states=None, level0_caps=None, edge_group=None):
     """The time-major scan over ``(S, T)`` traces, ``assigns`` one ``(S, T)`` node assignment per
     level: chunks of the gcd of the plfua_dyn levels' periods (or the whole trace), the last one
     cut short at ``T``. Returns ``(carry, records, fire, chunk_len)``: the final carry, each
     level's records (see :func:`_placed_prelude`; hits and ids as ``(T, S)``) and the refresh
-    schedule."""
+    schedule. ``level0_states``/``level0_caps``/``edge_group`` shard the edges (see
+    :func:`_placed_prelude`)."""
     s_n, t_n = traces.shape
     dev = traces.device
-    specs, dyn_levels, carry, inputs, step_t = _placed_prelude(topo, s_n, dev, instrument=instrument,
-                                                               sizes=sizes, gidx=gidx, n_groups=n_groups)
+    specs, dyn_levels, carry, inputs, step_t = _placed_prelude(
+        topo, s_n, dev, instrument=instrument, sizes=sizes, gidx=gidx, n_groups=n_groups,
+        level0_states=level0_states, level0_caps=level0_caps, edge_group=edge_group)
     chunk_len = _dyn_chunk(topo) or t_n
     fire = _fire_schedule(specs, dyn_levels, t_n, chunk_len)
     coins = placement_mod.coin_table(topo.placements, t_n, dev)

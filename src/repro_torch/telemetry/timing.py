@@ -39,7 +39,7 @@ class DeviceTrace:
     in it, the time some kernel ran (the union of their intervals) and the
     span from the first kernel's start to the last one's end."""
 
-    path: Path
+    path: Path | None
     kernels: int
     busy_s: float
     span_s: float
@@ -69,22 +69,26 @@ def _busy_and_span(intervals: list[tuple[float, float]]) -> tuple[float, float]:
 
 def profile(fn, *args, profile_dir, **kwargs) -> DeviceTrace:
     """Run ``fn(*args, **kwargs)`` once under ``torch.profiler`` and write its
-    Chrome trace to ``profile_dir/trace.json``. Where there is a card it
+    Chrome trace to ``profile_dir/trace.json`` (``profile_dir=None`` writes
+    none: the JSON of a call of a hundred thousand launches takes seconds to
+    write, and the summary does not read it). Where there is a card it
     records CUDA activity only (the kernels and the runtime calls that launch
     them): recording every host op too slows the host several times over, which
     inflates the idle share it measures and costs seconds a call. Elsewhere it
     records the host's ops. Kernels launched by the port's own libraries are
     traced too: CUPTI records every kernel on the device."""
-    out = Path(profile_dir)
-    out.mkdir(parents=True, exist_ok=True)
     activity = torch.profiler.ProfilerActivity
     activities = [activity.CUDA if torch.cuda.is_available() else activity.CPU]
     with torch.profiler.profile(activities=activities) as prof:
         fn(*args, **kwargs)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    path = out / "trace.json"
-    prof.export_chrome_trace(str(path))
+    path = None
+    if profile_dir is not None:
+        out = Path(profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / "trace.json"
+        prof.export_chrome_trace(str(path))
     # the raw kineto events: ``prof.events()`` builds a Python event tree first, which costs about a
     # millisecond a kernel (minutes for a call of a few hundred thousand launches)
     kernels = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()

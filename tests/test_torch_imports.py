@@ -51,7 +51,10 @@ def test_port_files_exist():
     # the placed engine's slice: the two-tier hierarchy, its oracle and report, the serving fleet front
     for entry in ("cdn/hierarchy.py", "cdn/reference.py", "cdn/report.py", "serving/fleet_cache.py"):
         assert f"src/repro_torch/{entry}" in names, entry
-    assert len(names) >= 57
+    # the streaming engine and the multi-device fleet
+    for entry in ("fleet/stream.py", "fleet/shard.py"):
+        assert f"src/repro_torch/{entry}" in names, entry
+    assert len(names) >= 59
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
