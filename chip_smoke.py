@@ -16,10 +16,11 @@ in stamp order (``kernel.arc_plan``: its tags and links). ``flash_attention``
 (``csrc/flash_attention.cu``) has two instances, ``flash_attention/prefill``
 (bf16: wgmma on TMA-staged tiles of 128 query rows; f32: CUDA cores) and
 ``flash_attention/decode`` (a kv head's query rows a block, its keys split over
-blocks and merged by the last one).
+blocks and merged by the last one), each at D = 16, 32, 64, 128 and 192.
 Two main paths: the paper's grid through cache_sim, and the serving path
 (smollm-360m at full width behind the content cache, every attention call
-through the flash kernel); the fleet, placed and hierarchy phases drive the
+through the flash kernel; deepseek-v2-236b at its published widths, cut to 4
+layers, every MLA prefill through the kernel at D = 192); the fleet, placed and hierarchy phases drive the
 N-tier fleet engines, which step the plain PyTorch policies (no kernel of
 their own), and the fleet front serves the model behind a tree of content
 caches. Phases, one line each (or one line per item):
@@ -29,8 +30,10 @@ caches. Phases, one line each (or one line per item):
              ``src/repro_torch/kernels/*/csrc``, one process each, all started
              together; prints ptxas's register, shared-memory, stack and spill
              report for each kernel (no spill stores allowed in any cache_sim
-             instance), and the count of HGMMA (wgmma) instructions in each
-             bf16 prefill kernel's SASS (``cuobjdump``), which must be > 0.
+             instance; the D = 192 flash kernels' registers and spill stores
+             on lines of their own), and the count of HGMMA (wgmma)
+             instructions in each bf16 prefill kernel's SASS (``cuobjdump``),
+             which must be > 0.
 3. check   — each program against its plain PyTorch version, exact on hits,
              freq, in_cache, inserts and (sized runs) hit bytes, at S = 12:
              lru/lfu/plfu/plfua at T = 10,000 and (N, cap) = (100, 2),
@@ -195,7 +198,10 @@ caches. Phases, one line each (or one line per item):
              edges of the prefill tiles and the decode splits (tests/test_torch_cuda.py's
              FLASH_EDGES); the served shapes (1, 15, 5, 64): causal prefill at
              2,048 and 16,384, decode against a cache of 2,056 at kv_len 1,
-             2,049 and 2,056; a D = 128 prefill (1, 24, 8, 1,024). For each
+             2,049 and 2,056; a D = 128 prefill (1, 24, 8, 1,024); at D = 192
+             (MLA) a SWEEP row (1, 4, 4, 130), a 12-row causal prompt on the
+             decode instance and deepseek's served prefill (1, 128, 128,
+             2,048, causal). For each
              served case it also reads deliberately wrong plain versions (the
              causal bound one 64-key tile early, and in bf16 p rounded to bf16
              before P V; decode with one live key dropped, or one garbage key
@@ -235,9 +241,32 @@ caches. Phases, one line each (or one line per item):
              prefill ms and tokens/s, decode ms a token, J a generated token at
              the power limit, and the device's busy time and idle share over
              one prefill and one request's decode (``torch.profiler``).
-16. kernels — one JSON line, an entry per kernel instance, with the trace
+16. moe serve — smollm's model freed, deepseek-v2-236b at its published
+             widths (d_model 5,120, 128 heads, MLA q/kv lora 1,536/512, nope/
+             rope/v 128/64/128, 160 routed experts top-6 and 2 shared, expert
+             d_ff 1,536, dense d_ff 12,288, vocab 102,400, bf16) cut to 4 of 60
+             layers (the dense first layer and 3 MoE layers; 13,302,903,808
+             parameters), weights from ``--seed``: 8 requests over 4 objects
+             (``zipf.sample_trace(4, 8, seed=1)``), 2,048-token prompts,
+             max_new = 8, behind ``ContentCache(2, "plfua")``, the flash counts
+             set to 0 just before and read just after (prefill launches = 4
+             layers x misses, no decode launch: MLA's decode runs on the latent
+             cache in PyTorch); hits generate their first serve's tokens. Then
+             prefill ms, decode ms a token beside the bytes of weights a token
+             reads (the capacity buffers read every expert), and the device's
+             idle share over one decode token (``torch.profiler``).
+17. moe check — the served model's first 2 layers (dense + 1 MoE) on the card
+             and on the CPU (the plain path, the same weights, fed the card's
+             tokens), a 256-token prompt and 4 decode steps: every prompt
+             position's and each step's logits within 0.25 where the two sides'
+             routing agrees (read through the route step by a separate pass),
+             the count of tokens routed differently; the experts' w_gate and
+             w_up swapped must be rejected. Then the flash kernel at MLA's
+             prefill shape, measured as in phase 15.
+18. kernels — one JSON line, an entry per kernel instance, with the trace
              lengths of cache_sim's time (``T``) and plain version's
-             (``plain_T``) and the flash instances' shapes.
+             (``plain_T``) and the flash instances' shapes (the D = 192 prefill
+             its own entry).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before it; without a card the script exits 1 and prints no result.
@@ -260,6 +289,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -272,7 +302,8 @@ from repro_torch.kernels.cache_sim import cache_sim as kernel  # noqa: E402
 from repro_torch.kernels.cache_sim import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as flash  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
-from repro_torch.models import build  # noqa: E402
+from repro_torch.models import attention, build, moe, transformer  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.telemetry import spec as telemetry_spec  # noqa: E402
 from repro_torch.telemetry import timing  # noqa: E402
 from repro_torch.workloads import device as device_workloads  # noqa: E402
@@ -1764,6 +1795,8 @@ CHECK_PROMPT, CHECK_NEW = 128, 4
 SERVE_LOGIT_TOL = 0.125
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:42"  # _flash_kernel
+#: SDPA's backends by the number its dispatch (``torch._fused_sdp_choice``) returns
+SDP_BACKENDS = {int(b): name for name, b in SDPBackend.__members__.items()}
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet)
 BF16_FLOPS_PER_S = energy.H100_SXM_PEAK_BF16_FLOPS
 #: torch.cuda._sleep's cycles a second: the H100's top SM clock (1,980 MHz), so a sleep is at least as
@@ -1801,9 +1834,12 @@ FLASH_SWEEP = (
     (1, 15, 5, 1, 48, 64, False, None),
     (8, 32, 32, 1, 300, 64, False, None),
     (2, 16, 2, 16, 700, 16, True, 650),
+    (1, 4, 4, 130, 130, 192, True, None),
+    (1, 8, 8, 12, 12, 192, True, None),
 )
-#: the served model's shapes (1, 15, 5, 64): causal prefill at 2,048 and 16,384, decode against a
-#: cache of 2,056 at kv_len 1, 2,049 and 2,056; and a D = 128 prefill
+#: the served models' shapes: smollm's (1, 15, 5, 64), causal prefill at 2,048 and 16,384, decode
+#: against a cache of 2,056 at kv_len 1, 2,049 and 2,056; a D = 128 prefill; and deepseek's MLA
+#: prefill (1, 128, 128, 192) at 2,048
 FLASH_SERVED = (
     (1, 15, 5, 2_048, 2_048, 64, True, None),
     (1, 15, 5, 16_384, 16_384, 64, True, None),
@@ -1811,6 +1847,7 @@ FLASH_SERVED = (
     (1, 15, 5, 1, 2_056, 64, False, 2_049),
     (1, 15, 5, 1, 2_056, 64, False, 2_056),
     (1, 24, 8, 1_024, 1_024, 128, True, None),
+    (1, 128, 128, 2_048, 2_048, 192, True, None),
 )
 #: the wrong version's causal bound: this many keys early (one kernel tile at D = 64)
 FLASH_WRONG_SHIFT = 64
@@ -1883,11 +1920,12 @@ def flash_wrong(q, k, v, causal, kv_len) -> list[tuple[str, torch.Tensor]]:
 
 def flash_checks(seed: int) -> dict:
     """The kernel against its plain version on the card (TF32 off): the SWEEP
-    rows, the kv_len case, the served shapes and a D = 128 prefill, each in
-    float32 and bfloat16; for each served case, what a wrong version reads.
-    Returns the worst error per kernel instance."""
+    rows, the kv_len case, the served shapes, a D = 128 prefill and the D =
+    192 rows (MLA), each in float32 and bfloat16; for each served case, what a
+    wrong version reads. Returns the worst error per kernel instance, and of
+    the D = 192 prefill (``MLA_FLASH_ENTRY``)."""
     t0 = time.perf_counter()
-    worst = dict.fromkeys(flash.INSTANCES, 0.0)
+    worst = dict.fromkeys(flash.INSTANCES + (MLA_FLASH_ENTRY,), 0.0)
     cases = [(c, dt, c in FLASH_SERVED) for c in FLASH_SWEEP + FLASH_SERVED for dt in (torch.float32, torch.bfloat16)]
     for i, ((b, h, kh, sq, skv, d, causal, kv_len), dtype, served) in enumerate(cases):
         t1 = time.perf_counter()
@@ -1900,6 +1938,8 @@ def flash_checks(seed: int) -> dict:
         ratio = tol_ratio(got, want, tol)
         instance = flash.instance_of(sq)
         worst[instance] = max(worst[instance], err)
+        if d == 192 and instance == flash.INSTANCES[0]:
+            worst[MLA_FLASH_ENTRY] = max(worst[MLA_FLASH_ENTRY], err)
         text = ""
         for what, wrong in (flash_wrong(q, k, v, causal, kv_len or skv) if served else []):
             late = slice(sq // 2, sq) if causal else None
@@ -2099,6 +2139,257 @@ def serve_check(model, seed: int) -> dict:
     return dict(errs=errs)
 
 
+# ------------------------------------------------------------ MoE/MLA serving
+MOE_ARCH = "deepseek-v2-236b"
+#: depth cut to 4 of 60 layers (the dense first layer and 3 MoE layers) at the published widths
+MOE_LAYERS = 4
+#: the reference's ``build(cfg).n_params`` at that depth (26.6 GB in bf16)
+MOE_PARAMS = 13_302_903_808
+#: 8 requests over 4 objects (the reference launcher's trace, zipf.sample_trace(4, 8, seed=1)),
+#: a content cache of 2 objects under plfua
+MOE_OBJECTS, MOE_REQUESTS, MOE_CACHE_OBJECTS = 4, 8, 2
+#: the card-vs-CPU check: the served model's first 2 layers (the dense layer and one MoE layer,
+#: 10.7 GB in bf16), a 256-token prompt and CHECK_NEW decode steps
+MOE_CHECK_LAYERS, MOE_CHECK_PROMPT = 2, 256
+#: its logit tolerance: 8 bf16 ulps at the logits' magnitude (|logit| < 8, ulp 2**-5 in [4, 8)).
+#: As for smollm, the card's kernel keeps p in f32 where the CPU rounds it to bf16 before P V,
+#: and the two round bf16 matmuls differently; here D = 192, 128 heads and the MoE products add
+#: their own roundings, and the logits are about twice smollm's.
+MOE_LOGIT_TOL = 0.25
+#: the flash kernel's shape on MLA's prefill: (B, H, KH, Sq, Skv, D, causal, kv_len)
+MLA_FLASH_SHAPE = (1, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, True, None)
+MLA_FLASH_ENTRY = "flash_attention/prefill (MLA, D=192)"
+
+
+def decode_weight_bytes(model) -> int:
+    """The bytes of weights one decode token reads: every parameter but the
+    embedding table, of which it reads one row. The MoE layers' capacity
+    buffers multiply every expert, so all of them count."""
+    embed = model.embed
+    return sum(p.numel() * p.element_size() for p in model.parameters()) - (embed.numel() - embed.shape[1]) * embed.element_size()
+
+
+def moe_serve(seed: int, card) -> tuple[object, dict]:
+    """deepseek-v2-236b at its published widths, cut to MOE_LAYERS layers, served
+    behind the content cache with the flash counts set to 0 just before and read
+    just after: every MLA prefill on the kernel (D = 192), MLA's decode on the
+    latent cache in plain PyTorch (no launch). Then its prefill ms, decode ms a
+    token, and the device's idle share over one decode token."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    model = build(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(seed))
+    require(model.n_params == MOE_PARAMS and sum(p.numel() for p in model.parameters()) == MOE_PARAMS,
+            f"deepseek cut to {MOE_LAYERS} layers holds {model.n_params} parameters, not {MOE_PARAMS}")
+    require([d.ffn for d in model.descs] == ["dense"] + ["moe"] * (MOE_LAYERS - 1)
+            and all(d.mixer == "mla" for d in model.descs), f"layer kinds {model.descs}")
+    torch.cuda.synchronize()
+    t_built = time.perf_counter()
+    rng = np.random.default_rng(seed + 3)
+    prompts = {i: rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32) for i in range(MOE_OBJECTS)}
+    trace = zipf.sample_trace(MOE_OBJECTS, MOE_REQUESTS, seed=SERVE_TRACE_SEED)
+    reqs = [serving.Request(int(x), prompts[int(x)], SERVE_NEW) for x in trace]
+    cache = serving.ContentCache(MOE_CACHE_OBJECTS, policy=SERVE_POLICY, n_objects=MOE_OBJECTS)
+    engine = serving.ServeEngine(model, SERVE_CACHE_LEN, content_cache=cache)
+    for instance in flash.LAUNCHES:
+        flash.LAUNCHES[instance] = 0
+    out = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    t_served = time.perf_counter()
+    misses = cache.stats.misses
+    require(launches == {flash.INSTANCES[0]: cfg.n_layers * misses, flash.INSTANCES[1]: 0},
+            f"MoE/MLA launches {launches}, expected {cfg.n_layers} layers x {misses} prefills and no decode launch")
+    require(cache.stats.hits > 0 and engine.stats.prefill_tokens_saved == cache.stats.hits * SERVE_PROMPT,
+            f"the content cache never hit, or saved the wrong count: {engine.report()}")
+    first = {}
+    for r in out:
+        require(len(r.new_tokens) == SERVE_NEW and all(0 <= x < cfg.vocab_size for x in r.new_tokens),
+                f"bad tokens for object {r.obj_id}: {r.new_tokens}")
+        if not r.prefill_skipped:
+            first.setdefault(r.obj_id, r.new_tokens)
+    require(all(r.new_tokens == first[r.obj_id] for r in out if r.prefill_skipped),
+            "a hit's tokens differ from its object's first serve")
+
+    tokens = torch.as_tensor(reqs[0].tokens, device="cuda")[None, :]
+    prefill_ms = events_ms(lambda: model.prefill({"tokens": tokens}, SERVE_CACHE_LEN), 2)
+    logits, kv = model.prefill({"tokens": tokens}, SERVE_CACHE_LEN)
+    first_logits = logits[:, -1, :].clone()
+    del logits
+
+    def decode_request():
+        nxt_logits = first_logits
+        for t in range(SERVE_NEW):
+            nxt = torch.argmax(nxt_logits, dim=-1)
+            int(nxt[0])  # the engine's host read of each token
+            nxt_logits, _ = model.decode_step(kv, nxt[:, None], SERVE_PROMPT + t)
+
+    decode_ms = events_ms(decode_request, 2) / SERVE_NEW
+    nxt = torch.argmax(first_logits, dim=-1)[:, None]
+    trace = timing.profile(model.decode_step, kv, nxt, SERVE_PROMPT, profile_dir=None)
+    weight_bytes = decode_weight_bytes(model)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    expert_bytes = 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 2
+    print(f"[moe serve] arch={cfg.name} layers={cfg.n_layers} of 60 (dense first layer + {cfg.n_layers - 1} MoE) "
+          f"n_params={model.n_params} d_model={cfg.d_model} heads={cfg.n_heads} q_lora={cfg.q_lora_rank} "
+          f"kv_lora={cfg.kv_lora_rank} nope/rope/v={cfg.nope_head_dim}/{cfg.rope_head_dim}/{cfg.v_head_dim} "
+          f"experts={cfg.n_experts} top_k={cfg.experts_per_token} shared={cfg.n_shared_experts} "
+          f"expert_d_ff={cfg.moe_d_ff} dense_d_ff={cfg.d_ff} vocab={cfg.vocab_size} compute={cfg.compute_dtype} "
+          f"requests={MOE_REQUESTS} objects={MOE_OBJECTS} prompt={SERVE_PROMPT} max_new={SERVE_NEW} "
+          f"policy={SERVE_POLICY} cache_objects={MOE_CACHE_OBJECTS} chr={cache.stats.chr} "
+          f"tokens_saved={engine.stats.prefill_tokens_saved} prefills={misses} launches={json.dumps(launches)} "
+          f"(= {cfg.n_layers} layers x {misses} prefills) hit_tokens_equal_first_serve=True "
+          f"build_s={t_built - t0:.3f} serve_wall_s={t_served - t_built:.3f} card={card.label!r}", flush=True)
+    print(f"[moe measure] prefill_ms={prefill_ms} prefill_tokens_per_s={SERVE_PROMPT / prefill_ms * 1e3} "
+          f"decode_ms_per_token={decode_ms} decode_weight_bytes={weight_bytes} "
+          f"(a MoE layer's experts {expert_bytes}, all read through the capacity buffers) "
+          f"decode_bytes_bound_ms={bound_ms} decode_trace_kernels={trace.kernels} decode_busy_s={trace.busy_s} "
+          f"decode_span_s={trace.span_s} decode_idle_share={trace.idle_share} power_limit_w={card.power_limit_w} "
+          f"card={card.label!r} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    require(trace.kernels > 0 and math.isfinite(prefill_ms) and math.isfinite(decode_ms), "MoE/MLA measure")
+    return model, launches
+
+
+def moe_routes(model, tokens: np.ndarray, fed: list, cache_len: int) -> torch.Tensor:
+    """Each MoE layer's top-k experts (sorted) for every prompt token and each
+    fed token, read through the route step (``moe.route``) on the input the
+    layer's FFN gets, by running the model's layer functions by hand: a
+    prefill over the prompt, then one decode step a fed token. Stops after
+    the last MoE layer's route. Returns (positions, MoE layers, k) on the CPU."""
+    cfg, p = model.cfg, model.params()
+    last = max(i for i, d in enumerate(model.descs) if d.ffn == "moe")
+    caches = {}
+
+    def run(x, pos):
+        picked = []
+        for i, desc in enumerate(model.descs[:last + 1]):
+            lp = p["layers"][i]
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if pos is None:
+                mix, caches[i] = attention.mla_prefill(lp["mixer"], h, cfg, cache_len)
+            else:
+                mix, _ = attention.mla_decode(lp["mixer"], h, caches[i], pos, cfg)
+            x = x + mix
+            if desc.ffn == "moe":
+                ids = moe.route(lp["ffn"]["router"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.experts_per_token)[1]
+                picked.append(ids.sort(dim=-1).values[0].cpu())
+            if i < last:
+                x = transformer.sublayer_ffn(cfg, desc, lp, x)
+        return torch.stack(picked, dim=1)
+
+    with torch.no_grad():
+        out = [run(p["embed"][torch.as_tensor(tokens, device=model.device).long()[None, :]], None)]
+        for t, tok in enumerate(fed):
+            out.append(run(p["embed"][torch.tensor([[tok]], device=model.device)], len(tokens) + t))
+    return torch.cat(out)
+
+
+def kept_experts(routes: torch.Tensor, n_prompt: int, n_experts: int, cap: int) -> torch.Tensor:
+    """(positions, MoE layers, E) bool: the experts that keep each token's
+    copy, from ``moe_routes``' choices: the prompt is one dispatch, where a
+    copy is kept if fewer than ``cap`` earlier tokens chose its expert; each
+    decode token is one of its own (C = 8 >= k: all kept)."""
+    onehot = torch.zeros(*routes.shape[:2], n_experts, dtype=torch.bool).scatter_(-1, routes, True)
+    prompt = onehot[:n_prompt]
+    earlier = prompt.long().cumsum(dim=0) - prompt.long()
+    return torch.cat([prompt & (earlier < cap), onehot[n_prompt:]])
+
+
+def moe_steps(model, tokens: np.ndarray, cache_len: int, forced=None) -> tuple[torch.Tensor, list, list]:
+    """Prefill's logits at every prompt position, then CHECK_NEW decode steps'
+    logits (greedy, or fed ``forced``), through the entry points."""
+    logits, cache = model.prefill({"tokens": tokens[None, :]}, cache_len)
+    prefill = logits[0].float().cpu()
+    del logits
+    steps, fed = [], []
+    nxt_logits = prefill[-1]
+    for t in range(CHECK_NEW):
+        nxt = int(nxt_logits.argmax()) if forced is None else forced[t]
+        fed.append(nxt)
+        nxt_logits, cache = model.decode_step(cache, torch.tensor([[nxt]], device=model.device), len(tokens) + t)
+        nxt_logits = nxt_logits[0].float().cpu()
+        steps.append(nxt_logits)
+    return prefill, steps, fed
+
+
+def moe_check(model, seed: int) -> None:
+    """The served model's first MOE_CHECK_LAYERS layers on the card (its own
+    weights, no copy) and on the CPU (a copy, the plain path), the CPU fed
+    the card's greedy tokens: the logits at every prompt position and each
+    decode step within MOE_LOGIT_TOL wherever the two sides' routing agrees
+    (the one MoE layer is the last, so a token routed differently moves only
+    its own logits, and its kept copies agree too: a token routed
+    differently shifts the capacity drops of its experts' later copies), the
+    count of tokens whose top-k sets or kept copies differ, and a
+    wrong version (the experts' w_gate and w_up swapped, on the card) that
+    the tolerance must reject."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model.cfg, n_layers=MOE_CHECK_LAYERS)
+    kept = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < MOE_CHECK_LAYERS}
+    card = build(cfg, device="meta")
+    card.load_state_dict(kept, assign=True)
+    require([d.ffn for d in card.descs] == ["dense", "moe"], f"the check's layers {card.descs}")
+    tokens = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, MOE_CHECK_PROMPT).astype(np.int32)
+    cache_len = MOE_CHECK_PROMPT + CHECK_NEW
+    card_prefill, card_steps, fed = moe_steps(card, tokens, cache_len)
+    card_routes = moe_routes(card, tokens, fed, cache_len)
+    wrong = build(cfg, device="meta")
+    experts = {f"layers.{i}.ffn.w_gate": f"layers.{i}.ffn.w_up" for i, d in enumerate(card.descs) if d.ffn == "moe"}
+    experts.update({v: k for k, v in experts.items()})
+    swapped = {experts.get(k, k): v for k, v in kept.items()}
+    wrong.load_state_dict(swapped, assign=True)
+    wrong_prefill, wrong_steps, _ = moe_steps(wrong, tokens, cache_len, forced=fed)
+    del wrong, swapped
+    torch.cuda.synchronize()
+    t_card = time.perf_counter()
+
+    cpu = build(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in kept.items()}, assign=True)
+    require(cpu.device.type == "cpu", "the check's CPU model")
+    t_copy = time.perf_counter()
+    cpu_prefill, cpu_steps, _ = moe_steps(cpu, tokens, cache_len, forced=fed)
+    t_cpu = time.perf_counter()
+    cpu_routes = moe_routes(cpu, tokens, fed, cache_len)
+    t_routes = time.perf_counter()
+    del cpu, card
+
+    agree = (card_routes == cpu_routes).all(dim=-1).all(dim=-1)  # (positions,)
+    n_pos = MOE_CHECK_PROMPT
+    cap = moe._capacity(n_pos, cfg)
+    same_drops = (kept_experts(card_routes, n_pos, cfg.n_experts, cap)
+                  == kept_experts(cpu_routes, n_pos, cfg.n_experts, cap)).all(dim=-1).all(dim=-1)
+    n_drops_differ = int((agree & ~same_drops).sum())
+    agree &= same_drops
+    held = agree[:n_pos]
+    errs = [float((card_prefill - cpu_prefill).abs().amax(dim=-1)[held].max())]
+    wrong_errs = [float((wrong_prefill - cpu_prefill).abs().amax(dim=-1)[held].max())]
+    for t, (a, b, w) in enumerate(zip(card_steps, cpu_steps, wrong_steps)):
+        if agree[n_pos + t]:
+            errs.append(float((a - b).abs().max()))
+            wrong_errs.append(float((w - b).abs().max()))
+    compared = 0
+    for a, b in zip(card_steps, cpu_steps):
+        top2 = b.topk(2).values
+        if float(top2[0] - top2[1]) > MOE_LOGIT_TOL:
+            compared += 1
+            require(int(a.argmax()) == int(b.argmax()), "card and CPU pick different tokens at a clear margin")
+    n_differ = int((~agree).sum()) - n_drops_differ
+    print(f"[moe check] arch={cfg.name} layers={MOE_CHECK_LAYERS} (dense + 1 MoE, the served model's first) "
+          f"prompt={MOE_CHECK_PROMPT} max_new={CHECK_NEW} card_tokens={fed} "
+          f"routing_differs_tokens={n_differ} of {len(agree)} (top-{cfg.experts_per_token} sets, read through "
+          f"the route step on each side) drops_differ_tokens={n_drops_differ} (routed alike, a copy kept on one "
+          f"side only: C = {cap}) held_positions={int(held.sum())} of {n_pos} held_decode_steps={len(errs) - 1} "
+          f"max_abs_err_prefill={errs[0]} max_abs_err_by_step={errs[1:]} tolerance={MOE_LOGIT_TOL} "
+          f"max_abs_logit={float(cpu_prefill.abs().max())} tokens_compared={compared} "
+          f"wrong_version='experts w_gate and w_up swapped' wrong_max_abs_err={max(wrong_errs)} "
+          f"card_s={t_card - t0:.3f} cpu_copy_s={t_copy - t_card:.3f} cpu_s={t_cpu - t_copy:.3f} "
+          f"routes_cpu_s={t_routes - t_cpu:.3f} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    require(held.sum() > n_pos // 2, f"the routing differs at {n_differ} tokens: too few held")
+    require(max(errs) <= MOE_LOGIT_TOL and all(math.isfinite(e) for e in errs),
+            f"card logits differ from the CPU's by {max(errs)} > {MOE_LOGIT_TOL}")
+    require(max(wrong_errs) > MOE_LOGIT_TOL, f"the tolerance does not reject swapped experts: {max(wrong_errs)}")
+
+
 def events_ms(fn, repeats: int) -> float:
     """Mean device ms of ``fn`` over ``repeats`` calls between two CUDA events,
     after one warm-up call."""
@@ -2152,20 +2443,27 @@ def flash_bound(h, kh, sq, kv_len, d, causal, elem_bytes) -> dict:
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def flash_measure(seed: int, worst: dict, by_instance: dict, sms: int) -> list[dict]:
-    """The kernel at the served shapes (causal prefill at 2,048; decode at
-    kv_len 2,056), its plain version and SDPA (timed only, never called by
-    the port), device times with the host ahead; the prefill at 16,384 too
-    (the kernel and SDPA only).
-    Returns the ``kernels`` line's flash entries (the served shapes)."""
+#: smollm's served shapes (causal prefill at 2,048; decode at kv_len 2,056), and its prefill at
+#: 16,384 (printed only): (entry name, instance, shape)
+SMOLLM_FLASH_SHAPES = (
+    (flash.INSTANCES[0], flash.INSTANCES[0], (1, 15, 5, SERVE_PROMPT, SERVE_PROMPT, 64, True, None)),
+    (flash.INSTANCES[1], flash.INSTANCES[1], (1, 15, 5, 1, SERVE_CACHE_LEN, 64, False, SERVE_CACHE_LEN)),
+    (None, flash.INSTANCES[0], (1, 15, 5, LONG_PROMPT, LONG_PROMPT, 64, True, None)),
+)
+
+
+def flash_measure(seed: int, worst: dict, by_instance: dict, sms: int, shapes=SMOLLM_FLASH_SHAPES) -> list[dict]:
+    """The kernel at ``shapes`` (smollm's served ones by default; deepseek's
+    MLA prefill), its plain version and SDPA (timed only, never called by the
+    port), device times with the host ahead. Returns the ``kernels`` line's
+    entries: one a shape with an entry name, its launches ``by_instance[name]``."""
     entries = []
-    shapes = [(flash.INSTANCES[0], (1, 15, 5, SERVE_PROMPT, SERVE_PROMPT, 64, True, None)),
-              (flash.INSTANCES[1], (1, 15, 5, 1, SERVE_CACHE_LEN, 64, False, SERVE_CACHE_LEN)),
-              (flash.INSTANCES[0], (1, 15, 5, LONG_PROMPT, LONG_PROMPT, 64, True, None))]
-    for instance, (b, h, kh, sq, skv, d, causal, kv_len) in shapes:
+    for entry, instance, (b, h, kh, sq, skv, d, causal, kv_len) in shapes:
         q, k, v = flash_inputs(b, h, kh, sq, skv, d, torch.bfloat16, seed)
         kernel = device_ms(lambda: flash.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len), 50)
         library = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True), 50)
+        # the backend SDPA's own dispatch picks for these inputs
+        sdpa_backend = SDP_BACKENDS[torch._fused_sdp_choice(q, k, v, is_causal=causal, enable_gqa=True)]
         require(kernel["ahead"] and library["ahead"], f"the host fell behind the device timing {instance} at Sq={sq}")
         kernel_ms, library_ms = kernel["ms"], library["ms"]
         # the plain version at the kernels line's shapes only
@@ -2178,18 +2476,20 @@ def flash_measure(seed: int, worst: dict, by_instance: dict, sms: int) -> list[d
             require(blocks > b * h, f"the decode runs {blocks} blocks, not more than B * H = {b * h}")
             grid = (f" blocks={blocks} (B*KH={b * kh} x row_groups={row_groups} x splits={n_split} of "
                     f"{split_keys} keys) rows_a_block={h // kh * sq} (B*H={b * h})")
-        print(f"[flash measure] instance={instance} B={b} H={h} KH={kh} Sq={sq} Skv={skv} kv_len={kv_len or skv} "
+        print(f"[flash measure] entry={entry} instance={instance} B={b} H={h} KH={kh} Sq={sq} Skv={skv} kv_len={kv_len or skv} "
               f"D={d} causal={causal} dtype=bfloat16 ms={kernel_ms} host_us={kernel['host_us']} "
               f"back_to_back_ms={kernel['back_to_back_ms']} plain_ms={plain_ms} sdpa_ms={library_ms} "
               f"sdpa_host_us={library['host_us']} sdpa_back_to_back_ms={library['back_to_back_ms']} "
+              f"sdpa_backend={sdpa_backend} "
               f"bound_ms={bnd['bound_ms']} bound_by={bnd['bound_by']} flops={bnd['flops']} bytes={bnd['bytes']} "
               f"tflops={bnd['flops'] / kernel_ms / 1e9} gb_per_s={bnd['bytes'] / kernel_ms / 1e6}{grid}", flush=True)
-        if sq == LONG_PROMPT:
+        if entry is None:
             continue  # printed only: the kernels line holds the served shapes
         entries.append({
-            "name": instance, "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-            "launches": by_instance[instance], "max_abs_err": worst[instance], "ms": kernel_ms, "plain_ms": plain_ms,
+            "name": entry, "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+            "launches": by_instance[entry], "max_abs_err": worst[entry], "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": library_ms,
+            "library": f"scaled_dot_product_attention ({sdpa_backend})",
             "shape": [b, h, kh, sq, skv, d], "kv_len": kv_len or skv, "causal": causal,
         })
     return entries
@@ -2325,6 +2625,9 @@ def main() -> int:
         require(len(hgmma) == len(flash.HEAD_DIMS) and all(n > 0 for n in hgmma.values()),
                 f"a bf16 prefill kernel without wgmma in its SASS: {hgmma}")
         print(f"[build] flash bf16 prefill HGMMA instructions by kernel: {json.dumps(hgmma)}")
+        for line in ptxas_report(flash_lib.result()):
+            if "Li192E" in line:  # MLA's head dim: registers and spill stores of each D = 192 kernel
+                print(f"[build] flash D=192 {line}")
         print(f"[build] sources={len(built)} programs={len(kernel.PROGRAMS)} + flash_attention "
               f"elapsed_s={time.perf_counter() - t0:.3f}")
 
@@ -2525,8 +2828,23 @@ def main() -> int:
     # 15. measure: the kernel at the served shapes beside its bound, plain version and SDPA; the engine
     entries += flash_measure(seed, worst, by_instance, sms)
     serve_measure(model, seed, card)
+    del model
+    torch.cuda.empty_cache()
 
-    # 16. kernels
+    # 16. MoE/MLA serve: deepseek-v2-236b at its published widths, 4 of 60 layers, behind the content
+    # cache, every MLA prefill on the kernel at D = 192; 17. its card-vs-CPU check on 2 layers
+    t0 = time.perf_counter()
+    model, moe_launches = moe_serve(seed, card)
+    moe_check(model, seed)
+    del model
+    torch.cuda.empty_cache()
+    t_moe = time.perf_counter() - t0
+    entries += flash_measure(seed, worst, {MLA_FLASH_ENTRY: moe_launches[flash.INSTANCES[0]]}, sms,
+                             shapes=((MLA_FLASH_ENTRY, flash.INSTANCES[0], MLA_FLASH_SHAPE),))
+    print(f"[moe] serve + check elapsed_s={t_moe:.3f} with the MLA flash measure "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    # 18. kernels
     print(json.dumps({"kernels": entries}))
     print(f"[total] host_cpu={host_cpu()!r} elapsed_s={time.perf_counter() - t_start:.3f}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -18,14 +18,17 @@
 //   once and the K and V tiles (64 keys) into a ring of two stages with TMA, through 4-d
 //   tensor maps (D, S, heads, B) built from the element strides, so the model's transposed
 //   views load as they lie; rows past Sq or Skv arrive as zeros. Rows of more than 128 bytes
-//   (D = 128) are two 64-column boxes; each box is swizzled at its row width (32, 64 or
-//   128 B). Each consumer runs S = Q K^T as wgmma (both operands K-major in shared memory, f32
+//   are 64-column boxes, D / 64 of them (two at D = 128, three at MLA's D = 192: Q 48 KB and
+//   a K/V stage 48 KB, 145 KB with two stages); each box is swizzled at its row width (32,
+//   64 or 128 B). Each consumer runs S = Q K^T as wgmma (both operands K-major in shared memory, f32
 //   accumulator), scales by scale * log2 e after the product, masks, and keeps the online
 //   max and sum in f32 (2^x by the SFU's ex2.approx). P V is two wgmmas into one f32
 //   accumulator, P_hi = bf16(p) and P_lo = bf16(p - P_hi) from registers (the S
 //   accumulator's fragment is the A fragment's layout) and V from shared memory, MN-major
-//   (the transpose bit): p keeps about 16 bits, where one bf16 rounding of p would break the
-//   kernel's tolerance of one output rounding. That costs 6 D flops a pair, not 4 D. Each
+//   (the transpose bit), one m64n64 product a 64-column box of V (three at D = 192: N = 192
+//   in all, a 96-float accumulator a thread): p keeps about 16 bits, where one bf16 rounding
+//   of p would break the kernel's tolerance of one output rounding. That costs 6 D flops a
+//   pair, not 4 D. Each
 //   warpgroup runs its tile's S, softmax and P V in turn; the two warpgroups overlap each
 //   other. Causal tiles past the block's last row are skipped, and the heaviest row tiles
 //   start first.
@@ -34,13 +37,17 @@
 //   P = D / 32 threads (P = 1 for D <= 32), 128 / P rows a block, each kv tile (128 / P keys)
 //   staged in shared memory as f32, rows padded to D + 4 floats and each thread's 32-dim
 //   slice rotated by its part, so that 16-byte reads of one quarter-warp fall in distinct
-//   banks.
+//   banks. At D = 192 a row is split over P = 4 threads of 48 dims (32 rows a block: six
+//   parts would neither divide the block nor reduce by shuffles), and a kv tile is 16 keys,
+//   so that two tiles fit the 48 KB of static shared memory.
 // * decode, both dtypes (`decode_kernel`, at most 16 query rows): bound by the bytes of the
 //   KV cache. A block takes all G * Sq query rows of one kv head (G = H / KH; in groups of
 //   32 rows beyond that), so each K/V byte is read once and not G times, over one contiguous
 //   split of the live keys; the wrapper picks the splits so that the blocks fill the SMs. K
 //   and V rows come in with 16-byte cp.async copies into a two-stage ring (rows padded by 16
-//   bytes: conflict-free row reads); scores, softmax and P V on the CUDA cores in f32. Each
+//   bytes: conflict-free row reads; 128, 64 or 32 keys a tile by the row's bytes, so that
+//   the ring fits shared memory up to f32 at D = 192); scores, softmax and P V on the CUDA
+//   cores in f32. Each
 //   block writes its partial (m, l, acc) for each row to an f32 scratch; the last block of a
 //   (b, kv head, row group), found by a counter that it resets to 0 for the next launch,
 //   merges them. With one split the block writes the output itself.
@@ -72,24 +79,25 @@ constexpr int kThreads = 128;
 
 template <int D>
 struct Shape {
-  static constexpr int kSlice = D < 32 ? D : 32;          // dims a thread holds
-  static constexpr int kParts = D / kSlice;               // threads a row is split over
+  static constexpr int kSlice = D < 32 ? D : D == 192 ? 48 : 32;  // dims a thread holds
+  static constexpr int kParts = D / kSlice;               // threads a row is split over (a power of 2)
   static constexpr int kRows = kThreads / kParts;         // query rows a block
-  static constexpr int kTile = kThreads / kParts;         // keys a kv tile
-  static constexpr int kChunk = kTile < 32 ? kTile : 32;  // scores in registers
   static constexpr int kStride = D + 4;                   // smem floats a key
+  // keys a kv tile: as many as the block has rows, halved where two tiles would pass 48 KB
+  static constexpr int kTile = 2 * kRows * kStride * 4 <= 48 * 1024 ? kRows : kRows / 2;
+  static constexpr int kChunk = kTile < 32 ? kTile : 32;  // scores in registers
   static constexpr int kRotate = kParts > 1 ? 32 / kParts : 0;  // bank rotation a part
   static constexpr int kSmemFloats = 2 * kTile * kStride;
-  static constexpr int kRowsPerPass = kThreads / D;          // keys the block stages a pass
-  static constexpr int kLoads = kTile / kRowsPerPass;        // K (and V) elements a thread stages
-  static constexpr int kBatch = kLoads < 16 ? kLoads : 16;   // loads in flight, of each
-  static_assert(kThreads % D == 0 && kLoads % kBatch == 0, "a tile splits evenly over the threads");
+  static constexpr int kLoads = kTile * D / kThreads;        // K (and V) elements a thread stages
+  static constexpr int kBatch = kLoads % 16 == 0 ? 16 : 8;   // loads in flight, of each
+  static_assert((kParts & (kParts - 1)) == 0 && kSlice % 4 == 0, "a row splits into 16-byte groups");
+  static_assert(kTile * D % kThreads == 0 && kLoads % kBatch == 0, "a tile splits evenly over the threads");
 
   // shared-memory index of dim d of tile key j
   __device__ static __forceinline__ int index(int j, int d) {
     const int part = d / kSlice;
     const int dl = d % kSlice;
-    return j * kStride + part * kSlice + ((dl + part * kRotate) & (kSlice - 1));
+    return j * kStride + part * kSlice + (dl + part * kRotate) % kSlice;
   }
 
   // dims 4i .. 4i + 3 of part `part` of tile key j: contiguous and 16-byte aligned, as
@@ -137,28 +145,26 @@ prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, con
 
   const float* k_head = k + b * ks.b + kh * ks.h;
   const float* v_head = v + b * vs.b + kh * vs.h;
-  const int ld = t % D, lr = t / D;  // the dim and first key this thread stages
   for (int k0 = 0; k0 < kv_end; k0 += S::kTile) {
     __syncthreads();  // the previous tile's readers are done
-    // each thread stages dim `ld` of every kRowsPerPass-th key from `lr`, kBatch of K and kBatch
-    // of V in flight at a time (the loop over batches stays rolled, to spare registers)
-    const float* k_col = k_head + (long long)(k0 + lr) * ks.s + ld;
-    const float* v_col = v_head + (long long)(k0 + lr) * vs.s + ld;
+    // the block stages the tile's elements in order, element x = t + n * kThreads (key x / D,
+    // dim x % D), kBatch of K and kBatch of V in flight at a time (the loop over batches stays
+    // rolled, to spare registers)
 #pragma unroll 1
     for (int i0 = 0; i0 < S::kLoads; i0 += S::kBatch) {
       float kx[S::kBatch], vx[S::kBatch];
 #pragma unroll
       for (int i = 0; i < S::kBatch; ++i) {
-        const int r = (i0 + i) * S::kRowsPerPass;
-        const bool in = k0 + lr + r < kv_live;
-        kx[i] = in ? k_col[(long long)r * ks.s] : 0.f;
-        vx[i] = in ? v_col[(long long)r * vs.s] : 0.f;
+        const int x = t + (i0 + i) * kThreads, j = x / D, d = x % D;
+        const bool in = k0 + j < kv_live;
+        kx[i] = in ? k_head[(long long)(k0 + j) * ks.s + d] : 0.f;
+        vx[i] = in ? v_head[(long long)(k0 + j) * vs.s + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < S::kBatch; ++i) {
-        const int j = lr + (i0 + i) * S::kRowsPerPass;
-        k_s[S::index(j, ld)] = kx[i];
-        v_s[S::index(j, ld)] = vx[i];
+        const int x = t + (i0 + i) * kThreads;
+        k_s[S::index(x / D, x % D)] = kx[i];
+        v_s[S::index(x / D, x % D)] = vx[i];
       }
     }
     __syncthreads();
@@ -241,7 +247,7 @@ constexpr int kThreads = kConsumers * 128 + 32;  // and one producer warp
 
 template <int D>
 struct Cfg {
-  static constexpr int kSub = D > 64 ? 2 : 1;       // 64-column boxes a row
+  static constexpr int kSub = D > 64 ? D / 64 : 1;  // 64-column boxes a row
   static constexpr int kCols = D / kSub;            // columns a box
   static constexpr int kRowBytes = kCols * 2;       // 32, 64 or 128: the swizzle span
   static constexpr int kQSub = kRows * kRowBytes;   // bytes of one Q box
@@ -253,6 +259,7 @@ struct Cfg {
   static constexpr uint32_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;  // descriptor swizzle
   static constexpr uint32_t kAtom = 8 * kRowBytes;  // bytes between 8-row groups (the SBO)
   static_assert(kQSub % 1024 == 0 && kKVSub % 1024 == 0, "tiles stay aligned to the 1,024-byte swizzle atom");
+  static_assert(kSub * kCols == D && kSmem <= 232448, "a row is whole boxes, and the tiles fit shared memory");
 };
 
 template <int D>
@@ -507,7 +514,7 @@ constexpr int kMergeBatch = 8;   // partials the merge loads at once
 
 template <typename T, int D>
 struct Cfg {
-  static constexpr int kKeys = sizeof(T) * D <= 256 ? 128 : 64;  // keys a tile
+  static constexpr int kKeys = sizeof(T) * D <= 256 ? 128 : sizeof(T) * D <= 512 ? 64 : 32;  // keys a tile
   static constexpr int kVec = 16 / sizeof(T);                      // elements a 16-byte copy
   static constexpr int kStride = D + kVec;   // smem elements a key row: a 16-byte shift a row
   static constexpr int kVecs = D / kVec;     // 16-byte copies a key row
@@ -517,6 +524,7 @@ struct Cfg {
   static constexpr int kTileElems = kKeys * kStride;    // one K (or V) tile
   static constexpr int kSmem = 4 * kTileElems * (int)sizeof(T) + (kRows * D + kRows * kKeys + 3 * kRows) * 4;
   static_assert(4 * kTileElems * (int)sizeof(T) >= kMaxSplits * kRows * 4, "the merge's weights fit the tiles");
+  static_assert(kSmem <= 232448, "the ring and the row state fit shared memory");
 };
 
 template <typename T, int D>
@@ -820,6 +828,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       break;
     case 128:
       err = launch_d<128>(q, k, v, o, qs, ks, vs, os, batch, n_heads, n_kv_heads, sq, skv, kv_len, causal,
+                          scale_log2, dtype, decode, n_split, split_keys, scratch, counters, st);
+      break;
+    case 192:  // MLA's nope + rope (deepseek-v2)
+      err = launch_d<192>(q, k, v, o, qs, ks, vs, os, batch, n_heads, n_kv_heads, sq, skv, kv_len, causal,
                           scale_log2, dtype, decode, n_split, split_keys, scratch, counters, st);
       break;
     default:

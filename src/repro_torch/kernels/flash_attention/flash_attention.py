@@ -40,8 +40,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import naive_attention
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
-#: head dims the kernel is instantiated for (every dense config's, and the tests')
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel is instantiated for (every dense config's, the tests', and MLA's
+#: nope + rope, 192, at which deepseek-v2's prefill runs)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: at most this many query rows run the decode instance
 DECODE_MAX_ROWS = 16

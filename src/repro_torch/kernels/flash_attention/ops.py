@@ -16,7 +16,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     they must be positive and do not change the output, nor the kernel's
     tiling, which is its own: in bf16, prefill runs wgmma on TMA-staged tiles
     of 128 query rows and 64 keys; in f32, the CUDA cores take ``128 / P``
-    rows and keys a tile (``P = max(1, D / 32)`` threads a row); decode (at
+    rows and keys a tile (``P = max(1, D / 32)`` threads a row; at D = 192,
+    P = 4 and 16 keys a tile); decode (at
     most 16 query rows) takes a kv head's query rows a block and splits its
     live keys over blocks so that they fill the SMs.
     """

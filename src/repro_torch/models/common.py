@@ -1,6 +1,7 @@
 """Shared model machinery: parameter specs, norms, RoPE, MLPs, and attention.
 
-The port of the reference's ``models/common.py`` for the dense GQA models.
+The port of the reference's ``models/common.py`` (what the dense and MoE
+models use).
 Layouts are the reference's: activations ``(B, S, d)``, heads ``(B, S, H, D)``.
 The plain attention functions mirror the reference's jnp code, rounding bf16
 at the same points (``p`` is cast to V's type before the PV product); they

@@ -1,6 +1,7 @@
 """Public model API: ``build(cfg) -> Model`` with init/apply/prefill/decode_step.
 
-The port of the reference's ``models/model.py`` for the dense GQA archs.
+The port of the reference's ``models/model.py`` for the dense and MoE archs
+(GQA and MLA attention).
 ``Model`` is an ``nn.Module`` that holds its parameters (fp32 masters, or
 the config's ``param_dtype``); the reference passes a parameter pytree into
 each call instead. Every forward casts them once into compute-dtype copies
@@ -27,7 +28,7 @@ from repro_torch.models import transformer
 from repro_torch.models.common import ParamSpec, count_params, flatten_specs, init_param, rms_norm
 
 #: families this port runs; the others wait for ROADMAP module 12
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
@@ -42,15 +43,15 @@ def lm_specs(cfg: ModelConfig) -> dict:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port does not run yet."""
-    if (cfg.family not in PORTED_FAMILIES or cfg.use_mla or cfg.n_experts or cfg.ssm_kind
-            or cfg.encoder_decoder or cfg.n_prefix_embeds):
+    if cfg.family not in PORTED_FAMILIES or cfg.ssm_kind or cfg.encoder_decoder or cfg.n_prefix_embeds:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported: the port runs the dense GQA configs only; "
-            "moe, MLA, ssm, hybrid, audio and vlm wait for ROADMAP module 12")
+            f"{cfg.name} ({cfg.family}) is not ported: the port runs the dense and moe configs (GQA and MLA "
+            "attention); ssm, hybrid, audio and vlm wait for ROADMAP module 12")
 
 
 class Model(nn.Module):
-    """A dense GQA decoder LM on ``device`` (``None`` means ``cuda``)."""
+    """A decoder LM (dense or MoE FFNs, GQA or MLA attention) on ``device``
+    (``None`` means ``cuda``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -78,6 +79,23 @@ class Model(nn.Module):
         return count_params(self.param_specs)
 
     @property
+    def n_active_params(self) -> int:
+        """Per-token active params (MoE: routed fraction only). The
+        reference's formula as written: it also takes ``n_shared_experts``
+        routed experts' worth off, though the shared experts are separate
+        weights that every token reads."""
+        cfg = self.cfg
+        if not cfg.n_experts:
+            return self.n_params
+        total = 0
+        f = cfg.moe_d_ff or cfg.d_ff
+        per_expert = 3 * cfg.d_model * f if cfg.act == "swiglu" else 2 * cfg.d_model * f
+        for i in range(cfg.n_layers):
+            if cfg.moe_at(i):
+                total += per_expert * (cfg.n_experts - cfg.experts_per_token - cfg.n_shared_experts)
+        return self.n_params - total
+
+    @property
     def device(self) -> torch.device:
         return self.embed.device
 
@@ -87,9 +105,10 @@ class Model(nn.Module):
 
     def port_specs(self) -> dict[str, ParamSpec]:
         """``{parameter name: ParamSpec}`` in this module's (unstacked) layout."""
-        layer = flatten_specs(transformer.sublayer_specs(self.cfg, transformer.DENSE_GQA))
         specs = {"embed": ParamSpec((self.cfg.vocab_size, self.cfg.d_model), ("vocab", "embed"))}
-        specs.update({f"layers.{i}.{k}": s for i in range(self.cfg.n_layers) for k, s in layer.items()})
+        for i, desc in enumerate(self.descs):
+            layer = flatten_specs(transformer.sublayer_specs(self.cfg, desc))
+            specs.update({f"layers.{i}.{k}": s for k, s in layer.items()})
         specs["ln_f"] = ParamSpec((self.cfg.d_model,), ("embed",), init="ones")
         specs["unembed"] = ParamSpec((self.cfg.d_model, self.cfg.vocab_size), ("embed", "vocab"))
         return specs

@@ -1,12 +1,13 @@
-"""Decoder stack for the dense GQA archs: the port of the reference's
-``models/transformer.py`` (``layer_descs``, ``stack_pattern`` and the dense
-GQA sublayer).
+"""Decoder stack: the port of the reference's ``models/transformer.py``
+(``layer_descs``, ``stack_pattern``, and the sublayer's dispatch on its
+``LayerDesc`` for the ``gqa``/``mla`` mixers and the ``dense``/``moe`` FFNs).
 
 The reference scans stacked blocks with ``lax.scan``; here the stack is an
-``nn.ModuleList`` of :class:`Sublayer`, one a layer, walked by a Python loop.
-The decode cache is stacked as in the reference's ``stack.blocks.0`` leaves:
-``{"k": (L, B, S, KH, D), "v": (L, B, S, KH, D)}``, layer ``i`` reading and
-writing its slice. MoE, MLA, RWKV and Mamba layers wait (ROADMAP module 12).
+``nn.ModuleList`` of :class:`Sublayer`, one a layer (prefix layers included),
+walked by a Python loop. The decode cache is stacked over every layer:
+``{"k": (L, B, S, KH, D), "v": ...}`` for GQA, ``{"ckv": (L, B, S, kv_lora),
+"k_rope": (L, B, S, rope_dim)}`` for MLA, layer ``i`` reading and writing its
+slice. RWKV6, Mamba and cmix layers wait (ROADMAP module 12).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamSpec, flatten_specs, mlp_apply, mlp_specs, rms_norm
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import ParamSpec, mlp_apply, mlp_specs, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,83 +61,122 @@ def stack_pattern(cfg: ModelConfig):
     return prefix, rest[:plen], len(rest) // plen
 
 
-DENSE_GQA = LayerDesc("gqa", "dense")
-
-
-def _require_dense_gqa(desc: LayerDesc) -> None:
-    if desc != DENSE_GQA:
-        raise NotImplementedError(
-            f"layer {desc} is not ported: the port runs dense GQA layers only (ROADMAP module 12)")
+def _unported(what: str):
+    return NotImplementedError(f"{what} layers are not ported: the port runs gqa and mla mixers with dense and "
+                               "moe FFNs; rwkv6, mamba and cmix wait for ROADMAP module 12")
 
 
 # --------------------------------------------------------------- sublayer
 
 
+def _mixer_specs(cfg, desc):
+    if desc.mixer == "gqa":
+        return attn.gqa_specs(cfg)
+    if desc.mixer == "mla":
+        return attn.mla_specs(cfg)
+    raise _unported(desc.mixer)
+
+
+def _ffn_specs(cfg, desc):
+    if desc.ffn == "dense":
+        return mlp_specs(cfg.d_model, cfg.d_ff, cfg.act)
+    if desc.ffn == "moe":
+        return moe_mod.moe_specs(cfg)
+    raise _unported(desc.ffn)
+
+
 def sublayer_specs(cfg: ModelConfig, desc: LayerDesc) -> dict:
-    _require_dense_gqa(desc)
     return {
         "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-        "mixer": attn.gqa_specs(cfg),
+        "mixer": _mixer_specs(cfg, desc),
         "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-        "ffn": mlp_specs(cfg.d_model, cfg.d_ff, cfg.act),
+        "ffn": _ffn_specs(cfg, desc),
     }
 
 
+def sublayer_ffn(cfg, desc, p, x):
+    """The sublayer's second half: ``x + ffn(rms_norm(x))``, dense or MoE."""
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if desc.ffn == "dense":
+        return x + mlp_apply(p["ffn"], h, cfg.act)
+    if desc.ffn == "moe":
+        return x + moe_mod.moe_apply(p["ffn"], h, cfg)
+    raise _unported(desc.ffn)
+
+
 def sublayer_apply(cfg, desc, p, x, *, causal=True):
-    _require_dense_gqa(desc)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_apply(p["mixer"], h, cfg, causal=causal)
-    return x + mlp_apply(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    if desc.mixer == "gqa":
+        mix = attn.gqa_apply(p["mixer"], h, cfg, causal=causal)
+    elif desc.mixer == "mla":
+        mix = attn.mla_apply(p["mixer"], h, cfg, causal=causal)
+    else:
+        raise _unported(desc.mixer)
+    return sublayer_ffn(cfg, desc, p, x + mix)
 
 
 def sublayer_prefill(cfg, desc, p, x, cache_len):
     """Full-sequence pass that also emits this layer's decode cache."""
-    _require_dense_gqa(desc)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix, cache = attn.gqa_prefill(p["mixer"], h, cfg, cache_len)
-    x = x + mix
-    return x + mlp_apply(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act), cache
+    if desc.mixer == "gqa":
+        mix, cache = attn.gqa_prefill(p["mixer"], h, cfg, cache_len)
+    elif desc.mixer == "mla":
+        mix, cache = attn.mla_prefill(p["mixer"], h, cfg, cache_len)
+    else:
+        raise _unported(desc.mixer)
+    return sublayer_ffn(cfg, desc, p, x + mix), cache
 
 
 def sublayer_decode(cfg, desc, p, x, cache, pos):
-    """One token; updates ``cache`` (this layer's K/V views) in place."""
-    _require_dense_gqa(desc)
+    """One token; updates ``cache`` (this layer's views) in place."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix, cache = attn.gqa_decode(p["mixer"], h, cache, pos, cfg)
-    x = x + mix
-    return x + mlp_apply(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act), cache
+    if desc.mixer == "gqa":
+        mix, cache = attn.gqa_decode(p["mixer"], h, cache, pos, cfg)
+    elif desc.mixer == "mla":
+        mix, cache = attn.mla_decode(p["mixer"], h, cache, pos, cfg)
+    else:
+        raise _unported(desc.mixer)
+    return sublayer_ffn(cfg, desc, p, x + mix), cache
 
 
 def sublayer_cache_spec(cfg, desc, batch, cache_len, dtype):
     """(shape, logical_axes, dtype) tree for this sublayer's decode cache."""
-    _require_dense_gqa(desc)
-    return attn.gqa_cache_spec(cfg, batch, cache_len, dtype)
+    if desc.mixer == "gqa":
+        return attn.gqa_cache_spec(cfg, batch, cache_len, dtype)
+    if desc.mixer == "mla":
+        return attn.mla_cache_spec(cfg, batch, cache_len, dtype)
+    raise _unported(desc.mixer)
 
 
-class Sublayer(nn.Module):
-    """One layer's parameters (``ln1``, ``mixer``, ``ln2``, ``ffn``), named as
-    the reference's tree under ``stack.blocks.<j>`` without the layers axis."""
+class ParamTree(nn.Module):
+    """A nested spec tree as modules: a parameter a ``ParamSpec`` leaf, a child
+    module a dict, so that the parameter names are the reference's paths
+    (``ffn.shared.w_gate``)."""
 
-    def __init__(self, cfg: ModelConfig, desc: LayerDesc, dtype: torch.dtype, device):
+    def __init__(self, specs: dict, dtype: torch.dtype, device):
         super().__init__()
-        self.desc = desc
-        for name, value in sublayer_specs(cfg, desc).items():
+        for name, value in specs.items():
             if isinstance(value, ParamSpec):
-                setattr(self, name, _param(value, dtype, device))
+                self.register_parameter(name, _param(value, dtype, device))
             else:
-                setattr(self, name, nn.ParameterDict(
-                    {k: _param(s, dtype, device) for k, s in flatten_specs(value).items()}))
+                self.add_module(name, ParamTree(value, dtype, device))
 
     def tree(self, dtype: torch.dtype) -> dict:
-        """The layer's parameters as the reference's nested dict, cast to
-        ``dtype`` (no copy where they already have it)."""
-        out = {}
-        for name, child in (("ln1", self.ln1), ("mixer", self.mixer), ("ln2", self.ln2), ("ffn", self.ffn)):
-            if isinstance(child, nn.ParameterDict):
-                out[name] = {k: p.detach().to(dtype) for k, p in child.items()}
-            else:
-                out[name] = child.detach().to(dtype)
+        """The parameters as the reference's nested dict, cast to ``dtype``
+        (no copy where they already have it)."""
+        out = {name: p.detach().to(dtype) for name, p in self.named_parameters(recurse=False)}
+        out.update({name: child.tree(dtype) for name, child in self.named_children()})
         return out
+
+
+class Sublayer(ParamTree):
+    """One layer's parameters (``ln1``, ``mixer``, ``ln2``, ``ffn``), named as
+    the reference's tree under ``stack.blocks.<j>`` (or ``stack.prefix.<i>``)
+    without the layers axis."""
+
+    def __init__(self, cfg: ModelConfig, desc: LayerDesc, dtype: torch.dtype, device):
+        super().__init__(sublayer_specs(cfg, desc), dtype, device)
+        self.desc = desc
 
 
 def _param(spec: ParamSpec, dtype, device) -> nn.Parameter:
@@ -168,7 +209,8 @@ def stack_apply(cfg: ModelConfig, layers: list[dict], descs, x, *, causal=True):
 
 
 def stack_cache_spec(cfg: ModelConfig, batch: int, cache_len: int, dtype):
-    """``{"k": ((L, B, S, KH, D), axes, dtype), "v": ...}``."""
+    """``{name: ((L,) + shape, ("layers",) + axes, dtype)}`` over every layer
+    (``k``/``v`` for GQA, ``ckv``/``k_rope`` for MLA)."""
     spec = {}
     for desc in set(layer_descs(cfg)):
         for name, (shape, axes, dt) in sublayer_cache_spec(cfg, desc, batch, cache_len, dtype).items():

@@ -496,6 +496,10 @@ FLASH_EDGES = [
     (1, 15, 5, 1, 48, 64, False, None),     # Skv below one split's keys: one split
     (8, 32, 32, 1, 300, 64, False, None),   # more kv heads than SMs: one split
     (2, 16, 2, 16, 700, 16, True, 650),     # 128 rows of a kv head: 4 row groups, causal
+    (1, 4, 4, 130, 130, 192, True, None),   # D = 192 (MLA): three 64-column boxes a row
+    (1, 2, 2, 200, 300, 192, False, 250),   # D = 192, kv_len < Skv, non-causal
+    (1, 8, 8, 12, 12, 192, True, None),     # a 12-token MLA prompt: the decode instance, causal
+    (1, 16, 16, 1, 2_056, 192, False, 2_049),  # D = 192 decode over splits
 ]
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True, torch.float32, None),

@@ -64,6 +64,30 @@ def test_plain_matches_reference_kernel_and_oracle(b, h, kh, sq, skv, d, causal,
     np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
 
 
+#: MLA's head dim (deepseek-v2: nope 128 + rope 64, V padded to it): a causal
+#: prefill over two query tiles, a short causal prompt (the decode instance on
+#: the card), a decode row against a longer cache with kv_len
+MLA_CASES = [
+    (1, 4, 4, 256, 256, 192, True, "bfloat16", None),
+    (1, 4, 4, 130, 130, 192, True, "float32", None),
+    (1, 8, 8, 12, 12, 192, True, "bfloat16", None),
+    (1, 2, 2, 1, 200, 192, False, "float32", 150),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal,dtype,kv_len", MLA_CASES)
+def test_plain_matches_reference_kernel_at_mla_head_dim(b, h, kh, sq, skv, d, causal, dtype, kv_len):
+    """D = 192 is in HEAD_DIMS, and the plain version there equals the
+    reference's Pallas kernel (interpret mode) within the SWEEP tolerances."""
+    assert d in fa.HEAD_DIMS
+    (q, k, v), (jq, jk, jv) = _inputs((b, h, sq, d), (b, kh, skv, d), dtype, seed=sq * 7 + skv)
+    got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert got.dtype == q.dtype and tuple(got.shape) == (b, h, sq, d)
+    kernel = ref_flash(jq, jk, jv, causal=causal, kv_len=kv_len, interpret=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(kernel), atol=tol, rtol=tol)
+
+
 def _float64_attention(q, k, v, causal, kv_len=None):
     """The function in float64 from the same inputs: a yardstick for the
     plain path's own f32 rounding."""

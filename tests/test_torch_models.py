@@ -1,16 +1,29 @@
-"""The port's configs and dense models against the reference's, on the CPU.
+"""The port's configs and models against the reference's, on the CPU.
 
-Configs are pinned field for field. Models: the reference's weights (its
-``init`` from ``PRNGKey(0)``) are carried into a port ``Model`` with
+Configs are pinned field for field. Models (the dense archs, and the MoE
+archs deepseek-v2-236b with MLA attention and a dense prefix layer, and
+grok-1-314b with GQA): the reference's weights (its ``init`` from
+``PRNGKey(0)``) are carried into a port ``Model`` with
 ``convert.params_from_jax``; both then run ``apply``, ``prefill`` (the dense
 attention branch at a 12-token prompt, the chunked one at 48 tokens: the
-reduced configs switch at 16) and 3 ``decode_step``s on the same tokens.
+reduced configs switch at 16; at 48 the reduced MoE, E = 4, k = 2, C = 32,
+runs near its capacity) and 3 ``decode_step``s on the same tokens.
 Tolerances: float32 1e-5 on logits of magnitude below 1 (summation order
 only); bfloat16 2e-2, a few bf16 ulps at that magnitude (the two frameworks
 round bf16 matmuls, activations and the logits at different points).
 Greedy tokens are compared where the top-2 margin exceeds twice the
 tolerance (each of the two logits may move by the tolerance). Each package
 gets its own copy of every input array: no buffer is shared between the two.
+
+The MoE archs' router choices are compared call by call (``Routes``): in
+float32 they are equal everywhere. In bfloat16 the two frameworks' router
+inputs differ by an ulp or so, so a token whose k-th and (k+1)-th router
+logits lie within a few ulps may pick another expert in each: a batch row
+whose choices differ is held no further, the difference must sit at such a
+near tie (``NEAR_TIE``), and some row must be held to the end. The route and
+dispatch steps themselves are held to the reference exactly in
+tests/test_torch_moe.py, which also explains ``F32Dots`` (the reference's
+bf16 MLA decode on XLA's CPU runtime).
 """
 import dataclasses
 
@@ -21,16 +34,22 @@ import pytest
 import torch
 
 from repro import configs as ref_configs
+from repro.models import attention as ref_attention
 from repro.models import build as ref_build
 from repro.models import common as ref_common
 from repro_torch import configs
-from repro_torch.models import build, common
+from repro_torch.models import build, common, moe
 from repro_torch.models.convert import params_from_jax, port_arrays
 from repro_torch.models.model import lm_specs
+from test_torch_moe import F32Dots
 
 DENSE = ("smollm-360m", "granite-3-2b", "phi4-mini-3.8b", "mistral-large-123b")
-OTHERS = tuple(a for a in configs.ARCH_IDS if a not in DENSE)
+MOE = ("deepseek-v2-236b", "grok-1-314b")
+PORTED = DENSE + MOE
+OTHERS = tuple(a for a in configs.ARCH_IDS if a not in PORTED)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: a router near tie: the k-th and (k+1)-th logits within 4 bf16 ulps (2**-5 relative)
+NEAR_TIE = 2**-5
 
 
 @pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
@@ -52,16 +71,23 @@ def test_registry_and_shapes_pinned():
         configs.get_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_n_params_equal_at_full_config(arch):
     """The spec trees count the reference's parameters at the published
-    widths (smollm-360m: about 409 M), and a built model holds them."""
+    widths (smollm-360m: about 409 M), and a built model holds them; the
+    active parameters too (a model on the meta device allocates nothing)."""
     cfg, ref_cfg = configs.get_config(arch), ref_configs.get_config(arch)
     assert common.count_params(lm_specs(cfg)) == ref_build(ref_cfg).n_params
+    full = build(cfg, device="meta")
+    assert full.n_params == ref_build(ref_cfg).n_params == sum(p.numel() for p in full.parameters())
+    assert full.n_active_params == ref_build(ref_cfg).n_active_params
     model = build(cfg.reduced(), device="cpu")
     assert model.n_params == ref_build(ref_cfg.reduced()).n_params == sum(p.numel() for p in model.parameters())
+    assert model.n_active_params == ref_build(ref_cfg.reduced()).n_active_params
     if arch == "smollm-360m":
         assert 400e6 < ref_build(ref_cfg).n_params < 420e6
+    if arch in MOE:
+        assert full.n_active_params < full.n_params
 
 
 @pytest.mark.parametrize("arch", OTHERS)
@@ -91,31 +117,105 @@ def _greedy_equal_where_clear(port_logits, ref_logits, tol):
     np.testing.assert_array_equal(got[clear], ref_logits.argmax(-1)[clear])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _ref_cache(ref_model, ref_cache, name):
+    """The reference's cache leaf ``name`` stacked over every layer in order
+    (its prefix layers, then the scanned blocks), as the port stacks it."""
+    from repro.models.transformer import stack_pattern
+
+    prefix, pattern, n_blocks = stack_pattern(ref_model.cfg)
+    layers = [np.asarray(ref_cache["prefix"][str(i)][name], np.float32) for i in range(len(prefix))]
+    layers += [np.asarray(ref_cache["blocks"][str(j)][name][blk], np.float32)
+               for blk in range(n_blocks) for j in range(len(pattern))]
+    return np.stack(layers)
+
+
+class Routes:
+    """Both packages' router choices, call by call: the reference's through a
+    ``jax.lax.top_k`` that reports its indices as it runs (a debug callback,
+    in order, inside jit and scan alike), the port's through ``moe.route``,
+    with each call's near ties (the k-th and (k+1)-th logits within
+    ``NEAR_TIE``). ``update()`` adds to ``flipped`` each batch row in which
+    a token's choice differs; the first difference in a row must be a near
+    tie on the port's side."""
+
+    def __init__(self, monkeypatch):
+        self.ref, self.port, self.flipped, self.checked = [], [], set(), 0
+        top_k, route = jax.lax.top_k, moe.route
+
+        def ref_top_k(x, k):
+            values, idx = top_k(x, k)
+            jax.debug.callback(lambda i: self.ref.append(np.asarray(i)), idx, ordered=True)
+            return values, idx
+
+        def port_route(router, x, k):
+            weights, idx = route(router, x, k)
+            top = torch.sort(torch.einsum("bsd,de->bse", x, router).float(), dim=-1, descending=True).values
+            a, b = top[..., k - 1], top[..., k]
+            self.port.append((idx.numpy(), ((a - b) <= NEAR_TIE * torch.maximum(a.abs(), b.abs())).numpy()))
+            return weights, idx
+
+        monkeypatch.setattr(jax.lax, "top_k", ref_top_k)
+        monkeypatch.setattr(moe, "route", port_route)
+
+    def update(self):
+        jax.effects_barrier()
+        assert len(self.ref) == len(self.port), (len(self.ref), len(self.port))
+        for ref, (port, near) in zip(self.ref, self.port):
+            differs = (np.sort(ref, -1) != np.sort(port, -1)).any(-1)  # (B, S): another set of experts
+            for r in range(differs.shape[0]):
+                if differs[r].any() and r not in self.flipped:
+                    assert near[r][differs[r]].all(), "the routing differs away from a near tie"
+                    self.flipped.add(r)
+            self.checked += differs.size
+        self.ref.clear()
+        self.port.clear()
+
+
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("prompt", [12, 48])
-def test_forward_prefill_decode_match_reference(arch, compute_dtype, prompt):
+def test_forward_prefill_decode_match_reference(monkeypatch, arch, compute_dtype, prompt):
+    if arch in MOE:
+        monkeypatch.setattr(ref_attention, "jnp", F32Dots(jnp))
     ref_model, params, model = _pair(arch, compute_dtype)
     tol = TOL[compute_dtype]
+    routes = Routes(monkeypatch) if arch in MOE else None
+
+    def held():
+        """The batch rows held to the reference: all, but in bf16 a row whose
+        routing flipped at a near tie."""
+        if routes is not None:
+            routes.update()
+            assert compute_dtype == "bfloat16" or not routes.flipped, "f32 routing differs"
+            return [r for r in range(2) if r not in routes.flipped]
+        return [0, 1]
+
     tokens = np.random.default_rng(prompt).integers(0, model.cfg.vocab_size, (2, prompt)).astype(np.int32)
     cache_len = prompt + 4
-    _close(model.apply({"tokens": tokens}), ref_model.apply(params, {"tokens": jnp.asarray(tokens)}), tol)
+    got = model.apply({"tokens": tokens})
+    want = np.asarray(jax.jit(lambda p, t: ref_model.apply(p, {"tokens": t}))(params, jnp.asarray(tokens)))
+    _close(got[held()], want[held()], tol)
     ref_logits, ref_cache = jax.jit(lambda p, t: ref_model.prefill(p, {"tokens": t}, cache_len))(
         params, jnp.asarray(tokens))
     logits, cache = model.prefill({"tokens": tokens}, cache_len)
-    _close(logits, ref_logits, tol)
-    for name in ("k", "v"):
-        _close(cache[name].float(), ref_cache["blocks"]["0"][name], tol)
+    _close(logits[held()], np.asarray(ref_logits)[held()], tol)
+    names = ("ckv", "k_rope") if model.cfg.use_mla else ("k", "v")
+    assert set(cache) == set(names)
+    for name in names:
+        _close(cache[name].float()[:, held()], _ref_cache(ref_model, ref_cache, name)[:, held()], tol)
     decode = jax.jit(ref_model.decode_step)
     nxt = np.array(jnp.argmax(ref_logits[:, -1], -1), np.int32)[:, None]
     for t in range(3):
         ref_logits, ref_cache = decode(params, ref_cache, jnp.asarray(nxt), jnp.int32(prompt + t))
         logits, cache = model.decode_step(cache, nxt, prompt + t)
-        _close(logits, ref_logits, tol)
-        _greedy_equal_where_clear(logits, ref_logits, tol)
+        _close(logits[held()], np.asarray(ref_logits)[held()], tol)
+        _greedy_equal_where_clear(logits[held()], np.asarray(ref_logits)[held()], tol)
         nxt = np.array(jnp.argmax(ref_logits, -1), np.int32)[:, None]
-    for name in ("k", "v"):
-        _close(cache[name].float(), ref_cache["blocks"]["0"][name], tol)
+    for name in names:
+        _close(cache[name].float()[:, held()], _ref_cache(ref_model, ref_cache, name)[:, held()], tol)
+    assert held(), "the routing flipped in every batch row: nothing held to the reference"
+    if routes is not None:
+        assert routes.checked == 2 * (2 * prompt + 3) * sum(map(model.cfg.moe_at, range(model.cfg.n_layers)))
 
 
 def test_decode_past_the_cache_clamps_like_dynamic_update_slice():
@@ -159,12 +259,30 @@ def test_compute_copies_follow_parameter_changes():
     assert torch.equal(model.params()["ln_f"], torch.full_like(first["ln_f"], 2.0))
 
 
-def test_port_arrays_unstack_the_layers_axis():
-    cfg = configs.get_config("smollm-360m").reduced()
-    tree = {"embed": np.zeros((cfg.vocab_size, cfg.d_model)),
-            "stack": {"blocks": {"0": {"ln1": np.arange(cfg.n_layers)[:, None] * np.ones((1, cfg.d_model))}}}}
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v2-236b"])
+def test_port_arrays_unstack_the_layers_axis(arch):
+    """Blocks unstack into ``layers.<i>`` after the prefix layers (deepseek:
+    one dense prefix layer, ``stack.prefix.0``), nested names (the shared
+    expert's ``ffn.shared.w_gate``) and 3-d expert arrays included."""
+    cfg = configs.get_config(arch).reduced()
+    n_prefix = cfg.first_k_dense
+    n_blocks = cfg.n_layers - n_prefix
+    stacked = np.arange(n_prefix, cfg.n_layers)[:, None] * np.ones((1, cfg.d_model))
+    tree = {"embed": np.zeros((cfg.vocab_size, cfg.d_model)), "stack": {"blocks": {"0": {"ln1": stacked}}}}
+    if n_prefix:
+        tree["stack"]["prefix"] = {"0": {"ln1": np.zeros(cfg.d_model)}}
+        f = cfg.moe_d_ff
+        tree["stack"]["blocks"]["0"]["ffn"] = {
+            "w_gate": np.arange(n_blocks)[:, None, None, None] * np.ones((1, cfg.n_experts, cfg.d_model, f)),
+            "shared": {"w_gate": np.arange(n_blocks)[:, None, None] * np.ones((1, cfg.d_model, f))}}
     arrays = port_arrays(cfg, tree)
     assert [float(arrays[f"layers.{i}.ln1"][0]) for i in range(cfg.n_layers)] == list(range(cfg.n_layers))
+    if n_prefix:
+        for i in range(n_prefix, cfg.n_layers):
+            assert arrays[f"layers.{i}.ffn.w_gate"].shape == (cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+            assert float(arrays[f"layers.{i}.ffn.shared.w_gate"][0, 0]) == i - n_prefix
+        names = dict(build(cfg, device="cpu").named_parameters())
+        assert all(name in names for name in arrays if name.startswith("layers."))
     model = build(cfg, device="cpu")
     with pytest.raises(ValueError, match="parameter trees differ"):
         params_from_jax(model, tree)

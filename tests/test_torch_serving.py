@@ -8,8 +8,11 @@
 * ``ServeEngine`` on the reduced smollm-360m with the reference's weights
   (``convert.params_from_jax``), against the reference engine on the same
   requests: the same tokens, stats, ``report()`` keys and counts, and
-  ``window_series``. The reduced config computes in float32, where the two
-  engines' logits differ by about 1e-7, far below the top-2 margins.
+  ``window_series``; the same on the reduced deepseek-v2-236b (MLA attention,
+  its latent cache, a dense prefix layer and MoE layers). The reduced configs
+  compute in float32, where the two engines' logits differ by about 1e-7, far
+  below the top-2 margins. ``launch.serve`` prints the reference launcher's
+  line for the MoE archs.
 * The engine's own properties: a hit generates what a cold run does, the
   paper's CHR ordering, the scheduler, and a stored payload that stays
   bit-unchanged when a hit decodes from it.
@@ -274,6 +277,53 @@ def test_engine_sized_window_series_roundtrip(engines):
     assert int(req_w.sum()) == len(reqs)
     assert int(hb_w.sum()) > int(hit_w.sum()) > 0
     assert int(hb_w.sum() + mb_w.sum()) == sum(int(sizes[r.obj_id]) for r in reqs)
+
+
+@pytest.fixture(scope="module")
+def moe_engines():
+    """The reference's reduced deepseek-v2-236b and the port's, with the same weights."""
+    ref_model = ref_build(ref_get_config("deepseek-v2-236b").reduced())
+    params = ref_model.init(jax.random.PRNGKey(1))
+    model = params_from_jax(build(get_config("deepseek-v2-236b").reduced(), device="cpu"),
+                            jax.tree_util.tree_map(np.asarray, params))
+    return ref_model, params, model
+
+
+@pytest.mark.parametrize("policy", ["plfua", "lru"])
+def test_moe_engine_matches_reference_engine(moe_engines, policy):
+    """deepseek reduced behind the content cache: the reference engine's
+    generated tokens, CHR, tokens saved and computed; a hit's payload is the
+    MLA latent cache ({"ckv", "k_rope"}), copied before decoding."""
+    ref_model, params, model = moe_engines
+    ref = RefServeEngine(ref_model, params, cache_len=16, content_cache=RefContentCache(5, policy=policy, n_objects=20))
+    port = ServeEngine(model, cache_len=16, content_cache=ContentCache(5, policy=policy, n_objects=20))
+    reqs = _requests(n_requests=24, seed=5)
+    ref_out = ref.run(_requests(n_requests=24, seed=5, cls=RefRequest))
+    out = port.run(reqs)
+    assert [dataclasses.astuple(r) for r in out] == [dataclasses.astuple(r) for r in ref_out]
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+    assert port.content.stats.chr == ref.content.stats.chr and port.stats.prefill_tokens_saved > 0
+    payload = next(iter(port.content._payloads.values()))[0]
+    assert set(payload) == {"ckv", "k_rope"} and payload["ckv"].shape[0] == model.cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b"])
+def test_launcher_prints_the_reference_line(arch, monkeypatch, capsys):
+    """``launch.serve --arch <moe arch> --device cpu`` runs the reduced config
+    and prints the reference launcher's line (the management ms, host CPU
+    time, aside)."""
+    import sys
+
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch, "--device", "cpu"])
+    port_line = capsys.readouterr().out.strip()
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch])
+    ref_serve.main()
+    ref_line = capsys.readouterr().out.strip()
+    assert port_line.rsplit(" mgmt=", 1)[0] == ref_line.rsplit(" mgmt=", 1)[0]
+    assert port_line.startswith("[serve] plfua: CHR=")
 
 
 def test_engine_report_and_errors(engines):
