@@ -20,7 +20,9 @@ blocks and merged by the last one), each at D = 16, 32, 64, 128 and 192.
 Two main paths: the paper's grid through cache_sim, and the serving path
 (smollm-360m at full width behind the content cache, every attention call
 through the flash kernel; deepseek-v2-236b at its published widths, cut to 4
-layers, every MLA prefill through the kernel at D = 192); the fleet, placed and hierarchy phases drive the
+layers, every MLA prefill through the kernel at D = 192; rwkv6-7b and
+jamba-1.5-large-398b at theirs, cut to 4 and 5 layers, jamba's attention
+layer through the kernel at D = 128); the fleet, placed and hierarchy phases drive the
 N-tier fleet engines, which step the plain PyTorch policies (no kernel of
 their own), and the fleet front serves the model behind a tree of content
 caches. Phases, one line each (or one line per item):
@@ -201,7 +203,9 @@ caches. Phases, one line each (or one line per item):
              2,049 and 2,056; a D = 128 prefill (1, 24, 8, 1,024); at D = 192
              (MLA) a SWEEP row (1, 4, 4, 130), a 12-row causal prompt on the
              decode instance and deepseek's served prefill (1, 128, 128,
-             2,048, causal). For each
+             2,048, causal); jamba's attention layer (1, 64, 8, 128): causal
+             prefill at 2,048, decode against a cache of 2,056 at kv_len 1,
+             2,049 and 2,056. For each
              served case it also reads deliberately wrong plain versions (the
              causal bound one 64-key tile early, and in bf16 p rounded to bf16
              before P V; decode with one live key dropped, or one garbage key
@@ -263,10 +267,45 @@ caches. Phases, one line each (or one line per item):
              the count of tokens routed differently; the experts' w_gate and
              w_up swapped must be rejected. Then the flash kernel at MLA's
              prefill shape, measured as in phase 15.
-18. kernels — one JSON line, an entry per kernel instance, with the trace
+18. ssm serve — each model freed before the next: rwkv6-7b (32 layers,
+             d_model 4,096, 64 heads of 64, d_ff 14,336, vocab 65,536; f32
+             masters, bf16 compute) cut to 4 of 32 layers (1,411,584,000
+             parameters), and jamba-1.5-large-398b (d_model 8,192, 64 / 8 heads
+             of 128, Mamba d_inner 16,384, d_state 16, d_conv 4, dt_rank 512, 16
+             experts top-2 on the odd layers, d_ff 24,576, vocab 65,536, bf16)
+             cut to 5 of 72 layers (Mamba layers 0-3, 1 and 3 MoE, and the
+             attention layer 4: 24,045,707,264 parameters, 48.1 GB), weights
+             from ``--seed``, each served as phase 16 serves deepseek (8
+             requests over 4 objects, 2,048-token prompts, max_new = 8,
+             ``ContentCache(2, "plfua")``), the flash counts set to 0 just
+             before and read just after: jamba's launches = 1 attention layer x
+             (prefills + decode steps), rwkv6's none; hits generate their first
+             serve's tokens. Then prefill ms and tokens/s, decode ms a token
+             beside the bytes of weights a token reads (jamba's capacity
+             buffers read all 16 experts of both MoE layers) and their bound,
+             the decode state a request holds (the content cache's payload),
+             the idle share over one decode token and one prefill, and one SSM
+             mixer alone at 2,048 tokens: ms, kernels (its loop launches 2 a
+             token) and the recurrence's launches a prefill.
+19. ssm check — the card against the CPU's plain path, the same weights with
+             the SSM parameters (RWKV's bonus u and decay base, Mamba's A, dt
+             bias and conv taps) drawn anew at a trained model's scale, a
+             256-token prompt and 4 decode steps, the CPU fed the card's
+             tokens: rwkv6's first 2 layers, every logit within 0.25 and
+             tokens equal at a clear margin, and its decode without the bonus u
+             rejected; jamba one layer at a time, layers 0 (Mamba + dense), 1
+             (Mamba + MoE) and 4 (attention + dense), every sublayer kind (each
+             CPU layer fed the card's input to it, its own cache; the outputs
+             read through ln_f and the unembedding, within 0.25; a MoE layer
+             where both sides' routing and drops agree; the card's entry points
+             over all 5 layers equal to its layer by layer run), each checked
+             Mamba layer's decode with its conv carry zeroed rejected. Then the
+             flash kernel at jamba's prefill and decode shapes, measured as in
+             phase 15.
+20. kernels — one JSON line, an entry per kernel instance, with the trace
              lengths of cache_sim's time (``T``) and plain version's
              (``plain_T``) and the flash instances' shapes (the D = 192 prefill
-             its own entry).
+             and jamba's D = 128 prefill and decode their own entries).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before it; without a card the script exits 1 and prints no result.
@@ -302,7 +341,7 @@ from repro_torch.kernels.cache_sim import cache_sim as kernel  # noqa: E402
 from repro_torch.kernels.cache_sim import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as flash  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
-from repro_torch.models import attention, build, moe, transformer  # noqa: E402
+from repro_torch.models import attention, build, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.telemetry import spec as telemetry_spec  # noqa: E402
 from repro_torch.telemetry import timing  # noqa: E402
@@ -1838,8 +1877,9 @@ FLASH_SWEEP = (
     (1, 8, 8, 12, 12, 192, True, None),
 )
 #: the served models' shapes: smollm's (1, 15, 5, 64), causal prefill at 2,048 and 16,384, decode
-#: against a cache of 2,056 at kv_len 1, 2,049 and 2,056; a D = 128 prefill; and deepseek's MLA
-#: prefill (1, 128, 128, 192) at 2,048
+#: against a cache of 2,056 at kv_len 1, 2,049 and 2,056; a D = 128 prefill; deepseek's MLA
+#: prefill (1, 128, 128, 192) at 2,048; and jamba's attention layer (1, 64, 8, 128), its causal
+#: prefill at 2,048 and its decode against a cache of 2,056 at kv_len 1, 2,049 and 2,056
 FLASH_SERVED = (
     (1, 15, 5, 2_048, 2_048, 64, True, None),
     (1, 15, 5, 16_384, 16_384, 64, True, None),
@@ -1848,6 +1888,10 @@ FLASH_SERVED = (
     (1, 15, 5, 1, 2_056, 64, False, 2_056),
     (1, 24, 8, 1_024, 1_024, 128, True, None),
     (1, 128, 128, 2_048, 2_048, 192, True, None),
+    (1, 64, 8, 2_048, 2_048, 128, True, None),
+    (1, 64, 8, 1, 2_056, 128, False, 1),
+    (1, 64, 8, 1, 2_056, 128, False, 2_049),
+    (1, 64, 8, 1, 2_056, 128, False, 2_056),
 )
 #: the wrong version's causal bound: this many keys early (one kernel tile at D = 64)
 FLASH_WRONG_SHIFT = 64
@@ -1923,9 +1967,11 @@ def flash_checks(seed: int) -> dict:
     rows, the kv_len case, the served shapes, a D = 128 prefill and the D =
     192 rows (MLA), each in float32 and bfloat16; for each served case, what a
     wrong version reads. Returns the worst error per kernel instance, and of
-    the D = 192 prefill (``MLA_FLASH_ENTRY``)."""
+    the D = 192 prefill (``MLA_FLASH_ENTRY``) and of jamba's two shapes
+    (``JAMBA_PREFILL_ENTRY``, ``JAMBA_DECODE_ENTRY``: 64 heads of 128 over 8
+    kv heads)."""
     t0 = time.perf_counter()
-    worst = dict.fromkeys(flash.INSTANCES + (MLA_FLASH_ENTRY,), 0.0)
+    worst = dict.fromkeys(flash.INSTANCES + (MLA_FLASH_ENTRY, JAMBA_PREFILL_ENTRY, JAMBA_DECODE_ENTRY), 0.0)
     cases = [(c, dt, c in FLASH_SERVED) for c in FLASH_SWEEP + FLASH_SERVED for dt in (torch.float32, torch.bfloat16)]
     for i, ((b, h, kh, sq, skv, d, causal, kv_len), dtype, served) in enumerate(cases):
         t1 = time.perf_counter()
@@ -1940,6 +1986,9 @@ def flash_checks(seed: int) -> dict:
         worst[instance] = max(worst[instance], err)
         if d == 192 and instance == flash.INSTANCES[0]:
             worst[MLA_FLASH_ENTRY] = max(worst[MLA_FLASH_ENTRY], err)
+        if (h, kh, d) == (64, 8, 128):
+            entry = JAMBA_PREFILL_ENTRY if instance == flash.INSTANCES[0] else JAMBA_DECODE_ENTRY
+            worst[entry] = max(worst[entry], err)
         text = ""
         for what, wrong in (flash_wrong(q, k, v, causal, kv_len or skv) if served else []):
             late = slice(sq // 2, sq) if causal else None
@@ -2161,12 +2210,23 @@ MLA_FLASH_SHAPE = (1, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, True, None)
 MLA_FLASH_ENTRY = "flash_attention/prefill (MLA, D=192)"
 
 
+def tensors(tree):
+    """The tensors of a nested dict (or list) of tensors."""
+    for value in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(value, torch.Tensor):
+            yield value
+        else:
+            yield from tensors(value)
+
+
 def decode_weight_bytes(model) -> int:
-    """The bytes of weights one decode token reads: every parameter but the
+    """The bytes of weights one decode token reads: every parameter's compute
+    copy (``Model.params()``: bf16, also where the masters are f32) but the
     embedding table, of which it reads one row. The MoE layers' capacity
     buffers multiply every expert, so all of them count."""
-    embed = model.embed
-    return sum(p.numel() * p.element_size() for p in model.parameters()) - (embed.numel() - embed.shape[1]) * embed.element_size()
+    p = model.params()
+    embed = p["embed"]
+    return sum(t.numel() * t.element_size() for t in tensors(p)) - (embed.numel() - embed.shape[1]) * embed.element_size()
 
 
 def moe_serve(seed: int, card) -> tuple[object, dict]:
@@ -2268,12 +2328,11 @@ def moe_routes(model, tokens: np.ndarray, fed: list, cache_len: int) -> torch.Te
                 mix, caches[i] = attention.mla_prefill(lp["mixer"], h, cfg, cache_len)
             else:
                 mix, _ = attention.mla_decode(lp["mixer"], h, caches[i], pos, cfg)
-            x = x + mix
             if desc.ffn == "moe":
-                ids = moe.route(lp["ffn"]["router"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.experts_per_token)[1]
+                ids = moe.route(lp["ffn"]["router"], transformer.ffn_input(cfg, lp, x, mix)[1], cfg.experts_per_token)[1]
                 picked.append(ids.sort(dim=-1).values[0].cpu())
             if i < last:
-                x = transformer.sublayer_ffn(cfg, desc, lp, x)
+                x = transformer.sublayer_ffn(cfg, desc, lp, x, mix)[0]
         return torch.stack(picked, dim=1)
 
     with torch.no_grad():
@@ -2294,20 +2353,28 @@ def kept_experts(routes: torch.Tensor, n_prompt: int, n_experts: int, cap: int) 
     return torch.cat([prompt & (earlier < cap), onehot[n_prompt:]])
 
 
-def moe_steps(model, tokens: np.ndarray, cache_len: int, forced=None) -> tuple[torch.Tensor, list, list]:
+def decode_logits(model, cache, start: int, first: torch.Tensor, forced=None) -> tuple[list, list]:
+    """CHECK_NEW decode steps on ``cache`` from position ``start``, greedy from
+    the logits ``first`` (or fed ``forced``): each step's logits (CPU, f32)
+    and the tokens fed."""
+    steps, fed = [], []
+    nxt_logits = first
+    for t in range(CHECK_NEW):
+        nxt = int(nxt_logits.argmax()) if forced is None else forced[t]
+        fed.append(nxt)
+        nxt_logits, cache = model.decode_step(cache, torch.tensor([[nxt]], device=model.device), start + t)
+        nxt_logits = nxt_logits[0].float().cpu()
+        steps.append(nxt_logits)
+    return steps, fed
+
+
+def logit_steps(model, tokens: np.ndarray, cache_len: int, forced=None) -> tuple[torch.Tensor, list, list]:
     """Prefill's logits at every prompt position, then CHECK_NEW decode steps'
     logits (greedy, or fed ``forced``), through the entry points."""
     logits, cache = model.prefill({"tokens": tokens[None, :]}, cache_len)
     prefill = logits[0].float().cpu()
     del logits
-    steps, fed = [], []
-    nxt_logits = prefill[-1]
-    for t in range(CHECK_NEW):
-        nxt = int(nxt_logits.argmax()) if forced is None else forced[t]
-        fed.append(nxt)
-        nxt_logits, cache = model.decode_step(cache, torch.tensor([[nxt]], device=model.device), len(tokens) + t)
-        nxt_logits = nxt_logits[0].float().cpu()
-        steps.append(nxt_logits)
+    steps, fed = decode_logits(model, cache, len(tokens), prefill[-1], forced)
     return prefill, steps, fed
 
 
@@ -2331,14 +2398,14 @@ def moe_check(model, seed: int) -> None:
     require([d.ffn for d in card.descs] == ["dense", "moe"], f"the check's layers {card.descs}")
     tokens = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, MOE_CHECK_PROMPT).astype(np.int32)
     cache_len = MOE_CHECK_PROMPT + CHECK_NEW
-    card_prefill, card_steps, fed = moe_steps(card, tokens, cache_len)
+    card_prefill, card_steps, fed = logit_steps(card, tokens, cache_len)
     card_routes = moe_routes(card, tokens, fed, cache_len)
     wrong = build(cfg, device="meta")
     experts = {f"layers.{i}.ffn.w_gate": f"layers.{i}.ffn.w_up" for i, d in enumerate(card.descs) if d.ffn == "moe"}
     experts.update({v: k for k, v in experts.items()})
     swapped = {experts.get(k, k): v for k, v in kept.items()}
     wrong.load_state_dict(swapped, assign=True)
-    wrong_prefill, wrong_steps, _ = moe_steps(wrong, tokens, cache_len, forced=fed)
+    wrong_prefill, wrong_steps, _ = logit_steps(wrong, tokens, cache_len, forced=fed)
     del wrong, swapped
     torch.cuda.synchronize()
     t_card = time.perf_counter()
@@ -2347,7 +2414,7 @@ def moe_check(model, seed: int) -> None:
     cpu.load_state_dict({k: v.cpu() for k, v in kept.items()}, assign=True)
     require(cpu.device.type == "cpu", "the check's CPU model")
     t_copy = time.perf_counter()
-    cpu_prefill, cpu_steps, _ = moe_steps(cpu, tokens, cache_len, forced=fed)
+    cpu_prefill, cpu_steps, _ = logit_steps(cpu, tokens, cache_len, forced=fed)
     t_cpu = time.perf_counter()
     cpu_routes = moe_routes(cpu, tokens, fed, cache_len)
     t_routes = time.perf_counter()
@@ -2388,6 +2455,368 @@ def moe_check(model, seed: int) -> None:
     require(max(errs) <= MOE_LOGIT_TOL and all(math.isfinite(e) for e in errs),
             f"card logits differ from the CPU's by {max(errs)} > {MOE_LOGIT_TOL}")
     require(max(wrong_errs) > MOE_LOGIT_TOL, f"the tolerance does not reject swapped experts: {max(wrong_errs)}")
+
+
+# ------------------------------------------------------------ SSM and hybrid serving
+SSM_ARCHS = ("rwkv6-7b", "jamba-1.5-large-398b")
+#: the depth cuts at the published widths (of 32 and 72 layers): rwkv6-7b's first 4 layers; jamba's
+#: first 5, Mamba layers 0-3 (1 and 3 with MoE FFNs) and the attention layer 4, the fewest layers that
+#: hold every sublayer kind
+SSM_LAYERS = {"rwkv6-7b": 4, "jamba-1.5-large-398b": 5}
+SSM_KINDS = {"rwkv6-7b": [("rwkv6", "cmix")] * 4,
+             "jamba-1.5-large-398b": [("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"), ("mamba", "moe"),
+                                      ("gqa", "dense")]}
+#: the reference's ``build(cfg).n_params`` at those depths (rwkv6: f32 masters, 5.6 GB; jamba: bf16, 48.1 GB)
+SSM_PARAMS = {"rwkv6-7b": 1_411_584_000, "jamba-1.5-large-398b": 24_045_707_264}
+#: the card-vs-CPU check: rwkv6's first 2 layers as a model; jamba one layer at a time, each layer on
+#: the CPU fed the card's input to it (one layer's weights on the host at a time: 19.3 GB at most).
+#: jamba's layers 0 (Mamba + dense), 1 (Mamba + MoE) and 4 (attention + dense) hold every sublayer
+#: kind; 2 and 3 repeat 0 and 1, and would add ~20 s: the host's bf16 products run at 0.12-0.16
+#: TFLOP/s (experiments/ssm_probe.py), and a MoE layer's 4 decode steps multiply all 16 experts' buffers
+RWKV_CHECK_LAYERS, JAMBA_CHECK_LAYERS, SSM_CHECK_PROMPT = 2, (0, 1, 4), 256
+#: its logit tolerance, as the MoE check's: 8 bf16 ulps at |logit| < 8
+SSM_LOGIT_TOL = 0.25
+#: the check's SSM parameters, drawn anew at a trained model's scale (the same tensors on both sides):
+#: at init's scale (bonus_u, a_log, dt_bias and conv_w 1e-3, decay_base 0) a Mamba state adds 1e-4 of
+#: its mixer's output and RWKV's bonus under one bf16 rounding of it, so a wrong state or bonus would
+#: not show; conv taps of 0.1 keep a Mamba mixer's output near 1 and its state's part near a half
+SSM_CHECK_DRAWS = {"bonus_u": ("normal", 1.0), "decay_base": ("normal", 1.0),
+                   "a_log": ("uniform", 0.0, math.log(16)), "dt_bias": ("uniform", -4.0, -1.0),
+                   "conv_w": ("normal", 0.1)}
+JAMBA_PREFILL_ENTRY = "flash_attention/prefill (jamba, D=128)"
+JAMBA_DECODE_ENTRY = "flash_attention/decode (jamba, D=128)"
+#: the flash kernel at jamba's attention layer (64 heads of 128 over 8 kv heads): prefill and decode
+JAMBA_FLASH_SHAPES = (
+    (JAMBA_PREFILL_ENTRY, flash.INSTANCES[0], (1, 64, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, None)),
+    (JAMBA_DECODE_ENTRY, flash.INSTANCES[1], (1, 64, 8, 1, SERVE_CACHE_LEN, 128, False, SERVE_CACHE_LEN)),
+)
+
+
+def ssm_serve(arch: str, seed: int, card) -> tuple[object, dict]:
+    """``arch`` at its published widths, cut to ``SSM_LAYERS[arch]`` layers,
+    weights from ``seed``, served behind the content cache as deepseek is in
+    phase 16, with the flash counts set to 0 just before and read just after:
+    jamba's attention layer runs the kernel at every prefill and decode step,
+    rwkv6 launches it never. Then prefill ms and tokens/s, decode ms a token
+    beside the bytes of weights a token reads, the bytes of decode state a
+    request holds (the content cache's payload), the device's idle share over
+    one decode token and over one prefill (``torch.profiler``), and one SSM
+    mixer alone at the prompt's length: its ms and its launches."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=SSM_LAYERS[arch])
+    model = build(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(seed))
+    require(model.n_params == SSM_PARAMS[arch] and sum(p.numel() for p in model.parameters()) == SSM_PARAMS[arch],
+            f"{arch} cut to {cfg.n_layers} layers holds {model.n_params} parameters, not {SSM_PARAMS[arch]}")
+    kinds = [(d.mixer, d.ffn) for d in model.descs]
+    require(kinds == SSM_KINDS[arch], f"layer kinds {kinds}")
+    n_attn = sum(d.mixer == "gqa" for d in model.descs)
+    n_ssm = sum(d.mixer in ("rwkv6", "mamba") for d in model.descs)
+    torch.cuda.synchronize()
+    t_built = time.perf_counter()
+    rng = np.random.default_rng(seed + 6)
+    prompts = {i: rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32) for i in range(MOE_OBJECTS)}
+    trace = zipf.sample_trace(MOE_OBJECTS, MOE_REQUESTS, seed=SERVE_TRACE_SEED)
+    reqs = [serving.Request(int(x), prompts[int(x)], SERVE_NEW) for x in trace]
+    cache = serving.ContentCache(MOE_CACHE_OBJECTS, policy=SERVE_POLICY, n_objects=MOE_OBJECTS)
+    engine = serving.ServeEngine(model, SERVE_CACHE_LEN, content_cache=cache)
+    for instance in flash.LAUNCHES:
+        flash.LAUNCHES[instance] = 0
+    out = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    t_served = time.perf_counter()
+    misses, steps = cache.stats.misses, MOE_REQUESTS * SERVE_NEW
+    require(launches == {flash.INSTANCES[0]: n_attn * misses, flash.INSTANCES[1]: n_attn * steps},
+            f"{arch} launches {launches}, expected {n_attn} attention layers x ({misses} prefills, {steps} decode steps)")
+    require(cache.stats.hits > 0 and engine.stats.prefill_tokens_saved == cache.stats.hits * SERVE_PROMPT,
+            f"the content cache never hit, or saved the wrong count: {engine.report()}")
+    first = {}
+    for r in out:
+        require(len(r.new_tokens) == SERVE_NEW and all(0 <= x < cfg.vocab_size for x in r.new_tokens),
+                f"bad tokens for object {r.obj_id}: {r.new_tokens}")
+        if not r.prefill_skipped:
+            first.setdefault(r.obj_id, r.new_tokens)
+    require(all(r.new_tokens == first[r.obj_id] for r in out if r.prefill_skipped),
+            "a hit's tokens differ from its object's first serve")
+    state = {name: math.prod(shape) * dt.itemsize for name, (shape, _, dt) in model.cache_spec(1, SERVE_CACHE_LEN).items()}
+
+    tokens = torch.as_tensor(reqs[0].tokens, device="cuda")[None, :]
+    prefill_ms = events_ms(lambda: model.prefill({"tokens": tokens}, SERVE_CACHE_LEN), 2)
+    prefill_trace = timing.profile(model.prefill, {"tokens": tokens}, SERVE_CACHE_LEN, profile_dir=None)
+    logits, kv = model.prefill({"tokens": tokens}, SERVE_CACHE_LEN)
+    first_logits = logits[:, -1, :].clone()
+    del logits
+
+    def decode_request():
+        nxt_logits = first_logits
+        for t in range(SERVE_NEW):
+            nxt = torch.argmax(nxt_logits, dim=-1)
+            int(nxt[0])  # the engine's host read of each token
+            nxt_logits, _ = model.decode_step(kv, nxt[:, None], SERVE_PROMPT + t)
+
+    decode_ms = events_ms(decode_request, 2) / SERVE_NEW
+    nxt = torch.argmax(first_logits, dim=-1)[:, None]
+    trace = timing.profile(model.decode_step, kv, nxt, SERVE_PROMPT, profile_dir=None)
+    del kv
+    # one SSM mixer alone at the prompt's length (the first SSM layer's weights, a normed input): its
+    # loop steps twice a token
+    first_ssm = next(i for i, d in enumerate(model.descs) if d.mixer in ("rwkv6", "mamba"))
+    lp = model.params()["layers"][first_ssm]["mixer"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    h = torch.randn(1, SERVE_PROMPT, cfg.d_model, generator=gen, device="cuda").to(model.compute_dtype)
+    apply = ssm.rwkv6_apply if cfg.ssm_kind == "rwkv6" else ssm.mamba_apply
+    mixer_ms = events_ms(lambda: apply(lp, h, cfg), 2)
+    mixer_trace = timing.profile(apply, lp, h, cfg, profile_dir=None)
+    del h
+    weight_bytes = decode_weight_bytes(model)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    widths = (f"heads={cfg.n_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff}" if cfg.ssm_kind == "rwkv6" else
+              f"heads={cfg.n_heads} kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim} "
+              f"mamba_d_inner={ssm.mamba_d_inner(cfg)} d_state={cfg.mamba_d_state} d_conv={cfg.mamba_d_conv} "
+              f"dt_rank={model.port_specs()[f'layers.{first_ssm}.mixer.w_dt'].shape[0]} experts={cfg.n_experts} "
+              f"top_k={cfg.experts_per_token} d_ff={cfg.d_ff}")
+    print(f"[ssm serve] arch={cfg.name} layers={cfg.n_layers} of {get_config(arch).n_layers} ({json.dumps(kinds)}) "
+          f"n_params={model.n_params} d_model={cfg.d_model} {widths} vocab={cfg.vocab_size} "
+          f"params={cfg.param_dtype} compute={cfg.compute_dtype} requests={MOE_REQUESTS} objects={MOE_OBJECTS} "
+          f"prompt={SERVE_PROMPT} max_new={SERVE_NEW} policy={SERVE_POLICY} cache_objects={MOE_CACHE_OBJECTS} "
+          f"chr={cache.stats.chr} tokens_saved={engine.stats.prefill_tokens_saved} prefills={misses} "
+          f"launches={json.dumps(launches)} (= {n_attn} attention layers x ({misses} prefills, {steps} decode "
+          f"steps)) hit_tokens_equal_first_serve=True build_s={t_built - t0:.3f} "
+          f"serve_wall_s={t_served - t_built:.3f} card={card.label!r}", flush=True)
+    print(f"[ssm measure] arch={cfg.name} prefill_ms={prefill_ms} prefill_tokens_per_s={SERVE_PROMPT / prefill_ms * 1e3} "
+          f"prefill_trace_kernels={prefill_trace.kernels} prefill_busy_s={prefill_trace.busy_s} "
+          f"prefill_span_s={prefill_trace.span_s} prefill_idle_share={prefill_trace.idle_share} "
+          f"decode_ms_per_token={decode_ms} decode_weight_bytes={weight_bytes} decode_bytes_bound_ms={bound_ms} "
+          f"decode_trace_kernels={trace.kernels} decode_busy_s={trace.busy_s} decode_span_s={trace.span_s} "
+          f"decode_idle_share={trace.idle_share} state_bytes_per_request={sum(state.values())} "
+          f"state_bytes_by_name={json.dumps(state)} payload_bytes={sum(state.values()) + cfg.vocab_size * 4} "
+          f"(+ the f32 next-token logits) ssm_layers={n_ssm} mixer_ms_at_prompt={mixer_ms} "
+          f"mixer_us_per_token={mixer_ms * 1e3 / SERVE_PROMPT} mixer_kernels={mixer_trace.kernels} "
+          f"mixer_loop_launches={2 * SERVE_PROMPT} (2 a token) mixer_busy_s={mixer_trace.busy_s} "
+          f"mixer_idle_share={mixer_trace.idle_share} recurrence_launches_per_prefill={n_ssm * mixer_trace.kernels} "
+          f"power_limit_w={card.power_limit_w} card={card.label!r} elapsed_s={time.perf_counter() - t0:.3f}",
+          flush=True)
+    require(trace.kernels > 0 and mixer_trace.kernels >= 2 * SERVE_PROMPT and math.isfinite(prefill_ms)
+            and math.isfinite(decode_ms), f"{arch} measure")
+    return model, launches
+
+
+def check_weights(model, seed: int) -> dict:
+    """``model``'s state dict with its SSM parameters (``SSM_CHECK_DRAWS``)
+    drawn anew on the card from ``seed``; every other tensor the model's own
+    (no copy)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, t in model.state_dict().items():
+        how = SSM_CHECK_DRAWS.get(name.rsplit(".", 1)[-1]) if ".mixer." in name else None
+        if how is None:
+            out[name] = t
+        elif how[0] == "normal":
+            out[name] = (torch.randn(t.shape, generator=gen, device="cuda") * how[1]).to(t.dtype)
+        else:
+            out[name] = (torch.rand(t.shape, generator=gen, device="cuda") * (how[2] - how[1]) + how[1]).to(t.dtype)
+    return out
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def tokens_agree(card: list, cpu: list, tol: float) -> int:
+    """Require the greedy tokens equal where the CPU's top-2 margin exceeds
+    ``tol``; returns how many were compared."""
+    compared = 0
+    for a, b in zip(card, cpu):
+        top2 = b.topk(2).values
+        if float(top2[0] - top2[1]) > tol:
+            compared += 1
+            require(int(a.argmax()) == int(b.argmax()), "card and CPU pick different tokens at a clear margin")
+    return compared
+
+
+def rwkv_check(model, seed: int) -> None:
+    """rwkv6's first RWKV_CHECK_LAYERS layers (the served weights, the SSM
+    parameters drawn anew at a trained model's scale) on the card and on the
+    CPU (a copy, the plain path), the CPU fed the card's greedy tokens: every
+    prompt position's and each decode step's logits within SSM_LOGIT_TOL,
+    tokens equal at a clear margin; and the card's decode without the bonus u
+    (after the card's own prefill), which the tolerance must reject."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model.cfg, n_layers=RWKV_CHECK_LAYERS)
+    kept = {k: v for k, v in check_weights(model, seed + 8).items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < RWKV_CHECK_LAYERS}
+    card = build(cfg, device="meta")
+    card.load_state_dict(kept, assign=True)
+    tokens = np.random.default_rng(seed + 9).integers(0, cfg.vocab_size, SSM_CHECK_PROMPT).astype(np.int32)
+    cache_len = SSM_CHECK_PROMPT + CHECK_NEW
+    card_prefill, card_steps, fed = logit_steps(card, tokens, cache_len)
+    wrong = build(cfg, device="meta")
+    wrong.load_state_dict({k: torch.zeros_like(v) if k.endswith("mixer.bonus_u") else v for k, v in kept.items()},
+                          assign=True)
+    _, kv = card.prefill({"tokens": tokens[None, :]}, cache_len)
+    wrong_steps, _ = decode_logits(wrong, kv, SSM_CHECK_PROMPT, card_prefill[-1], forced=fed)
+    del wrong, kv
+    torch.cuda.synchronize()
+    t_card = time.perf_counter()
+    cpu = build(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in kept.items()}, assign=True)
+    t_copy = time.perf_counter()
+    cpu_prefill, cpu_steps, _ = logit_steps(cpu, tokens, cache_len, forced=fed)
+    t_cpu = time.perf_counter()
+    del cpu, card, kept
+    errs = [float((card_prefill - cpu_prefill).abs().max())] + [float((a - b).abs().max())
+                                                                 for a, b in zip(card_steps, cpu_steps)]
+    wrong_errs = [float((w - b).abs().max()) for w, b in zip(wrong_steps, cpu_steps)]
+    compared = tokens_agree([card_prefill[-1]] + card_steps[:-1], [cpu_prefill[-1]] + cpu_steps[:-1], SSM_LOGIT_TOL)
+    print(f"[ssm check] arch={cfg.name} layers={RWKV_CHECK_LAYERS} (the served model's first; SSM parameters drawn "
+          f"at a trained scale: {json.dumps(SSM_CHECK_DRAWS)}) prompt={SSM_CHECK_PROMPT} max_new={CHECK_NEW} "
+          f"card_tokens={fed} max_abs_err_prefill={errs[0]} max_abs_err_by_step={errs[1:]} "
+          f"tolerance={SSM_LOGIT_TOL} max_abs_logit={float(cpu_prefill.abs().max())} tokens_compared={compared} "
+          f"wrong_version='decode without the bonus u' wrong_max_abs_err_by_step={wrong_errs} "
+          f"card_s={t_card - t0:.3f} cpu_copy_s={t_copy - t_card:.3f} cpu_s={t_cpu - t_copy:.3f} "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    require(max(errs) <= SSM_LOGIT_TOL and all(math.isfinite(e) for e in errs),
+            f"card logits differ from the CPU's by {max(errs)} > {SSM_LOGIT_TOL}")
+    require(max(wrong_errs) > SSM_LOGIT_TOL, f"the tolerance does not reject a decode without u: {wrong_errs}")
+
+
+def jamba_check(model, seed: int) -> None:
+    """jamba one layer at a time (the served weights, the Mamba layers' SSM
+    parameters drawn anew at a trained model's scale): the card runs the
+    model's layer functions over a SSM_CHECK_PROMPT-token prompt and
+    CHECK_NEW greedy decode steps, keeping each layer's input and output (its
+    entry points, fed the same tokens, must give the same logits); then each
+    layer of JAMBA_CHECK_LAYERS on the CPU (a copy of that layer's weights
+    alone, the plain path, its own cache) is fed the card's inputs to it. Each layer's
+    outputs are read through the model's final norm and unembedding (on the
+    card, for both sides) and must lie within SSM_LOGIT_TOL at every
+    position, a MoE layer's only where the two sides' routing and capacity
+    drops agree; the last layer's are the logits, and the tokens agree where
+    the margin is clear. Each Mamba layer's first decode step with its conv
+    carry zeroed (on the card) must be rejected."""
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    card = build(cfg, device="meta")
+    card.load_state_dict(check_weights(model, seed + 10), assign=True)
+    p = card.params()
+    tokens = np.random.default_rng(seed + 11).integers(0, cfg.vocab_size, SSM_CHECK_PROMPT).astype(np.int32)
+    cache_len, n_pos = SSM_CHECK_PROMPT + CHECK_NEW, SSM_CHECK_PROMPT + CHECK_NEW
+
+    def lens(h):
+        return (rms_norm(h, p["ln_f"], cfg.norm_eps) @ p["unembed"]).float()[0]
+
+    routed, route = [], moe.route
+
+    def recording_route(router, x, k):
+        weights, ids = route(router, x, k)
+        routed.append(ids.sort(dim=-1).values[0].cpu())
+        return weights, ids
+
+    moe.route = recording_route
+    try:
+        descs = card.descs
+        inputs, outputs, caches, fresh = [[] for _ in descs], [[] for _ in descs], [], []
+        card_routes = {i: [] for i, d in enumerate(descs) if d.ffn == "moe"}
+        x = p["embed"][torch.as_tensor(tokens, device="cuda").long()[None, :]]
+        for i, desc in enumerate(descs):
+            inputs[i].append(x)
+            x, c = transformer.sublayer_prefill(cfg, desc, p["layers"][i], x, cache_len)
+            outputs[i].append(x)
+            caches.append(c)
+            fresh.append({k: v.clone() for k, v in c.items()})
+            if desc.ffn == "moe":
+                card_routes[i].append(routed.pop())
+        nxt_logits, fed = lens(x)[-1], []
+        for t in range(CHECK_NEW):
+            fed.append(int(nxt_logits.argmax()))
+            x = p["embed"][torch.tensor([[fed[-1]]], device="cuda")]
+            for i, desc in enumerate(descs):
+                inputs[i].append(x)
+                x, _ = transformer.sublayer_decode(cfg, desc, p["layers"][i], x, caches[i], SSM_CHECK_PROMPT + t)
+                outputs[i].append(x)
+                if desc.ffn == "moe":
+                    card_routes[i].append(routed.pop())
+            nxt_logits = lens(x)[-1]
+        wrong = {}
+        for i, desc in enumerate(descs):
+            if desc.mixer == "mamba" and i in JAMBA_CHECK_LAYERS:
+                c = {k: v.clone() for k, v in fresh[i].items()}
+                c["conv"].zero_()
+                wrong[i] = lens(transformer.sublayer_decode(cfg, desc, p["layers"][i], inputs[i][1], c,
+                                                            SSM_CHECK_PROMPT)[0])[0]
+                if desc.ffn == "moe":
+                    routed.pop()
+        del caches, fresh
+        # the entry points (the stacked cache's slots) give the by-hand run's logits
+        entry_prefill, entry_steps, _ = logit_steps(card, tokens, cache_len, forced=fed)
+        entry_err = max([float((entry_prefill - lens(torch.cat(outputs[-1][:1], dim=1)).cpu()).abs().max())]
+                        + [float((a - lens(o)[0].cpu()).abs().max()) for a, o in zip(entry_steps, outputs[-1][1:])])
+        del entry_prefill, entry_steps, routed[:]
+        torch.cuda.synchronize()
+        t_card = time.perf_counter()
+        rows, copy_s, cpu_s, final = [], 0.0, 0.0, None
+        for i in JAMBA_CHECK_LAYERS:
+            desc = descs[i]
+            t1 = time.perf_counter()
+            lp = tree_to(p["layers"][i], "cpu")
+            t2 = time.perf_counter()
+            out, c = transformer.sublayer_prefill(cfg, desc, lp, inputs[i][0].cpu(), cache_len)
+            cpu_out = [out]
+            cpu_routes = [routed.pop()] if desc.ffn == "moe" else []
+            for t in range(CHECK_NEW):
+                out, _ = transformer.sublayer_decode(cfg, desc, lp, inputs[i][t + 1].cpu(), c, SSM_CHECK_PROMPT + t)
+                cpu_out.append(out)
+                if desc.ffn == "moe":
+                    cpu_routes.append(routed.pop())
+            del lp, c
+            copy_s, cpu_s = copy_s + t2 - t1, cpu_s + time.perf_counter() - t2
+            held = torch.ones(n_pos, dtype=torch.bool)
+            n_differ = n_drops = 0
+            if desc.ffn == "moe":
+                a, b = torch.cat(card_routes[i])[:, None, :], torch.cat(cpu_routes)[:, None, :]
+                agree = (a == b).all(dim=-1).all(dim=-1)
+                cap = moe._capacity(SSM_CHECK_PROMPT, cfg)
+                drops = (kept_experts(a, SSM_CHECK_PROMPT, cfg.n_experts, cap)
+                         == kept_experts(b, SSM_CHECK_PROMPT, cfg.n_experts, cap)).all(dim=-1).all(dim=-1)
+                n_differ, n_drops = int((~agree).sum()), int((agree & ~drops).sum())
+                held = agree & drops
+            card_lens = lens(torch.cat(outputs[i], dim=1))
+            cpu_lens = lens(torch.cat(cpu_out, dim=1).to("cuda"))
+            err = (card_lens - cpu_lens).abs().amax(dim=-1).cpu()
+            row = dict(layer=i, mixer=desc.mixer, ffn=desc.ffn, held=int(held.sum()),
+                       max_abs_err_prompt=float(err[:SSM_CHECK_PROMPT][held[:SSM_CHECK_PROMPT]].max()),
+                       max_abs_err_by_step=[float(e) if h else None for e, h in zip(err[SSM_CHECK_PROMPT:],
+                                                                                     held[SSM_CHECK_PROMPT:])],
+                       max_abs_lens=float(cpu_lens.abs().max()))
+            if desc.ffn == "moe":
+                row.update(routing_differs_tokens=n_differ, drops_differ_tokens=n_drops)
+            if i in wrong:
+                row["wrong_max_abs_err"] = float((wrong[i] - cpu_lens[SSM_CHECK_PROMPT]).abs().max())
+            rows.append(row)
+            require(held.sum() > n_pos // 2, f"layer {i}: the routing differs at {n_differ} tokens: too few held")
+            require(bool(torch.isfinite(err[held]).all()) and float(err[held].max()) <= SSM_LOGIT_TOL,
+                    f"layer {i} ({desc}): card and CPU differ by {float(err[held].max())} > {SSM_LOGIT_TOL}")
+            require(i not in wrong or row["wrong_max_abs_err"] > SSM_LOGIT_TOL,
+                    f"layer {i}: the tolerance does not reject a zeroed conv carry: {row.get('wrong_max_abs_err')}")
+            final = (card_lens, cpu_lens)
+            del card_lens, cpu_lens, cpu_out
+    finally:
+        moe.route = route
+    require(not routed, f"{len(routed)} router calls left unread")
+    require(entry_err <= SSM_LOGIT_TOL, f"the entry points' logits differ from the layer by layer run's: {entry_err}")
+    last = range(SSM_CHECK_PROMPT - 1, n_pos - 1)  # the logits each fed token was chosen from
+    compared = tokens_agree([final[0][r].cpu() for r in last], [final[1][r].cpu() for r in last], SSM_LOGIT_TOL)
+    del card, p, inputs, outputs, wrong, final
+    print(f"[ssm check] arch={cfg.name} layers={list(JAMBA_CHECK_LAYERS)} of {cfg.n_layers}, one at a time (each CPU "
+          f"layer fed the card's input; the card's entry points over all {cfg.n_layers} against its layer by layer run; "
+          f"outputs read through ln_f and the unembedding; Mamba's SSM parameters drawn at a trained scale: "
+          f"{json.dumps({k: v for k, v in SSM_CHECK_DRAWS.items() if k in ('a_log', 'dt_bias', 'conv_w')})}) "
+          f"prompt={SSM_CHECK_PROMPT} max_new={CHECK_NEW} card_tokens={fed} tolerance={SSM_LOGIT_TOL} "
+          f"layers_checked={json.dumps(rows)} tokens_compared={compared} wrong_version='Mamba decode with its conv "
+          f"carry zeroed' entry_points_vs_layer_by_layer_max_abs_err={entry_err} card_s={t_card - t0:.3f} "
+          f"cpu_copy_s={copy_s:.3f} cpu_s={cpu_s:.3f} "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
 
 
 def events_ms(fn, repeats: int) -> float:
@@ -2844,7 +3273,27 @@ def main() -> int:
     print(f"[moe] serve + check elapsed_s={t_moe:.3f} with the MLA flash measure "
           f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
 
-    # 18. kernels
+    # 18. SSM serve and 19. SSM check: rwkv6-7b (4 of 32 layers) and jamba-1.5-large-398b (5 of 72) at
+    # their published widths behind the content cache, jamba's attention layer on the kernel at D = 128;
+    # each held to the CPU (rwkv6's first 2 layers; jamba one layer at a time)
+    t0 = time.perf_counter()
+    ssm_launches = {}
+    for arch in SSM_ARCHS:
+        t1 = time.perf_counter()
+        model, ssm_launches[arch] = ssm_serve(arch, seed, card)
+        t2 = time.perf_counter()
+        (rwkv_check if arch == "rwkv6-7b" else jamba_check)(model, seed)
+        del model
+        torch.cuda.empty_cache()
+        print(f"[ssm] arch={arch} serve_s={t2 - t1:.3f} check_s={time.perf_counter() - t2:.3f}", flush=True)
+    t_ssm = time.perf_counter() - t0
+    jamba = ssm_launches["jamba-1.5-large-398b"]
+    entries += flash_measure(seed, worst, {JAMBA_PREFILL_ENTRY: jamba[flash.INSTANCES[0]],
+                                           JAMBA_DECODE_ENTRY: jamba[flash.INSTANCES[1]]}, sms, shapes=JAMBA_FLASH_SHAPES)
+    print(f"[ssm] serve + check elapsed_s={t_ssm:.3f} with jamba's flash measure "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    # 20. kernels
     print(json.dumps({"kernels": entries}))
     print(f"[total] host_cpu={host_cpu()!r} elapsed_s={time.perf_counter() - t_start:.3f}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -62,7 +62,9 @@ def count_params(specs: SpecTree) -> int:
 def init_param(param: torch.Tensor, spec: ParamSpec, generator: torch.Generator) -> None:
     """Fill one parameter as the reference's ``init_params`` does: zeros, ones,
     or normal draws times ``spec.scale`` (``small``: times 1e-3), drawn in f32
-    on the generator's device."""
+    from ``generator`` (on the parameter's device) in place: ``normal_`` rounds
+    the draw times the scale once to the parameter's dtype, with no f32 copy
+    of it (jamba's expert tensors hold 3.2 G values)."""
     with torch.no_grad():
         if spec.init == "zeros":
             param.zero_()
@@ -70,8 +72,7 @@ def init_param(param: torch.Tensor, spec: ParamSpec, generator: torch.Generator)
             param.fill_(1.0)
         else:
             scale = spec.scale if spec.init == "normal" else 1e-3
-            draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=generator.device)
-            param.copy_(draw * scale)
+            param.normal_(0.0, scale, generator=generator)
 
 
 # ----------------------------------------------------------------- layers

@@ -1,7 +1,9 @@
 """Public model API: ``build(cfg) -> Model`` with init/apply/prefill/decode_step.
 
-The port of the reference's ``models/model.py`` for the dense and MoE archs
-(GQA and MLA attention).
+The port of the reference's ``models/model.py`` for the decoder-only archs:
+dense and MoE (GQA and MLA attention), ssm (RWKV6) and hybrid (Mamba with
+attention layers between, jamba). The encoder-decoder (whisper) and the vlm
+prefix (llava) wait for ROADMAP module 12.
 ``Model`` is an ``nn.Module`` that holds its parameters (fp32 masters, or
 the config's ``param_dtype``); the reference passes a parameter pytree into
 each call instead. Every forward casts them once into compute-dtype copies
@@ -27,8 +29,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import ParamSpec, count_params, flatten_specs, init_param, rms_norm
 
-#: families this port runs; the others wait for ROADMAP module 12
-PORTED_FAMILIES = ("dense", "moe")
+#: families this port runs; the audio and vlm archs wait for ROADMAP module 12
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
@@ -43,15 +45,15 @@ def lm_specs(cfg: ModelConfig) -> dict:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.ssm_kind or cfg.encoder_decoder or cfg.n_prefix_embeds:
+    if cfg.family not in PORTED_FAMILIES or cfg.encoder_decoder or cfg.n_prefix_embeds:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported: the port runs the dense and moe configs (GQA and MLA "
-            "attention); ssm, hybrid, audio and vlm wait for ROADMAP module 12")
+            f"{cfg.name} ({cfg.family}) is not ported: the port runs the dense, moe, ssm and hybrid configs; "
+            "the encoder-decoder (audio) and the prefix embeddings (vlm) wait for ROADMAP module 12")
 
 
 class Model(nn.Module):
-    """A decoder LM (dense or MoE FFNs, GQA or MLA attention) on ``device``
-    (``None`` means ``cuda``)."""
+    """A decoder LM (GQA, MLA, RWKV6 or Mamba mixers; dense, MoE or cmix
+    FFNs) on ``device`` (``None`` means ``cuda``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -115,7 +117,7 @@ class Model(nn.Module):
 
     def init(self, generator: torch.Generator) -> "Model":
         """Fill every parameter as the reference's ``init_params`` does (normal
-        x 0.02, ones, zeros), from ``generator`` (on any device). The draws are
+        x 0.02, ones, zeros), from ``generator`` (on the model's device). The draws are
         not JAX's: to compare with the reference, carry its weights across
         with :func:`repro_torch.models.convert.params_from_jax`."""
         specs = self.port_specs()

@@ -1,13 +1,17 @@
 """Decoder stack: the port of the reference's ``models/transformer.py``
 (``layer_descs``, ``stack_pattern``, and the sublayer's dispatch on its
-``LayerDesc`` for the ``gqa``/``mla`` mixers and the ``dense``/``moe`` FFNs).
+``LayerDesc``: the ``gqa``/``mla``/``rwkv6``/``mamba`` mixers and the
+``dense``/``moe``/``cmix`` FFNs).
 
 The reference scans stacked blocks with ``lax.scan``; here the stack is an
 ``nn.ModuleList`` of :class:`Sublayer`, one a layer (prefix layers included),
-walked by a Python loop. The decode cache is stacked over every layer:
-``{"k": (L, B, S, KH, D), "v": ...}`` for GQA, ``{"ckv": (L, B, S, kv_lora),
-"k_rope": (L, B, S, rope_dim)}`` for MLA, layer ``i`` reading and writing its
-slice. RWKV6, Mamba and cmix layers wait (ROADMAP module 12).
+walked by a Python loop. The decode cache is a flat dict, each name stacked
+over the layers that hold it, in layer order (:func:`cache_slots`): every
+layer for the dense, MoE and RWKV6 stacks (``{"k": (L, B, S, KH, D), "v"}``
+for GQA, ``{"ckv": (L, B, S, kv_lora), "k_rope"}`` for MLA, ``{"state": (L,
+B, H, N, N), "prev_x", "prev_x_c"}`` for RWKV6); in a hybrid, ``k``/``v``
+over its attention layers and ``h``/``conv`` over its Mamba layers. Layer
+``i`` reads and writes its slot of each name it holds, in place.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.common import ParamSpec, mlp_apply, mlp_specs, rms_norm
 
 
@@ -61,11 +66,6 @@ def stack_pattern(cfg: ModelConfig):
     return prefix, rest[:plen], len(rest) // plen
 
 
-def _unported(what: str):
-    return NotImplementedError(f"{what} layers are not ported: the port runs gqa and mla mixers with dense and "
-                               "moe FFNs; rwkv6, mamba and cmix wait for ROADMAP module 12")
-
-
 # --------------------------------------------------------------- sublayer
 
 
@@ -74,7 +74,11 @@ def _mixer_specs(cfg, desc):
         return attn.gqa_specs(cfg)
     if desc.mixer == "mla":
         return attn.mla_specs(cfg)
-    raise _unported(desc.mixer)
+    if desc.mixer == "rwkv6":
+        return ssm.rwkv6_specs(cfg)
+    if desc.mixer == "mamba":
+        return ssm.mamba_specs(cfg)
+    raise ValueError(desc.mixer)
 
 
 def _ffn_specs(cfg, desc):
@@ -82,7 +86,9 @@ def _ffn_specs(cfg, desc):
         return mlp_specs(cfg.d_model, cfg.d_ff, cfg.act)
     if desc.ffn == "moe":
         return moe_mod.moe_specs(cfg)
-    raise _unported(desc.ffn)
+    if desc.ffn == "cmix":
+        return ssm.rwkv6_cmix_specs(cfg)
+    raise ValueError(desc.ffn)
 
 
 def sublayer_specs(cfg: ModelConfig, desc: LayerDesc) -> dict:
@@ -94,14 +100,27 @@ def sublayer_specs(cfg: ModelConfig, desc: LayerDesc) -> dict:
     }
 
 
-def sublayer_ffn(cfg, desc, p, x):
-    """The sublayer's second half: ``x + ffn(rms_norm(x))``, dense or MoE."""
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+def ffn_input(cfg, p, x, mix):
+    """``(x + mix, rms_norm(x + mix))``: the residual after the mixer, in the
+    compute dtype, and the FFN's input. The norm reads the sum before its
+    rounding to bf16, as the reference's fused XLA computation does (its
+    residual is rounded); in f32 the two are the same."""
+    return x + mix, rms_norm(x.float() + mix.float(), p["ln2"], cfg.norm_eps).to(x.dtype)
+
+
+def sublayer_ffn(cfg, desc, p, x, mix, prev_x=None):
+    """The sublayer's second half: ``x + mix + ffn(rms_norm(x + mix))``.
+    Returns (out, last): ``last`` is cmix's token-shift carry (``prev_x_c``;
+    ``prev_x`` the one it starts from), None for the dense and MoE FFNs."""
+    x, h = ffn_input(cfg, p, x, mix)
     if desc.ffn == "dense":
-        return x + mlp_apply(p["ffn"], h, cfg.act)
+        return x + mlp_apply(p["ffn"], h, cfg.act), None
     if desc.ffn == "moe":
-        return x + moe_mod.moe_apply(p["ffn"], h, cfg)
-    raise _unported(desc.ffn)
+        return x + moe_mod.moe_apply(p["ffn"], h, cfg), None
+    if desc.ffn == "cmix":
+        f, last = ssm.rwkv6_cmix_apply(p["ffn"], h, cfg, prev_x=prev_x)
+        return x + f, last
+    raise ValueError(desc.ffn)
 
 
 def sublayer_apply(cfg, desc, p, x, *, causal=True):
@@ -110,9 +129,13 @@ def sublayer_apply(cfg, desc, p, x, *, causal=True):
         mix = attn.gqa_apply(p["mixer"], h, cfg, causal=causal)
     elif desc.mixer == "mla":
         mix = attn.mla_apply(p["mixer"], h, cfg, causal=causal)
+    elif desc.mixer == "rwkv6":
+        mix, _ = ssm.rwkv6_apply(p["mixer"], h, cfg)
+    elif desc.mixer == "mamba":
+        mix, _ = ssm.mamba_apply(p["mixer"], h, cfg)
     else:
-        raise _unported(desc.mixer)
-    return sublayer_ffn(cfg, desc, p, x + mix)
+        raise ValueError(desc.mixer)
+    return sublayer_ffn(cfg, desc, p, x, mix)[0]
 
 
 def sublayer_prefill(cfg, desc, p, x, cache_len):
@@ -122,30 +145,53 @@ def sublayer_prefill(cfg, desc, p, x, cache_len):
         mix, cache = attn.gqa_prefill(p["mixer"], h, cfg, cache_len)
     elif desc.mixer == "mla":
         mix, cache = attn.mla_prefill(p["mixer"], h, cfg, cache_len)
+    elif desc.mixer == "rwkv6":
+        mix, (state, last) = ssm.rwkv6_apply(p["mixer"], h, cfg)
+        cache = {"state": state, "prev_x": last}
+    elif desc.mixer == "mamba":
+        mix, cache = ssm.mamba_apply(p["mixer"], h, cfg)
     else:
-        raise _unported(desc.mixer)
-    return sublayer_ffn(cfg, desc, p, x + mix), cache
+        raise ValueError(desc.mixer)
+    out, last_c = sublayer_ffn(cfg, desc, p, x, mix)
+    if desc.ffn == "cmix":
+        cache["prev_x_c"] = last_c
+    return out, cache
 
 
 def sublayer_decode(cfg, desc, p, x, cache, pos):
     """One token; updates ``cache`` (this layer's views) in place."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if desc.mixer == "gqa":
-        mix, cache = attn.gqa_decode(p["mixer"], h, cache, pos, cfg)
+        mix, _ = attn.gqa_decode(p["mixer"], h, cache, pos, cfg)
     elif desc.mixer == "mla":
-        mix, cache = attn.mla_decode(p["mixer"], h, cache, pos, cfg)
+        mix, _ = attn.mla_decode(p["mixer"], h, cache, pos, cfg)
+    elif desc.mixer == "rwkv6":
+        mix, _ = ssm.rwkv6_decode(p["mixer"], h, cache, cfg)
+    elif desc.mixer == "mamba":
+        mix, _ = ssm.mamba_decode(p["mixer"], h, cache, cfg)
     else:
-        raise _unported(desc.mixer)
-    return sublayer_ffn(cfg, desc, p, x + mix), cache
+        raise ValueError(desc.mixer)
+    out, last_c = sublayer_ffn(cfg, desc, p, x, mix, prev_x=cache.get("prev_x_c"))
+    if desc.ffn == "cmix":
+        cache["prev_x_c"].copy_(last_c)
+    return out, cache
 
 
 def sublayer_cache_spec(cfg, desc, batch, cache_len, dtype):
     """(shape, logical_axes, dtype) tree for this sublayer's decode cache."""
     if desc.mixer == "gqa":
-        return attn.gqa_cache_spec(cfg, batch, cache_len, dtype)
-    if desc.mixer == "mla":
-        return attn.mla_cache_spec(cfg, batch, cache_len, dtype)
-    raise _unported(desc.mixer)
+        spec = attn.gqa_cache_spec(cfg, batch, cache_len, dtype)
+    elif desc.mixer == "mla":
+        spec = attn.mla_cache_spec(cfg, batch, cache_len, dtype)
+    elif desc.mixer == "rwkv6":
+        spec = ssm.rwkv6_cache_spec(cfg, batch, dtype)
+    elif desc.mixer == "mamba":
+        spec = ssm.mamba_cache_spec(cfg, batch, dtype)
+    else:
+        raise ValueError(desc.mixer)
+    if desc.ffn == "cmix":
+        spec["prev_x_c"] = ((batch, cfg.d_model), ("batch", None), dtype)
+    return spec
 
 
 class ParamTree(nn.Module):
@@ -208,13 +254,28 @@ def stack_apply(cfg: ModelConfig, layers: list[dict], descs, x, *, causal=True):
     return x
 
 
+def cache_slots(cfg: ModelConfig) -> list[dict[str, int]]:
+    """Layer ``i``'s ``{cache name: slot}``: its place in the stack of that
+    name, which holds the layers that carry it in layer order."""
+    counts: dict[str, int] = {}
+    slots = []
+    for desc in layer_descs(cfg):
+        names = sublayer_cache_spec(cfg, desc, 1, 1, torch.float32)
+        slots.append({name: counts.get(name, 0) for name in names})
+        for name in names:
+            counts[name] = counts.get(name, 0) + 1
+    return slots
+
+
 def stack_cache_spec(cfg: ModelConfig, batch: int, cache_len: int, dtype):
-    """``{name: ((L,) + shape, ("layers",) + axes, dtype)}`` over every layer
-    (``k``/``v`` for GQA, ``ckv``/``k_rope`` for MLA)."""
+    """``{name: ((L_name,) + shape, ("layers",) + axes, dtype)}``, each name
+    stacked over the ``L_name`` layers that hold it (all ``n_layers`` but in
+    a hybrid)."""
     spec = {}
-    for desc in set(layer_descs(cfg)):
+    for desc in layer_descs(cfg):
         for name, (shape, axes, dt) in sublayer_cache_spec(cfg, desc, batch, cache_len, dtype).items():
-            spec[name] = ((cfg.n_layers,) + shape, ("layers",) + axes, dt)
+            n = spec[name][0][0] + 1 if name in spec else 1
+            spec[name] = ((n,) + shape, ("layers",) + axes, dt)
     return spec
 
 
@@ -223,11 +284,12 @@ def stack_prefill(cfg: ModelConfig, layers: list[dict], descs, x, cache_len: int
     for desc, p in zip(descs, layers):
         x, c = sublayer_prefill(cfg, desc, p, x, cache_len)
         caches.append(c)
-    return x, {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+    names = dict.fromkeys(name for c in caches for name in c)
+    return x, {name: torch.stack([c[name] for c in caches if name in c]) for name in names}
 
 
 def stack_decode(cfg: ModelConfig, layers: list[dict], descs, x, cache, pos: int):
-    """Updates ``cache`` in place, layer ``i`` through its slice."""
-    for i, (desc, p) in enumerate(zip(descs, layers)):
-        x, _ = sublayer_decode(cfg, desc, p, x, {name: c[i] for name, c in cache.items()}, pos)
+    """Updates ``cache`` in place, layer ``i`` through its slots."""
+    for desc, p, slots in zip(descs, layers, cache_slots(cfg)):
+        x, _ = sublayer_decode(cfg, desc, p, x, {name: cache[name][j] for name, j in slots.items()}, pos)
     return x, cache

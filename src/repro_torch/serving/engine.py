@@ -2,15 +2,17 @@
 
 The port of the reference's ``serving/engine.py``. Requests are keyed by
 ``obj_id`` (prompt identity). On a content hit the stored prefill state (the
-request's KV cache, its next position and the next-token logits) is reused
+request's decode cache, its next position and the next-token logits) is reused
 and prefill is skipped; on an admitted miss the state is offered back to the
 cache. The engine meters prefill tokens computed vs. saved.
 
 Two differences from the reference, both from PyTorch's mutable tensors: the
 model carries its weights (``ServeEngine(model, cache_len, ...)``, no
-``params``), and decode writes K/V into its cache in place, so the engine
-decodes on a copy of a cache that the content cache holds (a hit, or an
-admitted miss): a stored payload stays bit-unchanged for the next hit. The content cache is a
+``params``), and decode writes its cache in place (K/V at the new position;
+an SSM layer's whole recurrent state), so the engine decodes on a copy of a
+cache that the content cache holds (a hit, or an admitted miss): a stored
+payload stays bit-unchanged for the next hit. For an SSM layer that state is
+the whole prefix, whatever the prompt's length (rwkv6-7b: 1 MB a layer). The content cache is a
 ``ContentCache`` or a ``FleetContentCache``. On the card every attention call of prefill and
 decode runs the flash kernel.
 """
@@ -74,7 +76,7 @@ class ServeEngine:
 
     # ------------------------------------------------------------- serving
     def _prefill_state(self, req: Request):
-        """Content-cache-aware prefill: returns ((kv_cache, next_pos,
+        """Content-cache-aware prefill: returns ((cache, next_pos,
         last_logits), skipped, held): ``held`` whether the content cache holds
         the payload (a hit, or a miss some node stored)."""
         if self.content is not None:

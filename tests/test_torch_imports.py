@@ -37,7 +37,7 @@ def test_port_files_exist():
     # the serving slice: the flash kernel's wrapper and entry point, the model,
     # the engine and its launcher
     for entry in ("kernels/flash_attention/ops.py", "kernels/flash_attention/flash_attention.py",
-                  "models/model.py", "models/moe.py", "models/convert.py", "serving/engine.py",
+                  "models/model.py", "models/moe.py", "models/ssm.py", "models/convert.py", "serving/engine.py",
                   "serving/content_cache.py",
                   "serving/scheduler.py", "core/policies.py", "configs/__init__.py", "launch/serve.py"):
         assert f"src/repro_torch/{entry}" in names, entry

@@ -1,8 +1,10 @@
 """The port's configs and models against the reference's, on the CPU.
 
-Configs are pinned field for field. Models (the dense archs, and the MoE
+Configs are pinned field for field. Models (the dense archs; the MoE
 archs deepseek-v2-236b with MLA attention and a dense prefix layer, and
-grok-1-314b with GQA): the reference's weights (its ``init`` from
+grok-1-314b with GQA; rwkv6-7b, RWKV6 time and channel mixes; and the hybrid
+jamba-1.5-large-398b, Mamba layers with an attention layer between and MoE
+FFNs on every other layer): the reference's weights (its ``init`` from
 ``PRNGKey(0)``) are carried into a port ``Model`` with
 ``convert.params_from_jax``; both then run ``apply``, ``prefill`` (the dense
 attention branch at a 12-token prompt, the chunked one at 48 tokens: the
@@ -14,6 +16,10 @@ round bf16 matmuls, activations and the logits at different points).
 Greedy tokens are compared where the top-2 margin exceeds twice the
 tolerance (each of the two logits may move by the tolerance). Each package
 gets its own copy of every input array: no buffer is shared between the two.
+
+The decode caches are compared leaf by leaf, each name stacked over the
+layers that hold it (jamba: ``k``/``v`` over its attention layers, ``h``/
+``conv`` over its Mamba layers).
 
 The MoE archs' router choices are compared call by call (``Routes``): in
 float32 they are equal everywhere. In bfloat16 the two frameworks' router
@@ -44,8 +50,9 @@ from repro_torch.models.model import lm_specs
 from test_torch_moe import F32Dots
 
 DENSE = ("smollm-360m", "granite-3-2b", "phi4-mini-3.8b", "mistral-large-123b")
-MOE = ("deepseek-v2-236b", "grok-1-314b")
-PORTED = DENSE + MOE
+MOE = ("deepseek-v2-236b", "grok-1-314b", "jamba-1.5-large-398b")
+SSM = ("rwkv6-7b", "jamba-1.5-large-398b")
+PORTED = DENSE + MOE + ("rwkv6-7b",)
 OTHERS = tuple(a for a in configs.ARCH_IDS if a not in PORTED)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: a router near tie: the k-th and (k+1)-th logits within 4 bf16 ulps (2**-5 relative)
@@ -118,15 +125,21 @@ def _greedy_equal_where_clear(port_logits, ref_logits, tol):
 
 
 def _ref_cache(ref_model, ref_cache, name):
-    """The reference's cache leaf ``name`` stacked over every layer in order
-    (its prefix layers, then the scanned blocks), as the port stacks it."""
+    """The reference's cache leaf ``name`` stacked over the layers that hold
+    it, in layer order (its prefix layers, then the scanned blocks), as the
+    port stacks it."""
     from repro.models.transformer import stack_pattern
 
     prefix, pattern, n_blocks = stack_pattern(ref_model.cfg)
-    layers = [np.asarray(ref_cache["prefix"][str(i)][name], np.float32) for i in range(len(prefix))]
+    layers = [np.asarray(ref_cache["prefix"][str(i)][name], np.float32) for i in range(len(prefix))
+              if name in ref_cache["prefix"][str(i)]]
     layers += [np.asarray(ref_cache["blocks"][str(j)][name][blk], np.float32)
-               for blk in range(n_blocks) for j in range(len(pattern))]
+               for blk in range(n_blocks) for j in range(len(pattern)) if name in ref_cache["blocks"][str(j)]]
     return np.stack(layers)
+
+
+def _ref_cache_names(ref_cache) -> set:
+    return {name for part in ref_cache.values() for layer in part.values() for name in layer}
 
 
 class Routes:
@@ -199,8 +212,8 @@ def test_forward_prefill_decode_match_reference(monkeypatch, arch, compute_dtype
         params, jnp.asarray(tokens))
     logits, cache = model.prefill({"tokens": tokens}, cache_len)
     _close(logits[held()], np.asarray(ref_logits)[held()], tol)
-    names = ("ckv", "k_rope") if model.cfg.use_mla else ("k", "v")
-    assert set(cache) == set(names)
+    names = tuple(cache)
+    assert set(names) == _ref_cache_names(ref_cache) == set(model.cache_spec(2, cache_len))
     for name in names:
         _close(cache[name].float()[:, held()], _ref_cache(ref_model, ref_cache, name)[:, held()], tol)
     decode = jax.jit(ref_model.decode_step)
@@ -286,6 +299,50 @@ def test_port_arrays_unstack_the_layers_axis(arch):
     model = build(cfg, device="cpu")
     with pytest.raises(ValueError, match="parameter trees differ"):
         params_from_jax(model, tree)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("rwkv6-7b", None), ("jamba-1.5-large-398b", None),
+                                           ("jamba-1.5-large-398b", 5)])
+def test_port_arrays_unstack_the_ssm_patterns(arch, n_layers):
+    """The reference's spec tree at full width (rwkv6: a 1-sublayer pattern
+    in 32 blocks; jamba: its 8-sublayer pattern in 9 blocks, and at the
+    served cut of 5 layers one block of 5) unstacks into every port
+    parameter once, each layer's slice at its own index, with the shape of
+    the port's spec. The arrays stand in for the weights (one value a layer)."""
+    from repro.models.model import lm_specs as ref_lm_specs
+    from repro.models.transformer import stack_pattern
+
+    over = {} if n_layers is None else {"n_layers": n_layers}
+    cfg = dataclasses.replace(configs.get_config(arch), **over)
+    ref_cfg = dataclasses.replace(ref_configs.get_config(arch), **over)
+    prefix, pattern, n_blocks = stack_pattern(ref_cfg)
+    assert (len(pattern), n_blocks) == {("rwkv6-7b", None): (1, 32), ("jamba-1.5-large-398b", None): (8, 9),
+                                        ("jamba-1.5-large-398b", 5): (5, 1)}[(arch, n_layers)]
+
+    def tree(specs, j=None):
+        out = {}
+        for k, v in specs.items():
+            if isinstance(v, ref_common.ParamSpec):
+                out[k] = (np.zeros(1) if j is None else
+                          len(prefix) + np.arange(n_blocks)[:, None] * len(pattern) + j)
+            else:
+                out[k] = tree(v, int(k) if j is None and k.isdigit() and specs is blocks else j)
+        return out
+
+    specs = ref_lm_specs(ref_cfg)
+    blocks = specs["stack"]["blocks"]
+    arrays = port_arrays(cfg, tree(specs))
+    model = build(cfg, device="meta")
+    port = model.port_specs()
+    assert set(arrays) == set(port) == {name for name, _ in model.named_parameters()}
+    for name, array in arrays.items():
+        if name.startswith("layers."):
+            i = int(name.split(".")[1])
+            assert float(array[0]) == i, name
+    for i, desc in enumerate(model.descs):
+        keys = {n.split(".", 2)[2] for n in port if n.startswith(f"layers.{i}.")}
+        assert ("mixer.a_log" in keys) == (desc.mixer == "mamba") and ("mixer.wq" in keys) == (desc.mixer == "gqa")
+        assert ("ffn.router" in keys) == (desc.ffn == "moe") and ("mixer.bonus_u" in keys) == (desc.mixer == "rwkv6")
 
 
 @pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0), (True, 16)])

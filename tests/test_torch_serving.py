@@ -9,10 +9,13 @@
   (``convert.params_from_jax``), against the reference engine on the same
   requests: the same tokens, stats, ``report()`` keys and counts, and
   ``window_series``; the same on the reduced deepseek-v2-236b (MLA attention,
-  its latent cache, a dense prefix layer and MoE layers). The reduced configs
+  its latent cache, a dense prefix layer and MoE layers), and on the reduced
+  rwkv6-7b and jamba-1.5-large-398b (their payloads hold each SSM layer's
+  recurrent state: RWKV's ``state``/``prev_x``/``prev_x_c``, Mamba's
+  ``h``/``conv`` beside the attention layers' ``k``/``v``). The reduced configs
   compute in float32, where the two engines' logits differ by about 1e-7, far
   below the top-2 margins. ``launch.serve`` prints the reference launcher's
-  line for the MoE archs.
+  line for the MoE and SSM archs.
 * The engine's own properties: a hit generates what a cold run does, the
   paper's CHR ordering, the scheduler, and a stored payload that stays
   bit-unchanged when a hit decodes from it.
@@ -307,9 +310,78 @@ def test_moe_engine_matches_reference_engine(moe_engines, policy):
     assert set(payload) == {"ckv", "k_rope"} and payload["ckv"].shape[0] == model.cfg.n_layers
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b"])
+@pytest.fixture(scope="module", params=["rwkv6-7b", "jamba-1.5-large-398b"])
+def ssm_engines(request):
+    """The reference's reduced rwkv6-7b or jamba-1.5-large-398b and the port's, with the same weights."""
+    ref_model = ref_build(ref_get_config(request.param).reduced())
+    params = ref_model.init(jax.random.PRNGKey(2))
+    model = params_from_jax(build(get_config(request.param).reduced(), device="cpu"),
+                            jax.tree_util.tree_map(np.asarray, params))
+    return ref_model, params, model
+
+
+SSM_CACHE_NAMES = {"rwkv6-7b-reduced": {"state", "prev_x", "prev_x_c"},
+                   "jamba-1.5-large-398b-reduced": {"k", "v", "h", "conv"}}
+
+
+def test_ssm_engine_matches_reference_engine(ssm_engines):
+    """rwkv6 or jamba reduced behind the content cache: the reference
+    engine's generated tokens, stats and CHR; a payload holds every layer's
+    recurrent state (jamba: k/v over its 2 attention layers, h/conv over its
+    2 Mamba layers)."""
+    ref_model, params, model = ssm_engines
+    ref = RefServeEngine(ref_model, params, cache_len=16, content_cache=RefContentCache(5, policy="plfua", n_objects=20))
+    port = ServeEngine(model, cache_len=16, content_cache=ContentCache(5, policy="plfua", n_objects=20))
+    ref_out = ref.run(_requests(n_requests=24, seed=6, cls=RefRequest))
+    out = port.run(_requests(n_requests=24, seed=6))
+    assert [dataclasses.astuple(r) for r in out] == [dataclasses.astuple(r) for r in ref_out]
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+    assert port.content.stats.chr == ref.content.stats.chr and port.stats.prefill_tokens_saved > 0
+    payload = next(iter(port.content._payloads.values()))[0]
+    assert set(payload) == SSM_CACHE_NAMES[model.cfg.name]
+    mixers = [d.mixer for d in model.descs]
+    for name, tensor in payload.items():
+        holders = {"k": "gqa", "v": "gqa", "h": "mamba", "conv": "mamba"}.get(name)
+        assert tensor.shape[0] == (mixers.count(holders) if holders else model.cfg.n_layers), name
+
+
+def test_ssm_engine_hit_decodes_the_first_serve_and_keeps_the_payload(ssm_engines):
+    """Cold and warm engines generate the same tokens; a hit generates its
+    object's first serve's tokens; the payload the content cache holds is
+    bit for bit what prefill gave after every hit's decode (decode writes
+    the recurrent state in place, on a copy)."""
+    model = ssm_engines[2]
+    reqs = _requests(n_requests=30, seed=7)
+    cold = ServeEngine(model, cache_len=16)
+    content = ContentCache(capacity=8, policy="lru")
+    warm = ServeEngine(model, cache_len=16, content_cache=content)
+    out_cold = cold.run(reqs)
+    stored = {}
+    out_warm = []
+    for req in reqs:
+        out_warm.append(warm.generate(req))
+        if req.obj_id in content._payloads and req.obj_id not in stored:
+            cache, pos, logits = content._payloads[req.obj_id]
+            stored[req.obj_id] = ({k: v.clone() for k, v in cache.items()}, pos, logits.clone())
+    assert [r.new_tokens for r in out_cold] == [r.new_tokens for r in out_warm]
+    first = {}
+    for r in out_warm:
+        if not r.prefill_skipped:
+            first.setdefault(r.obj_id, r.new_tokens)
+    hits = [r for r in out_warm if r.prefill_skipped]
+    assert hits and all(r.new_tokens == first[r.obj_id] for r in hits)
+    for obj, (cache, pos, logits) in stored.items():
+        if obj in content._payloads:
+            held, held_pos, held_logits = content._payloads[obj]
+            assert held_pos == pos and torch.equal(held_logits, logits)
+            for name, tensor in cache.items():
+                assert torch.equal(held[name], tensor), (obj, name)
+    assert any(obj in content._payloads for obj in stored)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b", "rwkv6-7b", "jamba-1.5-large-398b"])
 def test_launcher_prints_the_reference_line(arch, monkeypatch, capsys):
-    """``launch.serve --arch <moe arch> --device cpu`` runs the reduced config
+    """``launch.serve --arch <arch> --device cpu`` runs the reduced config
     and prints the reference launcher's line (the management ms, host CPU
     time, aside)."""
     import sys
