@@ -22,7 +22,9 @@ Two main paths: the paper's grid through cache_sim, and the serving path
 through the flash kernel; deepseek-v2-236b at its published widths, cut to 4
 layers, every MLA prefill through the kernel at D = 192; rwkv6-7b and
 jamba-1.5-large-398b at theirs, cut to 4 and 5 layers, jamba's attention
-layer through the kernel at D = 128); the fleet, placed and hierarchy phases drive the
+layer through the kernel at D = 128; whisper-large-v3 and
+llava-next-mistral-7b at full width and depth through ``Model.prefill`` and
+``decode_step``, every attention call through the kernel); the fleet, placed and hierarchy phases drive the
 N-tier fleet engines, which step the plain PyTorch policies (no kernel of
 their own), and the fleet front serves the model behind a tree of content
 caches. Phases, one line each (or one line per item):
@@ -30,7 +32,10 @@ caches. Phases, one line each (or one line per item):
 1. device  — the card's name and count, and ``nvidia-smi``'s name and power limit.
 2. build   — nvcc builds the six cache_sim sources and the flash source from
              ``src/repro_torch/kernels/*/csrc``, one process each, all started
-             together; prints ptxas's register, shared-memory, stack and spill
+             together (the flash source's kernels optimised on every core,
+             ``--split-compile``); the grid's CPU references (phase 4) and the
+             shard phase's world (10b) start before it, as neither needs a
+             kernel; prints ptxas's register, shared-memory, stack and spill
              report for each kernel (no spill stores allowed in any cache_sim
              instance; the D = 192 flash kernels' registers and spill stores
              on lines of their own), and the count of HGMMA (wgmma)
@@ -38,34 +43,44 @@ caches. Phases, one line each (or one line per item):
              which must be > 0.
 3. check   — each program against its plain PyTorch version, exact on hits,
              freq, in_cache, inserts and (sized runs) hit bytes, at S = 12:
-             lru/lfu/plfu/plfua at T = 10,000 and (N, cap) = (100, 2),
-             (10,000, 200), (46,416, 4,225), (100,000, 2,000); wlfu, tinylfu
+             lru/lfu/plfu/plfua at (N, cap, T) = (100, 2, 10,000), (10,000,
+             200, 10,000), (46,416, 4,225, 17,500) and (100,000, 2,000,
+             6,000); wlfu, tinylfu
              without and with the doorkeeper, and plfua_dyn at (10,000, 200,
-             20,500), (100,000, 2,000, 10,000) and a small case with explicit
+             20,500), (100,000, 2,000, 6,500) and a small case with explicit
              window, sketch width, refresh and hot-set size; gdsf with the
              lognormal catalogue, and lru/lfu/plfu/plfua/gdsf/plfua_dyn under a byte
              budget with the lognormal and the pareto catalogue, at (10,000,
-             200) with T = 20,000 and (100,000, 2,000) with T = 10,000; a max_victims=2 case
-             whose bound is hit; arc at (100, 2) and (10,000, 200) with T =
-             20,000 and (100,000, 2,000) with T = 10,000
-             on Zipf and scan traces, its directory size included; lfu, gdsf,
+             200) with T = 10,000 and (100,000, 2,000) with T = 6,000 (gdsf)
+             and 5,000 (the byte programs); a max_victims=2 case
+             whose bound is hit (T = 10,000); arc at (100, 2) with T = 20,000,
+             (10,000, 200) with T = 10,000 and (100,000, 2,000) with T = 6,000
+             (5,000 on scan) on Zipf and scan traces, its directory size
+             included. Each check at N >= 46,416 runs at 5,000 or at the least
+             T at which each of its samples evicts (seed 0), and must evict in
+             every sample (``hold_depth``; plfua and plfua_dyn, whose admission
+             gates never fill the cache there, run at 5,000 and must turn a miss
+             away in every sample instead), as must the sized and arc checks at
+             N = 10,000 (cut from 20,000); lfu, gdsf,
              wlfu, plfua_dyn, arc and tinylfu at the grid's largest heap
              (100,000, 25,000), each a full cache evicting 1,000 times a sample
-             or more: lfu, gdsf and wlfu on a scan trace of 36,000 requests that
-             fills it and evicts about 5,000 times, plfua_dyn on the same scan
-             with 97,000 hot ids and a refresh every 9,000 requests (four
-             refreshes, each with churn, read from its telemetry instance on
-             the same traces), arc on the same scan cut to 32,000 (about 1,700
-             demotions), and tinylfu, whose duel turns a scan away, on a sweep
-             over 27,500 ids and 2,000 of the turned-away ids twice each.
+             or more: lfu, gdsf and wlfu on a scan trace of 32,000 requests
+             that fills it and evicts 1,693 times a sample or more, plfua_dyn
+             on a scan of 36,000 (it fills later) with 97,000 hot ids and a
+             refresh every 9,000 requests (four refreshes, each with churn,
+             read from its telemetry instance on the same traces), arc on a
+             scan of 32,000 (about 1,700 demotions), and tinylfu, whose duel
+             turns a scan away, on a sweep over 26,800 ids and 1,600 of the
+             turned-away ids twice each.
              Each heap program's line names its heap plan, arc's its tags' and
              links' places. With unit
              sizes and capacity_bytes == capacity each byte program must give
-             the object-count program's outputs. The plain version runs on the
-             card for N > 10,000 (the program checks' in four card worker
-             processes, beside the shard phase's world, 10b; the telemetry
-             checks' in the main process, alone on the card) and in CPU
-             worker processes for N <= 10,000, overlapping the card's work.
+             the object-count program's outputs. Then phase 7's telemetry
+             checks. The plain version runs on the card for N = 100,000, in
+             four card worker processes beside the shard phase's world (10b),
+             the largest heap's first (the longest), and in seven CPU worker
+             processes for N <= 46,416, overlapping the card's work; each
+             check's line gives its plain run's wall seconds.
 4. grid    — ``simulate.run_grid``: the paper's 60 cases x 12 samples x 100,000
              requests for the seven object-count kinds, gdsf with the
              byte-capacity catalogue, arc, and gdsf under the byte budget, and
@@ -78,14 +93,15 @@ caches. Phases, one line each (or one line per item):
              their stationary base (N = 6,000, cap = 300, 8 x 50,000, seed 33,
              6 sweeps of 6 %): each CHR and the scan cost; arc must beat lru
              and lfu on scan, as the JAX reference does at this setting.
-   profile — ``telemetry.timing.measure`` over plfua's grid row with
-             ``profile_dir``: the device's idle share between launches, from the
+   profile — ``telemetry.timing.measure`` over plfua's grid row's N = 100,000
+             cases (its largest 6 of 60) with ``profile_dir``: the device's
+             idle share between launches over those cases, from the
              ``torch.profiler`` trace and from CUDA events.
 6. measure — each program at N = 100,000, cap = 2,000, S = 12, T = 100,000
              (``cache_sim`` through lfu, ``cache_sim/sized`` through gdsf and
              both byte programs under the byte budget of 2,000 objects of mean
              size): the kernel's time from CUDA events after a warm-up, the
-             plain version's time once at T = 10,000 (the kernel is held to it
+             plain version's time once at T = 2,500 (the kernel is held to it
              there), and the least time the card could take (bound: the bytes
              moved, or the operations the function needs, see ``bound``); the
              µs a request of a sample's chain, and for the heap programs the
@@ -93,23 +109,26 @@ caches. Phases, one line each (or one line per item):
              plfua_dyn) and hot mask (plfua_dyn) lie, for arc where its tags
              and links lie.
 7. telemetry — each program's two telemetry instances (``+telemetry`` and
-             ``+telemetry_grouped``, W = T // 16, 4 tenant groups): checks,
-             exact against the plain version, ungrouped on Zipf and grouped on
-             ``multi_tenant`` traces, at (10,000, 200) with T = 10,000 (plain
-             in the CPU workers, started with phase 3), at (100,000, 2,000) with
-             T = 2,500 (plain on the card), and W = 1 and W > T at (130, 3),
-             T = 2,010 (a partial plfua_dyn period), and grouped at capacity 0
-             and -3 for wlfu, tinylfu, plfua_dyn (7 hot ids) and arc at (130,
-             T = 2,010) and (10,000, T = 10,000), where the first victim is id 0
-             while it is not cached; then the telemetry path at
-             the measured case (T = 100,000) through ``ops.cache_sim_outputs``,
+             ``+telemetry_grouped``, W = T // 16, 4 tenant groups): checks (run
+             in phase 3), exact against the plain version, ungrouped on Zipf and
+             grouped on ``multi_tenant`` traces, at (10,000, 200) with T = 5,000
+             (plain in the CPU workers; every sample evicts), at (100,000,
+             2,000) with T = 2,500 (plain in the card workers), and W = 1 and
+             W > T at (130, 3), T = 2,010 (a partial plfua_dyn period), and
+             grouped at capacity 0 and -3 for wlfu, tinylfu, plfua_dyn (7 hot
+             ids) and arc at (130, T = 2,010) and (10,000, T = 5,000), where the
+             first victim is id 0 while it is not cached; then the telemetry
+             path at the measured case (T = 100,000) through
+             ``ops.cache_sim_outputs``,
              with the launch counts set to 0 just before and read just after:
              primary outputs equal the instance without telemetry's, the hits
              column sums to the hit count, requests equal the window sizes, and
              the grouped series summed over the groups equals the ungrouped;
              then, on the multi_tenant traces, each instance's time between
              two telemetry-off times (in turns: off, ungrouped, grouped, off)
-             and its ratio to their mean (on/off).
+             and its ratio to their mean (on/off), and its plain version's time
+             alone on the card over the traces' first 500 requests (the kernel
+             held to it there).
 8. fleet   — the fleet modules (one line per item): ``workloads.device``'s six
              generators on the card at the fleet benchmark's size (N = 10,000,
              8 x 100,000; ms each), held there to their contracts (range,
@@ -171,8 +190,8 @@ caches. Phases, one line each (or one line per item):
              bounded call's sample 0 (hits, node hits, counters, states, origin
              misses, stitched series) and equal to that sample's oracle; the
              fast compact-lane rows of ``benchmarks/stream_bench.py`` (lru and
-             tinylfu at N = 2**16, capacity 2**12, 24 chunks of 1,024, seeds 40
-             and 41; plfua_dyn with a refresh of 4 chunks) through
+             tinylfu at N = 2**16, capacity 2**12, 18 chunks of 1,024, seeds 40
+             and 41; plfua_dyn with a refresh of 4 chunks, 8 chunks) through
              ``stream_fleet`` (the next chunk generated on a side CUDA stream),
              each equal to the cache_sim program on its concatenated chunks
              (hits, ``in_cache``, freq or stamps, inserts), lru and tinylfu
@@ -185,7 +204,8 @@ caches. Phases, one line each (or one line per item):
 10b. shard — a gloo world of 2 ranks (``python3 chip_smoke.py --shard-rank R``,
              ``init_method=file://build/shard/init``, each rank on cuda:0, a
              card operand of a collective staged through the host) started
-             beside phase 3's program checks under a 420 s deadline that kills it: the
+             before the build, beside it and phase 3's checks, under a 420 s
+             deadline that kills it: the
              edge-sharded level-major run (plfu, the fleet phase's sample 0),
              the edge-sharded placed run (plfu admit, the placed phase's sample
              0; one all-reduce a position) and the sample-sharded run (plfua_dyn
@@ -205,12 +225,20 @@ caches. Phases, one line each (or one line per item):
              decode instance and deepseek's served prefill (1, 128, 128,
              2,048, causal); jamba's attention layer (1, 64, 8, 128): causal
              prefill at 2,048, decode against a cache of 2,056 at kv_len 1,
-             2,049 and 2,056. For each
+             2,049 and 2,056; whisper's (1, 20, 20, 64): the encoder's
+             non-causal prefill over 1,500 frames, cross-attention from 4 and
+             128 rows over the 1,500-frame source (non-causal, Sq != Skv, a
+             partial last key tile), the cross decode at kv_len 1,500, the
+             decoder's causal prefill at 4 and 128 and its decode against the
+             self cache of 448; llava's (1, 32, 8, 128): causal prefill at
+             2,048 and decode against 2,056 at kv_len 2,049 and 2,056. For each
              served case it also reads deliberately wrong plain versions (the
              causal bound one 64-key tile early, and in bf16 p rounded to bf16
-             before P V; decode with one live key dropped, or one garbage key
-             let in at kv_len 1) against the same tolerance, which must reject each,
-             and prints what the former 2e-2 tolerance read for them.
+             before P V; a non-causal case with one live key dropped, read
+             causally, and without its last partial tile of 64 keys, or with
+             one garbage key let in at kv_len 1) against the same tolerance,
+             which must reject each, and prints what the former 2e-2 tolerance
+             read for them.
 12. serve  — smollm-360m at full width (32 layers, d_model 960, 15 heads, 5 KV
              heads, ~409 M parameters), weights from ``--seed`` through
              ``Model.init``, bf16 compute: the reference launcher's traffic (20
@@ -302,18 +330,52 @@ caches. Phases, one line each (or one line per item):
              Mamba layer's decode with its conv carry zeroed rejected. Then the
              flash kernel at jamba's prefill and decode shapes, measured as in
              phase 15.
-20. kernels — one JSON line, an entry per kernel instance, with the trace
+19a. whisper — whisper-large-v3 at full width and depth (32 encoder and 32
+             decoder layers, d_model 1,280, 20 / 20 heads of 64, d_ff 5,120,
+             vocab 51,866, f32 masters, bf16 compute; 1,600,990,720
+             parameters), weights from ``--seed``: 4 requests of 1,500 frames
+             (``enc_embeds`` drawn from the seed), decoder prompts of 4, 4, 4
+             and 128 tokens, 16 new tokens each, greedy through
+             ``Model.prefill`` and ``decode_step`` (no serving path takes
+             ``enc_embeds``), the flash counts set to 0 just before and read
+             just after: 32 x 3 a request (encoder, self and cross prefill; a
+             4-row prompt runs the decode instance) and 64 a decode step, by
+             instance. Then prefill ms (encoder + prompt), decode ms a token
+             beside the bytes a token reads, J a token at the power limit, the
+             idle share over one decode token. Check: the first 2 encoder and 2
+             decoder layers on the card and on the CPU (the card's bf16
+             compute copies; the plain path, fed the card's tokens), the
+             whole source, a 4-token prompt and 4 decode steps, the logits
+             within 0.125; a causal encoder must be rejected. Then the kernel
+             at the encoder's, the 128-row cross prefill's and the cross
+             decode's shapes, measured as in phase 15.
+19b. llava — llava-next-mistral-7b at full width and depth (32 layers, d_model
+             4,096, 32 / 8 heads of 128, d_ff 14,336, vocab 32,000, rope
+             theta 1e6, f32 masters, bf16 compute; 7,241,732,096 parameters,
+             43.5 GB with the bf16 copies): 4 requests of 1,152 prefix
+             embeddings (drawn from the seed at 0.02) and 896 text tokens,
+             cache_len 2,056, 8 new tokens at positions after the prefix;
+             flash launches = 32 x (prefills + decode steps); the same
+             figures. Check: the first 2 layers, the prefix and 128 text
+             tokens, 4 decode steps, within 0.125; the text without the prefix
+             (at positions 0...) must be rejected. Then the kernel at its
+             prefill and decode shapes.
+20. kernels — a ``[phases]`` line (each phase's seconds), then one JSON
+             line, an entry per kernel instance, with the trace
              lengths of cache_sim's time (``T``) and plain version's
-             (``plain_T``) and the flash instances' shapes (the D = 192 prefill
-             and jamba's D = 128 prefill and decode their own entries).
+             (``plain_T``) and the flash instances' shapes (the D = 192 prefill,
+             jamba's D = 128 prefill and decode, and whisper's and llava's
+             shapes their own entries).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before it; without a card the script exits 1 and prints no result.
+before it; without a card the script exits 1 and prints no result. Every line
+is flushed as it is printed, so that a run cut off shows how far it got.
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -341,7 +403,7 @@ from repro_torch.kernels.cache_sim import cache_sim as kernel  # noqa: E402
 from repro_torch.kernels.cache_sim import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as flash  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
-from repro_torch.models import attention, build, moe, ssm, transformer  # noqa: E402
+from repro_torch.models import attention, build, moe, ssm, transformer, whisper  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.telemetry import spec as telemetry_spec  # noqa: E402
 from repro_torch.telemetry import timing  # noqa: E402
@@ -353,49 +415,77 @@ ADMISSION_KINDS = ("wlfu", "tinylfu", "plfua_dyn")
 KINDS = BASE_KINDS + ADMISSION_KINDS
 BYTE_KINDS = kernel.BYTE_CAPABLE_KINDS
 SAMPLES = 12
-# the base program's check, cut from T = 20,000 to 10,000 to make room for the
-# other programs' checks within the script's time
-BASE_CHECK_CASES = ((100, 2), (10_000, 200), (46_416, 4_225), (100_000, 2_000))
-BASE_CHECK_LEN = 10_000
-# (N, cap, T, explicit options): the admission programs' checks; at N = 100,000 (plain on the card)
-# cut from T = 20,000 to 10,000 to make room for the fleet phase (plfua_dyn's refresh there is
-# checked by the largest-heap case)
+# The checks whose plain version runs on the card (N > CPU_PLAIN_MAX_N) were cut in depth from T =
+# 10,000: each runs at 5,000 or, where that does not evict in every sample, at the least T (on a
+# grid of 250; seed 0) that does, and ``hold_depth`` holds it to that. Of those whose plain version
+# runs in the CPU workers, the sized and arc checks at N = 10,000 were cut from 20,000 to 10,000 and
+# the small telemetry case from 10,000 to 5,000 (each evicts 38 times a sample or more there, seed
+# 0), also held by ``hold_depth``.
+# (N, cap, T): the base program's checks, at T = 10,000 (cut from 20,000) where N <= 10,000; at
+# N = 100,000, 6,000; at N = 46,416, 17,500 (raised from 10,000, where it evicted in no sample:
+# 2,788-2,885 distinct ids for 4,225 slots)
+BASE_CHECK_CASES = ((100, 2, 10_000), (10_000, 200, 10_000), (46_416, 4_225, 17_500), (100_000, 2_000, 6_000))
+# (N, cap, T, explicit options): the admission programs' checks; at N = 100,000 6,500, the least at
+# which tinylfu evicts in every sample (with and without its doorkeeper; wlfu from 6,000); plfua_dyn's
+# refresh there is checked by the largest-heap case
 ADMISSION_CHECK_CASES = (
     (10_000, 200, 20_500, {}),
-    (100_000, 2_000, 10_000, {}),
+    (100_000, 2_000, 6_500, {}),
     (130, 3, 2_000, dict(window=33, refresh=50, sketch_width=96, hot_size=7)),
 )
-# (N, cap, T): the sized and arc checks; at N = 100,000 (plain on the card) cut from T = 20,000 to
-# 10,000 to make room for the fleet phase within the script's time
-SIZED_CHECK_CASES = ((10_000, 200, 20_000), (100_000, 2_000, 10_000))
-SIZED_CHECK_LEN = 20_000  # the max_victims and unit-size checks, at N = 10,000
-ARC_CHECK_CASES = ((100, 2, 20_000), (10_000, 200, 20_000), (100_000, 2_000, 10_000))
+# (N, cap, T of gdsf's object-count program, T of the byte programs): the sized checks; at N = 100,000
+# gdsf first evicts in every sample at 6,000, and the byte programs (from 1,250-1,750) run at the
+# cut's 5,000; at N = 10,000 both at 10,000 (1,543 evictions a sample or more)
+SIZED_CHECK_CASES = ((10_000, 200, 10_000, 10_000), (100_000, 2_000, 6_000, 5_000))
+#: the max_victims and unit-size checks, at N = 10,000: max_victims=2 still binds on the pareto case
+SIZED_CHECK_LEN = 10_000
+# (N, cap, T on Zipf, T on scan): arc's checks; at N = 10,000 10,000 on both (3,078 evictions a
+# sample or more); at N = 100,000 on Zipf 6,000, on scan 5,000 (760 evictions a sample or more)
+ARC_CHECK_CASES = ((100, 2, 20_000, 20_000), (10_000, 200, 10_000, 10_000), (100_000, 2_000, 6_000, 5_000))
+#: the kinds whose caches never fill in those checks (seed 0): their admission gate lets in only the
+#: hot set, fewer of whose ids arrive within T than the cache has slots (plfua at N = 46,416 up to T
+#: = 20,000 and at N = 100,000 up to 12,000; plfua_dyn at N = 100,000 up to 12,000), so no sample
+#: evicts at any depth these checks have run at; each sample must turn misses away instead, at the
+#: cut's T = NEVER_FULL_LEN
+NEVER_FULL_KINDS = ("plfua", "plfua_dyn")
+NEVER_FULL_LEN = 5_000
 #: (N, cap, T, scan options): the grid's largest heap (25,000 slots, 200,000 B of shared
-#: memory) and arc's largest lists, filled by one sweep over 95 % of the trace and then evicting
-#: (demoting) about 5,000 times a sample
-HEAP_CHECK_CASE = (100_000, 25_000, 36_000, dict(n_sweeps=1, sweep_len_frac=0.95))
-HEAP_CHECK_KINDS = ("lfu", "gdsf", "wlfu", "plfua_dyn", "arc", "tinylfu")
+#: memory) and arc's largest lists, filled by one sweep over 95 % of the trace and then evicting;
+#: T cut from 36,000 (about 5,000 evictions a sample) to 32,000, the least thousand at which lfu,
+#: gdsf and wlfu evict 1,000 times or more in every sample (1,693 at least; 888 at 31,000; seed 0)
+HEAP_CHECK_CASE = (100_000, 25_000, 32_000, dict(n_sweeps=1, sweep_len_frac=0.95))
+#: in the order of their plain runs' length on the card, longest first: the program checks hand the
+#: card workers their plain runs in the order they are made, and these come first
+HEAP_CHECK_KINDS = ("arc", "plfua_dyn", "lfu", "gdsf", "wlfu", "tinylfu")
 #: plfua_dyn's options there: its default hot set (ids below 2 x 25,000) would turn the sweep
 #: over [50,000, 100,000) away, and its default refresh (250,000) would never fire; with 97,000
 #: hot ids every sample fills the cache and evicts 1,955 times or more, and a refresh every
-#: 9,000 requests fires four times, each changing the hot set (seed 0)
+#: 9,000 requests fires four times, each changing the hot set (seed 0). It fills its heap more
+#: slowly than lfu (24,454 residents at 33,000), so it keeps its own scan of T = 36,000
 PLFUA_DYN_HEAP_OPTIONS = dict(hot_size=97_000, refresh=9_000)
-#: arc's largest-lists check on the same scan cut to T = 32,000: its plain version takes about
-#: 1.3 ms a step on the card, and this depth still demotes about 1,700 times a sample
+PLFUA_DYN_HEAP_CHECK_LEN = 36_000
+#: arc's largest-lists check on a scan of T = 32,000: its plain version takes about 1.3 ms a step
+#: on the card, and this depth still demotes about 1,700 times a sample (843 at least at 31,000)
 ARC_HEAP_CHECK_LEN = 32_000
 #: tinylfu's duel turns a one-touch sweep away (9 evictions a sample on the scan above), so its
-#: largest-heap trace sweeps 27,500 ids (the last 2,500 turned away) and then requests 2,000 of
-#: those twice each (T = 31,500): the first wins its duel on a count of 2 and evicts, the second
-#: hits, so that the newcomer is not the next victim
-TINYLFU_RESWEEP = (27_500, 25_000, 2_000)
+#: largest-heap trace sweeps 26,800 ids (the last 1,800 turned away) and then requests 1,600 of
+#: those twice each (T = 30,000, cut from 31,500: 27,500 swept, 2,000 twice): the first wins its
+#: duel on a count of 2 and evicts, the second hits, so that the newcomer is not the next victim;
+#: 1,150 evictions a sample at least (885 with 26,500 swept; seed 0)
+TINYLFU_RESWEEP = (26_800, 25_000, 1_600)
 #: the grouped telemetry checks at capacity <= 0 (the first victim is id 0, not cached): the
 #: programs whose victims once came from a block-wide scan, at the edge case's shape and
 #: options and at the small check case's (plain in the CPU workers)
 ZERO_CAPACITIES = (0, -3)
 ZERO_CAPACITY_KINDS = ("wlfu", "tinylfu", "plfua_dyn", "arc")
-# the largest N whose plain version runs in a CPU worker, not on the card
+#: the largest N whose checks keep their depth: above it the depth rules (``check_len``,
+#: ``hold_depth``) apply, set when those checks' plain versions all ran on the card
 CPU_PLAIN_MAX_N = 10_000
-CPU_WORKERS = 6
+#: the least N whose check's plain version runs on the card (in the card workers), below it in the
+#: CPU workers: a card worker shares the card with three others, the shard world and the main
+#: process, and its step then takes about 3 ms at N = 46,416, where the CPU's takes 1.6 ms
+CARD_PLAIN_MIN_N = 100_000
+CPU_WORKERS = 7
 #: the CPU workers' niceness: while the check phase runs the card workers and the shard world on
 #: the host's 8 cores, the CPU workers, whose plain runs are compared only after the grid, take
 #: what is left
@@ -406,9 +496,9 @@ CARD_PLAIN_WORKERS = 4
 SCAN_KW = dict(n_sweeps=6, sweep_len_frac=0.06)  # benchmarks/scan_bench.py's full setting
 SCAN_N, SCAN_CAP, SCAN_SAMPLES, SCAN_LEN, SCAN_SEED = 6_000, 300, 8, 50_000, 33
 SCAN_KINDS = (("lru", {}), ("lfu", {}), ("arc", {}), ("tinylfu", dict(doorkeeper=256)))
-# the plain version's measured run: T cut from 20,000 to 10,000 (about 90 s) to keep the script's
-# time near what it was before the serving phases
-MEASURE_N, MEASURE_CAP, MEASURE_LEN, PLAIN_MEASURE_LEN = 100_000, 2_000, 100_000, 10_000
+# the plain version's measured run: T cut from 20,000 to 10,000, then to 2,500 (the seven plain runs
+# took 65.7 s at 10,000) to keep the script's time within its budget
+MEASURE_N, MEASURE_CAP, MEASURE_LEN, PLAIN_MEASURE_LEN = 100_000, 2_000, 100_000, 2_500
 # the kind (and whether under the byte budget) each program is measured through
 MEASURED = {"cache_sim": ("lfu", False), "cache_sim/wlfu": ("wlfu", False),
             "cache_sim/tinylfu": ("tinylfu", False), "cache_sim/plfua_dyn": ("plfua_dyn", False),
@@ -435,9 +525,13 @@ BUDGET = dict(sizing="budget")
 #: telemetry: W = T // 16 (the reference's telemetry bench), 4 tenant groups on multi_tenant traces
 TEL_WINDOWS, TEL_GROUPS = 16, 4
 #: (N, cap, T) of the telemetry checks: the small one's plain runs in the CPU workers, the large
-#: one's on the card; both cut from T = 20,000 to stay in the script's time (the large one to
-#: 5,000, then to 2,500 to make room for the fleet phase)
-TEL_CHECK_CASES = ((10_000, 200, 10_000), (100_000, 2_000, 2_500))
+#: one's on the card; both cut from T = 20,000 to stay in the script's time (the small one to
+#: 10,000, then to 5,000; the large one to 5,000, then to 2,500 to make room for the fleet phase)
+TEL_CHECK_CASES = ((10_000, 200, 5_000), (100_000, 2_000, 2_500))
+#: the telemetry instances' plain versions timed alone on the card (phase 7) over this many requests
+#: of the measured case's multi_tenant traces: the checks' plain runs share the card with the card
+#: workers, and timing them alone at 2,500 took about 40 s of the script
+TEL_PLAIN_LEN = 500
 #: (N, cap, T, options): the window edges W = 1 and W > T, T not a multiple of plfua_dyn's refresh
 TEL_EDGE_CASE = (130, 3, 2_010, dict(window=33, refresh=50, sketch_width=96, hot_size=7))
 #: what each telemetry instance replaces: tel_update, and plfua_dyn's refresh/churn rows
@@ -447,6 +541,8 @@ TEL_REPLACES.update({"cache_sim/plfua_dyn": f"{TPU_KERNEL}:688", "cache_sim/plfu
 CALL_OPTIONS = ("sizes", "telemetry_window", "n_groups", "groups")
 #: the grid row profiled for the device's idle share
 PROFILED_ROW = "plfua"
+#: the profiled cases: that row's N = 100,000 cases (6 of 60)
+PROFILED_N = 100_000
 
 
 def require(ok: bool, what: str) -> None:
@@ -552,16 +648,20 @@ def plain(traces: torch.Tensor, **kw) -> dict:
         return kernel.cache_sim_plain(traces, **kw)
 
 
-def cpu_plain(traces: np.ndarray, kw: dict) -> dict:
-    """The plain version on the CPU (a worker process): numpy outputs."""
+def cpu_plain(traces: np.ndarray, kw: dict) -> tuple[dict, float]:
+    """The plain version on the CPU (a worker process): numpy outputs, and the run's wall seconds."""
+    t0 = time.perf_counter()
     outs = plain(torch.as_tensor(traces), **kw)
-    return {k: v.numpy() for k, v in outs.items()}
+    return {k: v.numpy() for k, v in outs.items()}, time.perf_counter() - t0
 
 
-def card_plain(traces: np.ndarray, kw: dict) -> dict:
-    """The plain version on the card (a card worker process, untimed: it shares the card): numpy
-    outputs."""
-    return {k: v.cpu().numpy() for k, v in plain(torch.as_tensor(traces, device="cuda"), **kw).items()}
+def card_plain(traces: np.ndarray, kw: dict) -> tuple[dict, float]:
+    """The plain version on the card (a card worker process; it shares the card and the host, so its
+    wall seconds say what the check phase spends, not what the plain version costs alone): numpy
+    outputs, and the run's wall seconds."""
+    t0 = time.perf_counter()
+    outs = {k: v.cpu().numpy() for k, v in plain(torch.as_tensor(traces, device="cuda"), **kw).items()}
+    return outs, time.perf_counter() - t0
 
 
 def cpu_grid_case(kind: str, options: str, seed: int) -> tuple:
@@ -570,6 +670,19 @@ def cpu_grid_case(kind: str, options: str, seed: int) -> tuple:
     with torch.inference_mode():
         r = simulate.run_case(kind, zipf.paper_grid()[0], seed=seed, device="cpu", **kw)
     return (r.mean_chr, r.std_chr, r.mean_evictions, r.mean_metadata, r.mean_byte_chr)
+
+
+def grid_rows() -> tuple[list, list]:
+    """The paper's grid, and the grid phase's rows ``(label, kind, options, CPU reference's options,
+    cases)``: every kind over the 60 cases, gdsf with the byte-capacity catalogue and under the budget,
+    and the N = 100,000 cases under the budget for the other byte programs."""
+    paper = zipf.paper_grid()
+    n100k = [c for c in paper if c.n_objects == 100_000]
+    rows = [(kind, kind, {}, "", paper) for kind in KINDS]
+    rows += [("gdsf", "gdsf", SIZED, "sized", paper), ("arc", "arc", {}, "", paper),
+             ("gdsf+bytes", "gdsf", BUDGET, "bytes", paper)]
+    rows += [(f"{kind}+bytes", kind, BUDGET, "bytes", n100k) for kind in BYTE_KINDS if kind != "gdsf"]
+    return paper, rows
 
 
 class Checks:
@@ -584,7 +697,6 @@ class Checks:
         self.pending = []
         self.pending_card = []
         self.count = 0
-        self.plain_ms = {}  # instance -> (ms, T) of its last plain run on the card
 
     def run(self, label: str, kind: str, n: int, cap: int, trace_len: int, traces=None, sizes_dist=None,
             budget: bool = False, **kw) -> dict:
@@ -614,21 +726,21 @@ class Checks:
                      f"series_shape={list(got['series'].shape)}")
         what = f"{label} {program} N={n} cap={cap} T={trace_len} {option_text(spec, sizes_dist)}"
         self.count += 1
-        if n <= CPU_PLAIN_MAX_N:
+        if n < CARD_PLAIN_MIN_N:
             future = self.pool.submit(cpu_plain, traces, kw)
             self.pending.append((future, got, program, line + " plain=cpu", what, t1))
         elif self.card_pool is not None:
             future = self.card_pool.submit(card_plain, traces, kw)
             self.pending_card.append((future, got, program, line + " plain=card_worker", what, t1))
         else:
-            want, ms = cuda_ms(lambda: plain(torch.as_tensor(traces, device="cuda"), **kw))
-            self.plain_ms[program] = (ms, trace_len)
-            self.compare(got, want, program, line + f" plain=card plain_ms={ms}", what, t1)
+            self.compare(got, (plain(torch.as_tensor(traces, device="cuda"), **kw), None), program,
+                         line + " plain=card", what, t1)
         return got
 
-    def compare(self, got, want, program, line, what, t1) -> None:
+    def compare(self, got, plain_run: tuple, program, line, what, t1) -> None:
+        want, plain_s = plain_run
         err = max_abs_err(got, want)
-        print(f"{line} max_abs_err={err} elapsed_s={time.perf_counter() - t1:.3f}", flush=True)
+        print(f"{line} max_abs_err={err} plain_s={plain_s} elapsed_s={time.perf_counter() - t1:.3f}", flush=True)
         require(err == 0, f"kernel != plain version: {what}")
         self.worst[program] = max(self.worst[program], err)
 
@@ -672,8 +784,12 @@ def run_telemetry_checks(checks: Checks, seed: int) -> None:
                        telemetry_window=w, n_groups=TEL_GROUPS, groups=generators.tenant_groups(n, TEL_GROUPS))
         for kind, extra in tel_kinds().values():
             extra = {**grid_options(kind), **extra}
-            checks.run(f"{kind} telemetry", kind, n, cap, trace_len, telemetry_window=w, **extra)
-            checks.run(f"{kind} telemetry grouped", kind, n, cap, trace_len, **grouped, **extra)
+            got = checks.run(f"{kind} telemetry", kind, n, cap, trace_len, telemetry_window=w, **extra)
+            got_grouped = checks.run(f"{kind} telemetry grouped", kind, n, cap, trace_len, **grouped, **extra)
+            if n <= CPU_PLAIN_MAX_N:  # cut in depth: each sample still evicts
+                budget = bool(extra.get("budget"))
+                hold_depth(f"{kind} telemetry N={n}", kind, got, trace_len, budget=budget, n=n)
+                hold_depth(f"{kind} telemetry grouped N={n}", kind, got_grouped, trace_len, budget=budget, n=n)
         if n <= CPU_PLAIN_MAX_N:
             checks.run("lru+bytes telemetry grouped", "lru", n, cap, trace_len, sizes_dist="pareto", budget=True,
                        max_victims=2, **grouped)
@@ -716,10 +832,30 @@ def plfua_dyn_refreshes(got: dict, trace: np.ndarray, n: int, cap: int) -> None:
           f"{with_churn.tolist()} churn={int(churn.sum())} churn_by_refresh_sample0={churn[0].tolist()}", flush=True)
 
 
+def hold_depth(label: str, kind: str, got: dict, trace_len: int, budget: bool = False, n: int | None = None) -> None:
+    """A check cut in depth still exercises eviction: every sample evicts (inserts past its
+    residents), or, for a kind of ``NEVER_FULL_KINDS`` under an object count with its plain version
+    on the card (``n`` None or above ``CPU_PLAIN_MAX_N``), turns a miss away (misses past inserts).
+    Prints both by sample."""
+    evictions = got["inserts"].long() - got["in_cache"].long().sum(dim=1)
+    refused = trace_len - got["hits"].long() - got["inserts"].long()
+    gated = kind in NEVER_FULL_KINDS and not budget and (n is None or n > CPU_PLAIN_MAX_N)
+    print(f"[check {label} depth] T={trace_len} evictions_by_sample={evictions.tolist()} "
+          f"refused_by_sample={refused.tolist()} gate={'refuses' if gated else 'evicts'}", flush=True)
+    if gated:
+        require(int(refused.min()) > 0, f"{label} at T={trace_len}: a sample never turned a miss away")
+    else:
+        require(int(evictions.min()) > 0, f"{label} at T={trace_len}: a sample never evicted ({evictions.tolist()})")
+
+
+def check_len(kind: str, n: int, trace_len: int) -> int:
+    """A check's T: ``NEVER_FULL_LEN`` for a kind that never fills there (plain on the card)."""
+    return NEVER_FULL_LEN if n > CPU_PLAIN_MAX_N and kind in NEVER_FULL_KINDS else trace_len
+
+
 def run_checks(checks: Checks, seed: int) -> None:
-    for n, cap in BASE_CHECK_CASES:
-        for kind in BASE_KINDS:
-            checks.run(kind, kind, n, cap, BASE_CHECK_LEN)
+    """The program checks, the largest heap's first: their plain runs on the card are the longest,
+    and the card workers take the plain runs in the order the checks make them."""
     n, cap, trace_len, scan_kw = HEAP_CHECK_CASE
     scan = generators.scan(n, SAMPLES, trace_len, seed=seed, **scan_kw)
     swept, kept, again = TINYLFU_RESWEEP
@@ -728,6 +864,7 @@ def run_checks(checks: Checks, seed: int) -> None:
         order = np.random.default_rng(seed + i).permutation(n)
         resweep.append(np.concatenate([order[:swept], np.repeat(order[kept:kept + again], 2)]))
     traces = dict(arc=generators.scan(n, SAMPLES, ARC_HEAP_CHECK_LEN, seed=seed, **scan_kw),
+                  plfua_dyn=generators.scan(n, SAMPLES, PLFUA_DYN_HEAP_CHECK_LEN, seed=seed, **scan_kw),
                   tinylfu=np.stack(resweep).astype(np.int32))
     options = dict(wlfu=grid_options("wlfu"), plfua_dyn=PLFUA_DYN_HEAP_OPTIONS)
     for kind in HEAP_CHECK_KINDS:
@@ -739,21 +876,32 @@ def run_checks(checks: Checks, seed: int) -> None:
         print(f"[check {kind} largest heap] evictions={evictions} residents={int(got['in_cache'].sum())}", flush=True)
         if kind == "plfua_dyn":
             plfua_dyn_refreshes(got, trace, n, cap)
-    for n, cap, trace_len, explicit in ADMISSION_CHECK_CASES:
+    for n, cap, base_len in BASE_CHECK_CASES:
+        for kind in BASE_KINDS:
+            trace_len = check_len(kind, n, base_len)
+            got = checks.run(kind, kind, n, cap, trace_len)
+            if n > CPU_PLAIN_MAX_N:
+                hold_depth(f"{kind} N={n}", kind, got, trace_len)
+    for n, cap, case_len, explicit in ADMISSION_CHECK_CASES:
         for kind in ADMISSION_KINDS:
+            trace_len = check_len(kind, n, case_len)
             variants = [{}]
             if kind == "tinylfu":
                 variants.append(dict(doorkeeper=sketch.default_doorkeeper(cap)))
             for extra in variants:
                 # options a kind does not take are ignored, as the reference does
-                checks.run(kind, kind, n, cap, trace_len, **{**grid_options(kind), **explicit, **extra})
-    for n, cap, trace_len in SIZED_CHECK_CASES:
-        checks.run("gdsf", "gdsf", n, cap, trace_len, sizes_dist="lognormal")
+                got = checks.run(kind, kind, n, cap, trace_len, **{**grid_options(kind), **explicit, **extra})
+                if n > CPU_PLAIN_MAX_N:
+                    hold_depth(f"{kind} N={n} {json.dumps(extra)}", kind, got, trace_len)
+    for n, cap, trace_len, bytes_len in SIZED_CHECK_CASES:
+        got = checks.run("gdsf", "gdsf", n, cap, trace_len, sizes_dist="lognormal")
+        hold_depth(f"gdsf N={n}", "gdsf", got, trace_len)
         for dist in generators.SIZE_DISTS:
             for kind in BYTE_KINDS:
-                checks.run(f"{kind}+bytes", kind, n, cap, trace_len, sizes_dist=dist, budget=True)
+                got = checks.run(f"{kind}+bytes", kind, n, cap, bytes_len, sizes_dist=dist, budget=True)
+                hold_depth(f"{kind}+bytes {dist} N={n}", kind, got, bytes_len, budget=True)
     # max_victims=2 where the bound is hit: the run differs from the default bound's
-    n, cap, _ = SIZED_CHECK_CASES[0]
+    n, cap = SIZED_CHECK_CASES[0][:2]
     traces = zipf.sample_traces(n, SAMPLES, SIZED_CHECK_LEN, seed=seed)
     capped = checks.run("gdsf+bytes", "gdsf", n, cap, SIZED_CHECK_LEN, traces=traces, sizes_dist="pareto",
                         budget=True, max_victims=2)
@@ -762,8 +910,9 @@ def run_checks(checks: Checks, seed: int) -> None:
         torch.as_tensor(traces, device="cuda"), kind="gdsf", n_objects=n, capacity=cap, sizes=sizes,
         capacity_bytes=simulate.bytes_budget(sizes, cap))
     require(not same_outputs(capped, default), "max_victims=2 never bound the pareto case")
+    hold_depth(f"gdsf+bytes pareto max_victims=2 N={n}", "gdsf", capped, SIZED_CHECK_LEN, budget=True)
     print("[check max_victims] gdsf pareto N=10000: max_victims=2 differs from the default bound "
-          f"(inserts {int(capped['inserts'].sum())} vs {int(default['inserts'].sum())})")
+          f"(inserts {int(capped['inserts'].sum())} vs {int(default['inserts'].sum())})", flush=True)
     # unit sizes with capacity_bytes == capacity: the byte program gives the object-count program's outputs
     dev_traces = torch.as_tensor(traces, device="cuda")
     for kind in BYTE_KINDS:
@@ -772,11 +921,14 @@ def run_checks(checks: Checks, seed: int) -> None:
         object_run = kernel.cache_sim_cuda(dev_traces, **kw)
         require(same_outputs(bytes_run, object_run), f"unit sizes: {kind} byte program != object-count program")
         print(f"[check unit-sizes {kind}] {kernel.program_of(kind, cap)} == {kernel.program_of(kind)} "
-              f"N={n} cap={cap} T={SIZED_CHECK_LEN} hits={int(bytes_run['hits'].sum())}")
-    for n, cap, trace_len in ARC_CHECK_CASES:
-        checks.run("arc", "arc", n, cap, trace_len)
-        scan = generators.scan(n, SAMPLES, trace_len, seed=SCAN_SEED, **SCAN_KW)
-        checks.run("arc scan", "arc", n, cap, trace_len, traces=scan)
+              f"N={n} cap={cap} T={SIZED_CHECK_LEN} hits={int(bytes_run['hits'].sum())}", flush=True)
+    for n, cap, trace_len, scan_len in ARC_CHECK_CASES:
+        got = checks.run("arc", "arc", n, cap, trace_len)
+        scan = generators.scan(n, SAMPLES, scan_len, seed=SCAN_SEED, **SCAN_KW)
+        got_scan = checks.run("arc scan", "arc", n, cap, scan_len, traces=scan)
+        if n >= CPU_PLAIN_MAX_N:
+            hold_depth(f"arc N={n}", "arc", got, trace_len)
+            hold_depth(f"arc scan N={n}", "arc", got_scan, scan_len)
 
 
 # ------------------------------------------------------------------------ bound
@@ -844,12 +996,12 @@ def bound(program: str, got: dict, spec, card, sms: int, n_sizes: int, n_groups_
 
 
 def profile_row(seed: int, card) -> None:
-    """``measure`` over one grid row (PROFILED_ROW's 60 cases) with a
-    ``torch.profiler`` trace: the device's idle share between the first
-    kernel's start and the last one's end, from the trace's kernels, and from
-    CUDA events (1 - the cases' device seconds over the timed call's)."""
+    """``measure`` over PROFILED_ROW's N = 100,000 cases (its largest 6 of 60; cut from the whole row
+    to save 12 s) with a ``torch.profiler`` trace: the device's idle share between the first
+    kernel's start and the last one's end, from the trace's kernels, and from CUDA events (1 - the
+    cases' device seconds over the timed call's). The share is that of the row's largest cases."""
     t0 = time.perf_counter()
-    paper = zipf.paper_grid()
+    paper = [c for c in zipf.paper_grid() if c.n_objects == PROFILED_N]
     rows = []
     tm = timing.measure(lambda: rows.append(simulate.run_grid(PROFILED_ROW, paper, seed=seed)),
                         steps=len(paper) * zipf.PAPER_NUM_SAMPLES * zipf.PAPER_TRACE_LEN, repeats=1,
@@ -857,7 +1009,7 @@ def profile_row(seed: int, card) -> None:
     device_s = sum(r.device_s for r in rows[2])  # the timed call's cases
     trace = tm.trace
     require(trace is not None and trace.path.exists(), "the profiled call wrote no trace")
-    print(f"[profile {PROFILED_ROW}] cases={len(paper)} trace={trace.path} trace_kernels={trace.kernels} "
+    print(f"[profile {PROFILED_ROW}] cases={len(paper)} (the row's N = {PROFILED_N} cases, its largest) trace={trace.path} trace_kernels={trace.kernels} "
           f"trace_busy_s={trace.busy_s} trace_span_s={trace.span_s} trace_idle_share={trace.idle_share} "
           f"row_s={tm.execute_s} cases_device_s={device_s} events_idle_share={1 - device_s / tm.execute_s} "
           f"card={card.label!r} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
@@ -934,6 +1086,18 @@ def run_telemetry(traces, offs: dict, checks: Checks, card, sms: int, seed: int)
             return tm.execute_s * 1e3, tm.mean_execute_s * 1e3
 
         spec = kernel.spec_of(**{k: v for k, v in kw.items() if k not in CALL_OPTIONS})
+        # each instance's plain version, alone on the card, on the traces' first TEL_PLAIN_LEN requests,
+        # the kernel held to it there (phase 3 holds both at T = TEL_CHECK_CASES' 2,500)
+        plain_timed = {}
+        short = tenants[:, :TEL_PLAIN_LEN].contiguous()
+        short_tel = dict(telemetry_window=TEL_PLAIN_LEN // TEL_WINDOWS)
+        for instance, tel in ((kernel.instance_of(program, w), short_tel),
+                              (kernel.instance_of(program, w, TEL_GROUPS),
+                               dict(short_tel, n_groups=TEL_GROUPS, groups=groups))):
+            want, plain_ms = cuda_ms(lambda: plain(short, **kw, **tel))
+            require(max_abs_err(kernel.cache_sim_cuda(short, **kw, **tel), want) == 0,
+                    f"{instance}: kernel != plain version at T={TEL_PLAIN_LEN}")
+            plain_timed[instance] = (plain_ms, TEL_PLAIN_LEN)
         # in turns on the same traces: off, ungrouped, grouped, off; on/off is against the offs' mean
         off_first, _ = timed(tenants)
         timings = {"flat": timed(tenants, **flat), "grouped": timed(tenants, **grouped)}
@@ -949,7 +1113,7 @@ def run_telemetry(traces, offs: dict, checks: Checks, card, sms: int, seed: int)
                 (kernel.instance_of(program, w, TEL_GROUPS), "grouped", tenant_grouped, n)):
             ms, mean_ms = timings[layout]
             b = bound(program, {**run, **searches}, spec, card, sms, n if spec.size_aware else 0, n_groups_row)
-            plain_ms, plain_t = checks.plain_ms[instance]
+            plain_ms, plain_t = plain_timed[instance]
             line += (f" | {instance}: ms={ms} mean_ms={mean_ms} on_off={ms / ref_ms} bound_ms={b['bound_ms']} "
                      f"bound_by={b['bound_by']} bytes={b['bytes']} plain_ms={plain_ms} plain_T={plain_t} "
                      f"launches={launches[instance]}")
@@ -1087,15 +1251,15 @@ def fleet_run(topo, traces, assignments, **kw) -> tuple[dict, float, float]:
     return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
 
 
-def fleet_profile(topo, traces, assignments, name: str, **kw) -> tuple:
+def fleet_profile(topo, traces, assignments, **kw) -> tuple:
     """(trace, host s) of a fleet call on the first FLEET_PROFILE_LEN requests of each sample under
     ``timing.profile``, whose trace gives the device's idle share (the same call ran in full just
-    before, so nothing is built or loaded in it)."""
+    before, so nothing is built or loaded in it); no Chrome trace is written (nothing reads it, and
+    writing one took 0.7-8 s a call)."""
     t0 = time.perf_counter()
     tr = torch.as_tensor(traces[:, :FLEET_PROFILE_LEN], device="cuda")
     asg = torch.as_tensor(assignments[:, :FLEET_PROFILE_LEN], device="cuda")
-    trace = timing.profile(fleet.simulate_fleet_batch, topo, tr, asg, device="cuda",
-                           profile_dir=Path(__file__).resolve().parent / "build" / "profile_fleet" / name, **kw)
+    trace = timing.profile(fleet.simulate_fleet_batch, topo, tr, asg, device="cuda", profile_dir=None, **kw)
     return trace, time.perf_counter() - t0
 
 
@@ -1228,11 +1392,17 @@ def fleet_phase(seed: int, card) -> dict:
 
         dev_traces = torch.as_tensor(traces, device="cuda")
         dev_assign = torch.as_tensor(assignments, device="cuda")
+        # every kind on the card first, then each held to its oracles: those run meanwhile
+        done = {}
         for kind in FLEET_KINDS:
             t0 = time.perf_counter()
             topo = fleet_topology(kind)
             out, wall_s, device_s = fleet_run(topo, dev_traces, dev_assign)
-            prof = fleet_profile(topo, traces, assignments, kind)
+            prof = fleet_profile(topo, traces, assignments)
+            done[kind] = (topo, out, wall_s, device_s, prof, time.perf_counter() - t0)
+        for kind in FLEET_KINDS:
+            t0 = time.perf_counter()
+            topo, out, wall_s, device_s, prof, run_s = done.pop(kind)
             hold_to_oracle(kind, kind, out, oracles[kind])
             if kind in ("lru", "plfu"):
                 keep[kind] = dict(trace=traces[0], assignment=assignments[0], row=row0(out),
@@ -1240,7 +1410,7 @@ def fleet_phase(seed: int, card) -> dict:
             print(f"[fleet {kind}] N={FLEET_N} widths={list(FLEET_WIDTHS)} capacities={list(FLEET_CAPS)} router=hash "
                   f"S={FLEET_SAMPLES} T={FLEET_LEN} scenario=stationary wall_s={wall_s} "
                   f"{fleet_line(topo, out, wall_s, device_s, prof, card)} oracle=exact "
-                  f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+                  f"run_s={run_s:.3f} hold_s={time.perf_counter() - t0:.3f}", flush=True)
 
         # plfua_dyn on churn made on the card, routed there: its refreshes on global time
         t0 = time.perf_counter()
@@ -1258,7 +1428,7 @@ def fleet_phase(seed: int, card) -> dict:
         want = [FLEET_LEN // lvl[0].effective_refresh for lvl in topo.levels]
         require(want[0] >= 2, "plfua_dyn's churn run: no request follows a refresh of its edges")
         require(refreshes == want, f"plfua_dyn's refreshes per node {refreshes}, on global time {want}")
-        prof = fleet_profile(topo, host_churn, host_churn_assign, "plfua_dyn_churn")
+        prof = fleet_profile(topo, host_churn, host_churn_assign)
         hold_to_oracle("plfua_dyn churn", "plfua_dyn", out, churn_oracle)
         keep["plfua_dyn churn"] = dict(trace=host_churn[0], assignment=host_churn_assign[0], row=row0(out),
                                        oracle=churn_oracle[0].result(), telemetry=spec, out=out,
@@ -1286,7 +1456,7 @@ def fleet_phase(seed: int, card) -> dict:
         pressure = [int(p.sum()) for p in out["telemetry_pressure"]]
         require(all(e > 0 for e in series_evictions) and sum(pressure) > 0,
                 f"tinylfu grouped: a level's series has no eviction {series_evictions}, or no pressure {pressure}")
-        prof = fleet_profile(topo, tenants, tenant_assign, "tinylfu_grouped", telemetry=spec, groups=groups)
+        prof = fleet_profile(topo, tenants, tenant_assign, telemetry=spec, groups=groups)
         keep["tinylfu grouped"] = dict(trace=tenants[0], assignment=tenant_assign[0], row=row0(out),
                                        oracle=tenant_oracle.result(), telemetry=spec, groups=groups, wall_s=wall_s)
         rep = fleet.fleet_report(topo, out, telemetry=spec)
@@ -1404,53 +1574,61 @@ def placed_phase(pool, seed: int, card, keep: dict) -> dict:
            for label, topo, t_n, kw in runs}
     oracles = {label: [pool.submit(fleet_oracle, topo, traces[s, :t_n], assignments[s, :t_n], kw.get("sizes"))
                        for s in range(PLACED_SAMPLES)] for label, topo, t_n, kw in runs}
-
-    dev_traces = torch.as_tensor(traces, device="cuda")
-    dev_assign = torch.as_tensor(assignments, device="cuda")
-    reports = {}
-    for label, topo, t_n, kw in runs:
-        t0 = time.perf_counter()
-        call = {} if "sizes" not in kw else dict(sizes=kw["sizes"], telemetry=telemetry_spec.TelemetrySpec(kw["window"]))
-        out, wall_s, device_s = fleet_run(topo, dev_traces[:, :t_n], dev_assign[:, :t_n], **call)
-        prof = fleet_profile(topo, traces, assignments, f"placed_{label.replace(' ', '_')}", **call)
-        refused = hold_placed(label, out, oracles[label], cpu[label])
-        reports[label] = fleet.fleet_report(topo, out)
-        if label == "admit":
-            keep["placed admit"] = dict(trace=traces[0, :t_n], assignment=assignments[0, :t_n], row=row0(out),
-                                        oracle=oracles[label][0].result(), wall_s=wall_s)
-        extra = ""
-        if label == "prob(1.0)":
-            lce, lce_wall_s, _ = fleet_run(placed_topology("lce"), dev_traces, dev_assign)
-            require(same_tree(to_numpy({k: out[k] for k in lce}), to_numpy(lce)), "prob(1.0) != the level-major lce call")
-            extra = f" equals_level_major_lce=True level_major_wall_s={lce_wall_s}"
-        print(f"[placed {label}] kind={topo.levels[0][0].kind} N={FLEET_N} widths={list(FLEET_WIDTHS)} "
-              f"capacities={list(FLEET_CAPS)} placements={list(topo.placements)} router=hash S={PLACED_SAMPLES} "
-              f"T={t_n} scenario=stationary {'sizes=lognormal budget=capacities x mean size ' if kw else ''}"
-              f"wall_s={wall_s} {placed_line(topo, out, wall_s, device_s, prof, refused, card)} oracle=exact "
-              f"equals_cpu=True{extra} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
-    lcd, lce = reports["lcd"], reports["prob(1.0)"]
-    print(f"[placed lcd_vs_lce] mgmt_saving={1 - lcd.mgmt_energy_j / lce.mgmt_energy_j} "
-          f"dchr={lcd.total_chr - lce.total_chr} lcd_mgmt_j={lcd.mgmt_energy_j} lce_mgmt_j={lce.mgmt_energy_j} "
-          f"lcd_placement_j={lcd.placement_energy_j} lce_placement_j={lce.placement_energy_j} "
-          f"(lce = the prob(1.0) run; reported, not gated) card={card.label!r}", flush=True)
-
-    # the mixed tree on churn made and routed on the card
-    t0 = time.perf_counter()
-    topo = placed_topology(PLACED_MIXED["placements"], kind=PLACED_MIXED["kinds"], refresh=PLACED_MIXED["refresh"])
+    mixed_topo = placed_topology(PLACED_MIXED["placements"], kind=PLACED_MIXED["kinds"],
+                                 refresh=PLACED_MIXED["refresh"])
     dspec = device_workloads.DeviceTraceSpec("churn", FLEET_N, n_samples=PLACED_SAMPLES, trace_len=PLACED_MIXED_LEN,
                                              seed=seed)
     churn = device_workloads.make_traces_device(dspec, device="cuda")
     churn_assign = router.route_device(churn, FLEET_WIDTHS[0], "hash")
     host_churn, host_assign = churn.cpu().numpy(), churn_assign.cpu().numpy()
     window = PLACED_MIXED_LEN // TEL_WINDOWS
-    cpu_mixed = pool.submit(placed_cpu_run, topo, host_churn, host_assign, window=window)
-    mixed_oracle = [pool.submit(fleet_oracle, topo, host_churn[s], host_assign[s]) for s in range(PLACED_SAMPLES)]
+    cpu_mixed = pool.submit(placed_cpu_run, mixed_topo, host_churn, host_assign, window=window)
+    mixed_oracle = [pool.submit(fleet_oracle, mixed_topo, host_churn[s], host_assign[s]) for s in range(PLACED_SAMPLES)]
+
+    dev_traces = torch.as_tensor(traces, device="cuda")
+    dev_assign = torch.as_tensor(assignments, device="cuda")
+    reports = {}
+    # every run on the card first, then each held to its oracle and CPU run: those run meanwhile
+    done = {}
+    for label, topo, t_n, kw in runs:
+        t0 = time.perf_counter()
+        call = {} if "sizes" not in kw else dict(sizes=kw["sizes"], telemetry=telemetry_spec.TelemetrySpec(kw["window"]))
+        out, wall_s, device_s = fleet_run(topo, dev_traces[:, :t_n], dev_assign[:, :t_n], **call)
+        prof = fleet_profile(topo, traces, assignments, **call)
+        extra = ""
+        if label == "prob(1.0)":
+            lce, lce_wall_s, _ = fleet_run(placed_topology("lce"), dev_traces, dev_assign)
+            require(same_tree(to_numpy({k: out[k] for k in lce}), to_numpy(lce)), "prob(1.0) != the level-major lce call")
+            extra = f" equals_level_major_lce=True level_major_wall_s={lce_wall_s}"
+        done[label] = (out, wall_s, device_s, prof, extra, time.perf_counter() - t0)
+    for label, topo, t_n, kw in runs:
+        t0 = time.perf_counter()
+        out, wall_s, device_s, prof, extra, run_s = done.pop(label)
+        refused = hold_placed(label, out, oracles[label], cpu[label])
+        reports[label] = fleet.fleet_report(topo, out)
+        if label == "admit":
+            keep["placed admit"] = dict(trace=traces[0, :t_n], assignment=assignments[0, :t_n], row=row0(out),
+                                        oracle=oracles[label][0].result(), wall_s=wall_s)
+        print(f"[placed {label}] kind={topo.levels[0][0].kind} N={FLEET_N} widths={list(FLEET_WIDTHS)} "
+              f"capacities={list(FLEET_CAPS)} placements={list(topo.placements)} router=hash S={PLACED_SAMPLES} "
+              f"T={t_n} scenario=stationary {'sizes=lognormal budget=capacities x mean size ' if kw else ''}"
+              f"wall_s={wall_s} {placed_line(topo, out, wall_s, device_s, prof, refused, card)} oracle=exact "
+              f"equals_cpu=True{extra} run_s={run_s:.3f} hold_s={time.perf_counter() - t0:.3f}", flush=True)
+    lcd, lce = reports["lcd"], reports["prob(1.0)"]
+    print(f"[placed lcd_vs_lce] mgmt_saving={1 - lcd.mgmt_energy_j / lce.mgmt_energy_j} "
+          f"dchr={lcd.total_chr - lce.total_chr} lcd_mgmt_j={lcd.mgmt_energy_j} lce_mgmt_j={lce.mgmt_energy_j} "
+          f"lcd_placement_j={lcd.placement_energy_j} lce_placement_j={lce.placement_energy_j} "
+          f"(lce = the prob(1.0) run; reported, not gated) card={card.label!r}", flush=True)
+
+    # the mixed tree on churn made and routed on the card (its CPU run and oracles started with the sweep's)
+    t0 = time.perf_counter()
+    topo = mixed_topo
     spec = telemetry_spec.TelemetrySpec(window)
     out, wall_s, device_s = fleet_run(topo, churn, churn_assign, telemetry=spec)
     refreshes = [int(s[..., telemetry_spec.METRIC_INDEX["refreshes"]].sum(dim=-1).min()) for s in out["telemetry"]]
     want = [PLACED_MIXED_LEN // lvl[0].effective_refresh if lvl[0].kind == "plfua_dyn" else 0 for lvl in topo.levels]
     require(refreshes == want, f"mixed: refreshes per node {refreshes}, on global time {want}")
-    prof = fleet_profile(topo, host_churn, host_assign, "placed_mixed", telemetry=spec)
+    prof = fleet_profile(topo, host_churn, host_assign, telemetry=spec)
     refused = hold_placed("mixed", out, mixed_oracle, cpu_mixed)
     print(f"[placed mixed] kinds={list(PLACED_MIXED['kinds'])} placements={list(topo.placements)} "
           f"refresh={list(PLACED_MIXED['refresh'])} chunk={fleet.sim._dyn_chunk(topo)} "
@@ -1526,14 +1704,16 @@ def hierarchy_phase(pool, seed: int, card) -> None:
 #: divides a chunk), the placed phase's admit run (T = 13,500) as 9 chunks of 1,500
 STREAM_CHUNK, STREAM_PLACED_CHUNK = 2_500, 1_500
 STREAM_LEVEL_MAJOR = ("lru", "plfua_dyn churn", "tinylfu grouped")
-#: benchmarks/stream_bench.py's reduced rows (N = 2**16, capacity 2**12, 24 chunks of 1,024 on
-#: ``stationary``, seeds 40 and 41) and plfua_dyn with a refresh of 4 chunks (seed 42; 8 chunks, two
+#: benchmarks/stream_bench.py's reduced rows (N = 2**16, capacity 2**12, on ``stationary``, seeds 40
+#: and 41) cut from 24 chunks of 1,024 to 18: their caches first evict in the 16th (3,400-3,500
+#: distinct ids in 12 chunks for 4,096 slots, on CPU-drawn streams of the same law; the card draws
+#: its own) and plfua_dyn with a refresh of 4 chunks (seed 42; 8 chunks, two
 #: refreshes: it admits only hot ids, fewer of which arrive than it has slots, so at this width it
 #: evicted in none of 24 chunks), through
 #: ``stream_fleet``: (kind, seed, options, chunks); the acceptance width (N = 2**20, capacity 2**16, chunks of 2,048) timed over 8
 #: chunks, the acceptance row's 100,001,792 requests extrapolated from it, not run
 STREAM_FAST_N, STREAM_FAST_CAP, STREAM_FAST_CHUNK = 1 << 16, 1 << 12, 1_024
-STREAM_FAST_ROWS = (("lru", 40, {}, 24), ("tinylfu", 41, {}, 24), ("plfua_dyn", 42, {"refresh": 4 * 1_024}, 8))
+STREAM_FAST_ROWS = (("lru", 40, {}, 18), ("tinylfu", 41, {}, 18), ("plfua_dyn", 42, {"refresh": 4 * 1_024}, 8))
 STREAM_FULL_N, STREAM_FULL_CAP, STREAM_FULL_CHUNK, STREAM_FULL_CHUNKS = 1 << 20, 1 << 16, 2_048, 8
 STREAM_ACCEPT_REQUESTS = 100_001_792  # BENCH_PR10.json's fleet_stream/lru_flat_n1048576 (48,829 chunks)
 
@@ -1787,6 +1967,14 @@ def shard_wait(procs: list, deadline: float) -> None:
                                    f"after another rank failed): {log}")
 
 
+def shard_stop(procs: list) -> None:
+    """Kill the ranks still running (a phase beside them failed)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
 def shard_phase(keep: dict, card) -> None:
     """Each rank's whole result bit for bit the single-process call's (the fleet and placed phases'
     sample 0, the churn run's 8 samples with its traces and assignments)."""
@@ -1878,8 +2066,13 @@ FLASH_SWEEP = (
 )
 #: the served models' shapes: smollm's (1, 15, 5, 64), causal prefill at 2,048 and 16,384, decode
 #: against a cache of 2,056 at kv_len 1, 2,049 and 2,056; a D = 128 prefill; deepseek's MLA
-#: prefill (1, 128, 128, 192) at 2,048; and jamba's attention layer (1, 64, 8, 128), its causal
-#: prefill at 2,048 and its decode against a cache of 2,056 at kv_len 1, 2,049 and 2,056
+#: prefill (1, 128, 128, 192) at 2,048; jamba's attention layer (1, 64, 8, 128), its causal
+#: prefill at 2,048 and its decode against a cache of 2,056 at kv_len 1, 2,049 and 2,056; whisper's
+#: (1, 20, 20, 64), MHA: the encoder's non-causal self-attention over 1,500 frames, cross-attention
+#: (non-causal, Sq != Skv: the source's last key tile holds 28 of 64 keys) from prompts of 4 rows (the
+#: decode instance) and 128, the cross decode over the whole source, the decoder's causal prefill at 4
+#: and 128 and its decode against the self cache of 448; llava's (1, 32, 8, 128): the causal prefill
+#: over prefix and text at 2,048, decode against a cache of 2,056 at kv_len 2,049 and 2,056
 FLASH_SERVED = (
     (1, 15, 5, 2_048, 2_048, 64, True, None),
     (1, 15, 5, 16_384, 16_384, 64, True, None),
@@ -1892,6 +2085,16 @@ FLASH_SERVED = (
     (1, 64, 8, 1, 2_056, 128, False, 1),
     (1, 64, 8, 1, 2_056, 128, False, 2_049),
     (1, 64, 8, 1, 2_056, 128, False, 2_056),
+    (1, 20, 20, 1_500, 1_500, 64, False, None),
+    (1, 20, 20, 4, 1_500, 64, False, None),
+    (1, 20, 20, 128, 1_500, 64, False, None),
+    (1, 20, 20, 1, 1_500, 64, False, 1_500),
+    (1, 20, 20, 4, 4, 64, True, None),
+    (1, 20, 20, 128, 128, 64, True, None),
+    (1, 20, 20, 1, 448, 64, False, 144),
+    (1, 32, 8, 2_048, 2_048, 128, True, None),
+    (1, 32, 8, 1, 2_056, 128, False, 2_049),
+    (1, 32, 8, 1, 2_056, 128, False, 2_056),
 )
 #: the wrong version's causal bound: this many keys early (one kernel tile at D = 64)
 FLASH_WRONG_SHIFT = 64
@@ -1949,7 +2152,9 @@ def tol_ratio(got, want, tol, rows=None) -> float:
 
 def flash_wrong(q, k, v, causal, kv_len) -> list[tuple[str, torch.Tensor]]:
     """Deliberately wrong versions of the case, from the plain version (p
-    rounded to bf16: in bf16, where it is the single-operand design's error)."""
+    rounded to bf16: in bf16, where it is the single-operand design's error;
+    a non-causal case read causally, and without its last partial tile of 64
+    keys)."""
     if causal:
         wrong = [(f"causal bound {FLASH_WRONG_SHIFT} keys early",
                   flash_plain(q, k, v, causal=True, kv_len=kv_len, shift=-FLASH_WRONG_SHIFT))]
@@ -1957,9 +2162,14 @@ def flash_wrong(q, k, v, causal, kv_len) -> list[tuple[str, torch.Tensor]]:
             wrong.append(("p rounded to bf16",
                           flash_plain(q, k, v, causal=True, kv_len=kv_len, attention=bf16_p_attention)))
         return wrong
-    if kv_len > 1:
-        return [("last live key dropped", flash_plain(q, k, v, causal=False, kv_len=kv_len - 1))]
-    return [("one garbage key let in", flash_plain(q, k, v, causal=False, kv_len=kv_len + 1))]
+    if kv_len == 1:
+        return [("one garbage key let in", flash_plain(q, k, v, causal=False, kv_len=kv_len + 1))]
+    wrong = [("last live key dropped", flash_plain(q, k, v, causal=False, kv_len=kv_len - 1)),
+             ("a causal mask on a non-causal case", flash_plain(q, k, v, causal=True, kv_len=kv_len))]
+    if kv_len % FLASH_WRONG_SHIFT > 1:
+        whole = kv_len - kv_len % FLASH_WRONG_SHIFT
+        wrong.append(("the last partial key tile dropped", flash_plain(q, k, v, causal=False, kv_len=whole)))
+    return wrong
 
 
 def flash_checks(seed: int) -> dict:
@@ -1967,11 +2177,13 @@ def flash_checks(seed: int) -> dict:
     rows, the kv_len case, the served shapes, a D = 128 prefill and the D =
     192 rows (MLA), each in float32 and bfloat16; for each served case, what a
     wrong version reads. Returns the worst error per kernel instance, and of
-    the D = 192 prefill (``MLA_FLASH_ENTRY``) and of jamba's two shapes
+    the D = 192 prefill (``MLA_FLASH_ENTRY``), of jamba's two shapes
     (``JAMBA_PREFILL_ENTRY``, ``JAMBA_DECODE_ENTRY``: 64 heads of 128 over 8
-    kv heads)."""
+    kv heads) and of whisper's and llava's measured shapes (their entries)."""
     t0 = time.perf_counter()
-    worst = dict.fromkeys(flash.INSTANCES + (MLA_FLASH_ENTRY, JAMBA_PREFILL_ENTRY, JAMBA_DECODE_ENTRY), 0.0)
+    by_shape = {shape[:7]: entry for entry, _, shape in WHISPER_FLASH_SHAPES + LLAVA_FLASH_SHAPES}
+    worst = dict.fromkeys(flash.INSTANCES + (MLA_FLASH_ENTRY, JAMBA_PREFILL_ENTRY, JAMBA_DECODE_ENTRY)
+                          + tuple(by_shape.values()), 0.0)
     cases = [(c, dt, c in FLASH_SERVED) for c in FLASH_SWEEP + FLASH_SERVED for dt in (torch.float32, torch.bfloat16)]
     for i, ((b, h, kh, sq, skv, d, causal, kv_len), dtype, served) in enumerate(cases):
         t1 = time.perf_counter()
@@ -1988,6 +2200,9 @@ def flash_checks(seed: int) -> dict:
             worst[MLA_FLASH_ENTRY] = max(worst[MLA_FLASH_ENTRY], err)
         if (h, kh, d) == (64, 8, 128):
             entry = JAMBA_PREFILL_ENTRY if instance == flash.INSTANCES[0] else JAMBA_DECODE_ENTRY
+            worst[entry] = max(worst[entry], err)
+        entry = by_shape.get((b, h, kh, sq, skv, d, causal))
+        if entry is not None:
             worst[entry] = max(worst[entry], err)
         text = ""
         for what, wrong in (flash_wrong(q, k, v, causal, kv_len or skv) if served else []):
@@ -2819,6 +3034,352 @@ def jamba_check(model, seed: int) -> None:
 
 
 
+# ------------------------------------------------ the encoder-decoder and the vlm prefix (12a)
+WHISPER_ARCH, LLAVA_ARCH = "whisper-large-v3", "llava-next-mistral-7b"
+#: the reference's ``build(cfg).n_params`` at full depth (f32 masters: whisper 6.4 GB, llava 29.0 GB)
+ENC_DEC_PARAMS = {WHISPER_ARCH: 1_600_990_720, LLAVA_ARCH: 7_241_732_096}
+#: whisper's traffic: 4 requests, each a 30 s window of 1,500 frames (``enc_embeds`` drawn from the
+#: seed), three with 4-token decoder prompts (SOT, language, task, no-timestamps) and one with 128
+#: (previous text as context); 16 new tokens each, greedy, through ``prefill`` and ``decode_step``
+WHISPER_FRAMES, WHISPER_PROMPTS, WHISPER_NEW = 1_500, (4, 4, 4, 128), 16
+#: llava's traffic: 4 requests of 1,152 prefix embeddings (drawn from the seed at 0.02, as the
+#: reference's test draws them) and 896 text tokens, 2,048 positions, a cache of 2,056, 8 new tokens
+LLAVA_REQUESTS, LLAVA_TEXT, LLAVA_CACHE_LEN, LLAVA_NEW = 4, 896, 2_056, 8
+PREFIX_SCALE = 0.02
+#: the card-vs-CPU checks: whisper's first 2 encoder and 2 decoder layers over the whole source, a
+#: 4-token prompt and CHECK_NEW decode steps; llava's first 2 layers over its prefix and 128 text
+#: tokens and CHECK_NEW decode steps; the logits within SERVE_LOGIT_TOL, as smollm's
+ENC_DEC_CHECK_LAYERS, LLAVA_CHECK_TEXT = 2, 128
+#: whisper's check draws its decoder layers' cross-attention wq and wk anew at this scale (3 x init's):
+#: at init's 0.02 the scores over the source have a std of 0.5, every query reads about the mean of the
+#: 1,500 frames, and a causal encoder moves the logits by 0.10-0.11 (f32 and bf16, the CPU's plain path
+#: at full width, 2 + 2 layers, seed 0), under the tolerance; at 0.06 (scores of std 4.6, the selective
+#: attention of a trained model) by 0.27, while the plain path with p kept in f32, as the kernel keeps
+#: it, moves them by 0.05
+WHISPER_CHECK_CROSS_SCALE = 0.06
+WHISPER_ENCODER_ENTRY = "flash_attention/prefill (whisper encoder, D=64)"
+WHISPER_CROSS_PREFILL_ENTRY = "flash_attention/prefill (whisper cross, D=64)"
+WHISPER_CROSS_DECODE_ENTRY = "flash_attention/decode (whisper cross, D=64)"
+LLAVA_PREFILL_ENTRY = "flash_attention/prefill (llava, D=128)"
+LLAVA_DECODE_ENTRY = "flash_attention/decode (llava, D=128)"
+#: the kernel at whisper's shapes (20 heads of 64, MHA): the encoder's non-causal self-attention over
+#: the source, the 128-token prompt's cross-attention (Sq != Skv), the cross decode over the source
+WHISPER_FLASH_SHAPES = (
+    (WHISPER_ENCODER_ENTRY, flash.INSTANCES[0], (1, 20, 20, WHISPER_FRAMES, WHISPER_FRAMES, 64, False, None)),
+    (WHISPER_CROSS_PREFILL_ENTRY, flash.INSTANCES[0], (1, 20, 20, 128, WHISPER_FRAMES, 64, False, None)),
+    (WHISPER_CROSS_DECODE_ENTRY, flash.INSTANCES[1], (1, 20, 20, 1, WHISPER_FRAMES, 64, False, WHISPER_FRAMES)),
+)
+#: and at llava's (32 heads of 128 over 8 kv heads): the causal prefill over prefix and text, decode
+LLAVA_FLASH_SHAPES = (
+    (LLAVA_PREFILL_ENTRY, flash.INSTANCES[0], (1, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, None)),
+    (LLAVA_DECODE_ENTRY, flash.INSTANCES[1], (1, 32, 8, 1, LLAVA_CACHE_LEN, 128, False, LLAVA_CACHE_LEN)),
+)
+
+
+def flash_counts_zero() -> None:
+    for instance in flash.LAUNCHES:
+        flash.LAUNCHES[instance] = 0
+    flash.SHAPE_LAUNCHES.clear()
+
+
+def generate(model, batch: dict, start: int, max_new: int, cache_len: int) -> list[int]:
+    """One request through ``Model.prefill`` and ``max_new`` decode steps, as
+    the serving engine runs them (argmax, the host's read, decode); returns
+    the tokens."""
+    logits, cache = model.prefill(batch, cache_len)
+    logits = logits[:, -1]
+    out = []
+    for t in range(max_new):
+        nxt = torch.argmax(logits, dim=-1)
+        out.append(int(nxt[0]))
+        logits, cache = model.decode_step(cache, nxt[:, None], start + t)
+    return out
+
+
+def measure_request(model, batch: dict, start: int, max_new: int, cache_len: int) -> dict:
+    """A request's prefill ms (CUDA events, the mean of 2 after a warm-up),
+    its decode ms a token (the engine's loop on one cache), and the device's
+    busy time and idle share over one decode token (``torch.profiler``)."""
+    prefill_ms = events_ms(lambda: model.prefill(batch, cache_len), 2)
+    logits, cache = model.prefill(batch, cache_len)
+    first = logits[:, -1].clone()
+    del logits
+
+    def decode_request():
+        nxt_logits = first
+        for t in range(max_new):
+            nxt = torch.argmax(nxt_logits, dim=-1)
+            int(nxt[0])  # the engine's host read of each token
+            nxt_logits, _ = model.decode_step(cache, nxt[:, None], start + t)
+
+    decode_ms = events_ms(decode_request, 2) / max_new
+    trace = timing.profile(model.decode_step, cache, torch.argmax(first, dim=-1)[:, None], start, profile_dir=None)
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    return dict(prefill_ms=prefill_ms, decode_ms=decode_ms, trace=trace, cache_bytes=cache_bytes)
+
+
+def enc_dec_line(model, m: dict, weight_bytes: int, live_cache_bytes: int, card) -> str:
+    """The measure line's figures: prefill ms, decode ms a token beside its
+    bound (the bytes of weights a token reads and the live cache), J a token
+    at the power limit, the idle share over one decode token."""
+    bound_ms = (weight_bytes + live_cache_bytes) / HBM_BYTES_PER_S * 1e3
+    trace = m["trace"]
+    return (f"prefill_ms={m['prefill_ms']} decode_ms_per_token={m['decode_ms']} "
+            f"decode_j_per_token={energy.device_energy_j(m['decode_ms'] / 1e3, card.power_limit_w)} "
+            f"decode_weight_bytes={weight_bytes} decode_live_cache_bytes={live_cache_bytes} "
+            f"decode_bytes_bound_ms={bound_ms} decode_trace_kernels={trace.kernels} decode_busy_s={trace.busy_s} "
+            f"decode_span_s={trace.span_s} decode_idle_share={trace.idle_share} cache_bytes={m['cache_bytes']} "
+            f"power_limit_w={card.power_limit_w} card={card.label!r}")
+
+
+def built_full(arch: str, seed: int):
+    model = build(get_config(arch), device="cuda").init(torch.Generator(device="cuda").manual_seed(seed))
+    n = sum(p.numel() for p in model.parameters())
+    require(model.n_params == n == ENC_DEC_PARAMS[arch], f"{arch} holds {n} parameters, not {ENC_DEC_PARAMS[arch]}")
+    torch.cuda.synchronize()
+    return model
+
+
+def whisper_serve(seed: int, card) -> tuple[object, dict, list]:
+    """whisper-large-v3 at full width and depth (32 + 32 layers), weights from
+    ``seed``: 4 requests (1,500 frames each; prompts of 4, 4, 4 and 128
+    tokens; 16 new tokens) through ``prefill`` and ``decode_step``, the flash
+    counts set to 0 just before and read just after: each request's encoder,
+    self and cross prefill (32 layers each; Sq <= 16 runs the decode
+    instance) and 64 launches a decode step (self and cross). Then prefill
+    ms, decode ms a token and J a token, the idle share over one decode token."""
+    t0 = time.perf_counter()
+    model = built_full(WHISPER_ARCH, seed)
+    cfg = model.cfg
+    t_built = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    rng = np.random.default_rng(seed + 11)
+    reqs = [(torch.randn(1, WHISPER_FRAMES, cfg.d_model, generator=gen, device="cuda"),
+             rng.integers(0, cfg.vocab_size, p).astype(np.int32)) for p in WHISPER_PROMPTS]
+    flash_counts_zero()
+    outs = [generate(model, {"enc_embeds": enc, "tokens": tokens[None, :]}, len(tokens), WHISPER_NEW, WHISPER_FRAMES)
+            for enc, tokens in reqs]
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    by_shape = dict(flash.SHAPE_LAUNCHES)
+    t_served = time.perf_counter()
+    layers = cfg.n_layers
+    expected = dict.fromkeys(flash.INSTANCES, 0)
+    for p in WHISPER_PROMPTS:
+        expected[flash.INSTANCES[0]] += cfg.n_encoder_layers  # the encoder over the source
+        expected[flash.instance_of(p)] += 2 * layers  # the prompt's self and cross prefill
+        expected[flash.INSTANCES[1]] += 2 * layers * WHISPER_NEW  # self and cross, a decode step
+    require(launches == expected, f"whisper launches {launches}, expected {expected}")
+    require(all(len(o) == WHISPER_NEW and all(0 <= x < cfg.vocab_size for x in o) for o in outs),
+            f"whisper's tokens {outs}")
+    # each measured entry's launches as the wrapper counted them by shape (Sq, Skv, causal) in this serve,
+    # held to what the requests make: the encoder a request, the cross prefill of the prompt that runs
+    # the prefill instance, the cross decode a step
+    by_entry, want_entry = {}, {
+        WHISPER_ENCODER_ENTRY: cfg.n_encoder_layers * len(WHISPER_PROMPTS),
+        WHISPER_CROSS_PREFILL_ENTRY: layers * sum(p > flash.DECODE_MAX_ROWS for p in WHISPER_PROMPTS),
+        WHISPER_CROSS_DECODE_ENTRY: layers * WHISPER_NEW * len(WHISPER_PROMPTS)}
+    for entry, _, (_, _, _, sq, skv, _, causal, _) in WHISPER_FLASH_SHAPES:
+        by_entry[entry] = by_shape.get((sq, skv, causal), 0)
+    require(by_entry == want_entry, f"whisper launches by shape {by_entry}, expected {want_entry}")
+    enc, tokens = reqs[0]
+    m = measure_request(model, {"enc_embeds": enc, "tokens": tokens[None, :]}, len(tokens), WHISPER_NEW,
+                        WHISPER_FRAMES)
+    # a decode token reads the decoder's weights and the unembedding (not the encoder's; the embedding
+    # a row), the cross cache and the live self cache
+    p = model.params()
+    weight_bytes = (sum(t.numel() * t.element_size() for t in tensors(p["decoder"]))
+                    + sum(p[k].numel() * p[k].element_size() for k in ("ln_f", "unembed"))
+                    + cfg.d_model * p["embed"].element_size())
+    kv_row = cfg.n_kv_heads * cfg.head_dim * p["embed"].element_size()
+    live = 2 * layers * kv_row * (WHISPER_FRAMES + len(tokens) + WHISPER_NEW)
+    print(f"[whisper serve] arch={cfg.name} encoder_layers={cfg.n_encoder_layers} decoder_layers={layers} "
+          f"n_params={model.n_params} d_model={cfg.d_model} heads={cfg.n_heads} kv_heads={cfg.n_kv_heads} "
+          f"head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} params={cfg.param_dtype} "
+          f"compute={cfg.compute_dtype} requests={len(reqs)} frames={WHISPER_FRAMES} prompts={list(WHISPER_PROMPTS)} "
+          f"max_new={WHISPER_NEW} launches={json.dumps(launches)} launches_by_shape(Sq,Skv,causal)="
+          f"{json.dumps({str(k): v for k, v in sorted(by_shape.items())})} (= {cfg.n_encoder_layers} encoder layers a "
+          f"request + {layers} x 2 a prompt + {layers} x 2 a decode step) first_tokens={outs[0][:8]} "
+          f"build_s={t_built - t0:.3f} serve_wall_s={t_served - t_built:.3f} card={card.label!r}", flush=True)
+    print(f"[whisper measure] prompt={len(tokens)} frames={WHISPER_FRAMES} (prefill = encoder + prompt) "
+          f"{enc_dec_line(model, m, weight_bytes, live, card)} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    require(math.isfinite(m["prefill_ms"]) and math.isfinite(m["decode_ms"]) and m["trace"].kernels > 0,
+            "whisper measure")
+    return model, by_entry, reqs
+
+
+def check_model(model, cfg, to=None, drawn=None):
+    """A model of ``cfg`` (``model``'s config cut in depth) on the meta device,
+    given ``model``'s tensors of the layers ``cfg`` keeps, the first
+    ``n_layers`` (and ``n_encoder_layers``) of each stack, those in ``drawn``
+    replaced: the card's own (no copy), or ``to`` of each (a copy to the host)."""
+    keep = {"layers": cfg.n_layers, "decoder": cfg.n_layers, "encoder": cfg.n_encoder_layers}
+    kept = {k: v for k, v in model.state_dict().items()
+            if k.split(".")[0] not in keep or int(k.split(".")[1]) < keep[k.split(".")[0]]}
+    kept.update(drawn or {})
+    out = build(cfg, device="meta")
+    out.load_state_dict({k: v if to is None else to(v) for k, v in kept.items()}, assign=True)
+    return out
+
+
+def host_bf16(t: torch.Tensor) -> torch.Tensor:
+    """A parameter's compute copy (bf16) on the host: the weights the card computes with."""
+    return t.to(torch.bfloat16).cpu()
+
+
+def held_to_cpu(name: str, card_steps: list, cpu_steps: list, wrong_steps: list, what: str, t0: float,
+                extra: str) -> None:
+    errs = [float((a - b).abs().max()) for a, b in zip(card_steps, cpu_steps)]
+    wrong = [float((w - b).abs().max()) for w, b in zip(wrong_steps, cpu_steps)]
+    compared = tokens_agree(card_steps[:-1], cpu_steps[:-1], SERVE_LOGIT_TOL)
+    print(f"[{name} check] {extra} max_abs_err_by_step={errs} tolerance={SERVE_LOGIT_TOL} "
+          f"max_abs_logit={float(max(s.abs().max() for s in cpu_steps))} tokens_compared={compared} "
+          f"wrong_version={what!r} wrong_max_abs_err_by_step={wrong} elapsed_s={time.perf_counter() - t0:.3f}",
+          flush=True)
+    require(max(errs) <= SERVE_LOGIT_TOL and all(math.isfinite(e) for e in errs),
+            f"{name}: card logits differ from the CPU's by {max(errs)} > {SERVE_LOGIT_TOL}")
+    require(max(wrong) > SERVE_LOGIT_TOL, f"{name}: the tolerance does not reject {what}: {wrong}")
+
+
+@contextlib.contextmanager
+def causal_encoder():
+    """A deliberately wrong whisper while it lasts: every ``attention.gqa_apply`` call made causal, so
+    that ``whisper.encode`` (its only caller in a prefill) runs a causal encoder."""
+    right = attention.gqa_apply
+    attention.gqa_apply = lambda *args, **kw: right(*args, **{**kw, "causal": True})
+    try:
+        yield
+    finally:
+        attention.gqa_apply = right
+
+
+def whisper_check(model, reqs: list, seed: int) -> None:
+    """whisper's first ENC_DEC_CHECK_LAYERS encoder and decoder layers on the
+    card (the served weights, no copy) and on the CPU (a copy, the plain
+    path), the CPU fed the card's tokens: the first request's 1,500 frames, a
+    4-token prompt and CHECK_NEW decode steps, each step's logits within
+    SERVE_LOGIT_TOL; the card with a causal encoder must be rejected. The
+    checked layers' cross-attention wq and wk are drawn anew at
+    WHISPER_CHECK_CROSS_SCALE (the same tensors on both sides)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model.cfg, n_encoder_layers=ENC_DEC_CHECK_LAYERS, n_layers=ENC_DEC_CHECK_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    drawn = {f"decoder.{i}.cross.{w}": torch.randn(model.decoder[i].cross.get_parameter(w).shape, generator=gen,
+                                                   device="cuda") * WHISPER_CHECK_CROSS_SCALE
+             for i in range(cfg.n_layers) for w in ("wq", "wk")}
+    card = check_model(model, cfg, drawn=drawn)
+    enc, tokens = reqs[0]
+    batch = {"enc_embeds": enc, "tokens": tokens[None, :]}
+    logits, cache = card.prefill(batch, WHISPER_FRAMES)
+    card_steps, fed = decode_logits(card, cache, len(tokens), logits[0, -1].float().cpu())
+    card_steps = [logits[0, -1].float().cpu()] + card_steps
+    p = card.params()
+    with causal_encoder():
+        enc_out = whisper.encode(cfg, p, enc.to(card.compute_dtype))
+    logits, cache = whisper.prefill_encoded(cfg, p, enc_out, torch.as_tensor(tokens[None, :], device="cuda").long())
+    wrong_steps, _ = decode_logits(card, cache, len(tokens), logits[0, -1].float().cpu(), forced=fed)
+    wrong_steps = [logits[0, -1].float().cpu()] + wrong_steps
+    del logits, cache, enc_out
+    torch.cuda.synchronize()
+    t_card = time.perf_counter()
+    cpu = check_model(model, dataclasses.replace(cfg, param_dtype="bfloat16"), to=host_bf16, drawn=drawn)
+    t_copy = time.perf_counter()
+    logits, cache = cpu.prefill({"enc_embeds": enc.cpu(), "tokens": tokens[None, :]}, WHISPER_FRAMES)
+    cpu_steps, _ = decode_logits(cpu, cache, len(tokens), logits[0, -1].float(), forced=fed)
+    cpu_steps = [logits[0, -1].float()] + cpu_steps
+    del cpu, card, logits, cache
+    held_to_cpu("whisper", card_steps, cpu_steps, wrong_steps, "a causal encoder", t0,
+                f"encoder_layers={cfg.n_encoder_layers} decoder_layers={cfg.n_layers} (the served model's first) "
+                f"frames={WHISPER_FRAMES} prompt={len(tokens)} max_new={CHECK_NEW} card_tokens={fed} "
+                f"cross_wq_wk_drawn_at={WHISPER_CHECK_CROSS_SCALE} cpu_params=bfloat16 (the card's compute copies) card_s={t_card - t0:.3f} cpu_copy_s={t_copy - t_card:.3f} cpu_s={time.perf_counter() - t_copy:.3f}")
+
+
+def llava_serve(seed: int, card) -> tuple[object, dict, list]:
+    """llava-next-mistral-7b at full width and depth (32 layers), weights from
+    ``seed``: 4 requests of 1,152 prefix embeddings and 896 text tokens
+    (2,048 positions; cache 2,056; 8 new tokens, the decode positions after
+    the prefix) through ``prefill`` and ``decode_step``, the flash counts set
+    to 0 just before and read just after: 32 a prefill and 32 a decode step.
+    Then prefill ms, decode ms a token, J a token, the idle share over one
+    decode token."""
+    t0 = time.perf_counter()
+    model = built_full(LLAVA_ARCH, seed)
+    cfg = model.cfg
+    t_built = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    rng = np.random.default_rng(seed + 12)
+    reqs = [(torch.randn(1, cfg.n_prefix_embeds, cfg.d_model, generator=gen, device="cuda") * PREFIX_SCALE,
+             rng.integers(0, cfg.vocab_size, LLAVA_TEXT).astype(np.int32)) for _ in range(LLAVA_REQUESTS)]
+    start = cfg.n_prefix_embeds + LLAVA_TEXT
+    flash_counts_zero()
+    outs = [generate(model, {"prefix_embeds": pre, "tokens": tokens[None, :]}, start, LLAVA_NEW, LLAVA_CACHE_LEN)
+            for pre, tokens in reqs]
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    t_served = time.perf_counter()
+    expected = {flash.INSTANCES[0]: cfg.n_layers * LLAVA_REQUESTS, flash.INSTANCES[1]: cfg.n_layers * LLAVA_REQUESTS * LLAVA_NEW}
+    require(launches == expected, f"llava launches {launches}, expected {expected}")
+    require(all(len(o) == LLAVA_NEW and all(0 <= x < cfg.vocab_size for x in o) for o in outs), f"llava's tokens {outs}")
+    pre, tokens = reqs[0]
+    m = measure_request(model, {"prefix_embeds": pre, "tokens": tokens[None, :]}, start, LLAVA_NEW, LLAVA_CACHE_LEN)
+    kv_row = cfg.n_kv_heads * cfg.head_dim * 2
+    live = 2 * cfg.n_layers * kv_row * (start + LLAVA_NEW)
+    print(f"[llava serve] arch={cfg.name} layers={cfg.n_layers} n_params={model.n_params} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} rope_theta={cfg.rope_theta} params={cfg.param_dtype} compute={cfg.compute_dtype} "
+          f"requests={LLAVA_REQUESTS} prefix_embeds={cfg.n_prefix_embeds} text={LLAVA_TEXT} positions={start} "
+          f"cache_len={LLAVA_CACHE_LEN} max_new={LLAVA_NEW} launches={json.dumps(launches)} (= {cfg.n_layers} x "
+          f"(prefills, decode steps)) first_tokens={outs[0]} build_s={t_built - t0:.3f} "
+          f"serve_wall_s={t_served - t_built:.3f} card={card.label!r}", flush=True)
+    print(f"[llava measure] positions={start} {enc_dec_line(model, m, decode_weight_bytes(model), live, card)} "
+          f"prefill_tokens_per_s={start / m['prefill_ms'] * 1e3} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    require(math.isfinite(m["prefill_ms"]) and math.isfinite(m["decode_ms"]) and m["trace"].kernels > 0,
+            "llava measure")
+    by_entry = {LLAVA_PREFILL_ENTRY: launches[flash.INSTANCES[0]], LLAVA_DECODE_ENTRY: launches[flash.INSTANCES[1]]}
+    return model, by_entry, reqs
+
+
+def llava_check(model, reqs: list, seed: int) -> None:
+    """llava's first ENC_DEC_CHECK_LAYERS layers on the card (the served
+    weights, no copy) and on the CPU (a bf16 copy, the plain path), the CPU
+    fed the card's tokens: the first request's 1,152 prefix embeddings,
+    LLAVA_CHECK_TEXT text tokens and CHECK_NEW decode steps, each step's
+    logits within SERVE_LOGIT_TOL; the card without the prefix (the text at
+    positions 0...) must be rejected."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model.cfg, n_layers=ENC_DEC_CHECK_LAYERS)
+    card = check_model(model, cfg)
+    pre, text = reqs[0]
+    tokens = text[:LLAVA_CHECK_TEXT]
+    start = cfg.n_prefix_embeds + len(tokens)
+    cache_len = start + CHECK_NEW
+    logits, cache = card.prefill({"prefix_embeds": pre, "tokens": tokens[None, :]}, cache_len)
+    first = logits[0, -1].float().cpu()
+    card_steps, fed = decode_logits(card, cache, start, first)
+    card_steps = [first] + card_steps
+    bare = check_model(model, dataclasses.replace(cfg, n_prefix_embeds=0))
+    logits, cache = bare.prefill({"tokens": tokens[None, :]}, len(tokens) + CHECK_NEW)
+    first = logits[0, -1].float().cpu()
+    wrong_steps, _ = decode_logits(bare, cache, len(tokens), first, forced=fed)
+    wrong_steps = [first] + wrong_steps
+    del logits, cache, bare
+    torch.cuda.synchronize()
+    t_card = time.perf_counter()
+    cpu = check_model(model, dataclasses.replace(cfg, param_dtype="bfloat16"), to=host_bf16)
+    t_copy = time.perf_counter()
+    logits, cache = cpu.prefill({"prefix_embeds": pre.cpu(), "tokens": tokens[None, :]}, cache_len)
+    first = logits[0, -1].float()
+    del logits
+    cpu_steps, _ = decode_logits(cpu, cache, start, first, forced=fed)
+    cpu_steps = [first] + cpu_steps
+    del cpu, card, cache
+    held_to_cpu("llava", card_steps, cpu_steps, wrong_steps, "the text without the prefix", t0,
+                f"layers={cfg.n_layers} (the served model's first) prefix_embeds={cfg.n_prefix_embeds} "
+                f"text={len(tokens)} max_new={CHECK_NEW} card_tokens={fed} cpu_params=bfloat16 (the card's compute "
+                f"copies) card_s={t_card - t0:.3f} cpu_copy_s={t_copy - t_card:.3f} "
+                f"cpu_s={time.perf_counter() - t_copy:.3f}")
+
+
 def events_ms(fn, repeats: int) -> float:
     """Mean device ms of ``fn`` over ``repeats`` calls between two CUDA events,
     after one warm-up call."""
@@ -3002,6 +3563,19 @@ def spill_stores(lib) -> int:
                if "bytes spill stores" in line)
 
 
+class Phases:
+    """Each phase's seconds, in order, for the ``[phases]`` line."""
+
+    def __init__(self, t_start: float):
+        self.seconds: dict[str, float] = {}
+        self.t = t_start
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.t, 3)
+        self.t = now
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3019,6 +3593,8 @@ def main() -> int:
         return 0
 
     # 1. device
+    sys.stdout.reconfigure(line_buffering=True)  # a run cut off shows how far it got
+    phases = Phases(t_start)
     t0 = time.perf_counter()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
@@ -3029,69 +3605,70 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[device] name={name!r} count={count} sms={sms} power_limit_w={card.power_limit_w} "
           f"max_sm_clock_mhz={card.max_sm_clock_mhz} torch={torch.__version__} cuda={torch.version.cuda} "
-          f"host_cpu={host_cpu()!r} elapsed_s={time.perf_counter() - t0:.3f}")
-    print(smi)
+          f"host_cpu={host_cpu()!r} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    print(smi, flush=True)
+    phases.done("device")
 
     # the CPU workers: plain runs of the small checks and the grid's CPU references
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init,
                                                 initargs=(CPU_WORKER_NICE,)) as pool:
-        # 2. build: one nvcc per source, all started together (programs of one source share its
-        # build), the flash kernel's among them
-        t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(kernel.PROGRAMS) + 1) as threads:
-            flash_lib = threads.submit(flash.library)
-            built = {lib.path: lib for lib in threads.map(kernel.library, kernel.PROGRAMS)}
-            built[flash_lib.result().path] = flash_lib.result()
-        for lib in built.values():
-            report = ptxas_report(lib)
-            require(bool(report), f"ptxas printed no register report for {lib.path.name}")
-            print(f"[build] library={lib.path.name} spill_stores={spill_stores(lib)} ptxas={report}")
-        for program in kernel.PROGRAMS:
-            lib = kernel.library(program)
-            require(spill_stores(lib) == 0, f"ptxas spills in {lib.path.name}")
-        hgmma = hgmma_counts(flash_lib.result())
-        require(len(hgmma) == len(flash.HEAD_DIMS) and all(n > 0 for n in hgmma.values()),
-                f"a bf16 prefill kernel without wgmma in its SASS: {hgmma}")
-        print(f"[build] flash bf16 prefill HGMMA instructions by kernel: {json.dumps(hgmma)}")
-        for line in ptxas_report(flash_lib.result()):
-            if "Li192E" in line:  # MLA's head dim: registers and spill stores of each D = 192 kernel
-                print(f"[build] flash D=192 {line}")
-        print(f"[build] sources={len(built)} programs={len(kernel.PROGRAMS)} + flash_attention "
-              f"elapsed_s={time.perf_counter() - t0:.3f}")
-
-        # 3. check: every program == its plain version, exactly. The program checks run their plain
-        # versions on the card in CARD_PLAIN_WORKERS processes, beside the shard phase's world (two
-        # ranks on the card, phase 10b): none of them times anything kept. The telemetry checks follow
-        # alone on the card, their plain versions in this process (their ms go into the kernels line).
-        t0 = time.perf_counter()
+        # neither the grid's CPU references nor the shard phase's world (10b) needs a kernel: both start
+        # before the build, and run beside it and phase 3
+        paper, rows = grid_rows()
+        references = {label: pool.submit(cpu_grid_case, kind, opts, seed)
+                      for label, kind, _, opts, cases in rows if cases is paper}
         shard_deadline = time.monotonic() + SHARD_TIMEOUT_S
         shard_procs = shard_start(seed)
         try:
+            # 2. build: one nvcc per source, all started together (programs of one source share its
+            # build), the flash kernel's among them
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(kernel.PROGRAMS) + 1) as threads:
+                flash_lib = threads.submit(flash.library)
+                built = {lib.path: lib for lib in threads.map(kernel.library, kernel.PROGRAMS)}
+                built[flash_lib.result().path] = flash_lib.result()
+            for lib in built.values():
+                report = ptxas_report(lib)
+                require(bool(report), f"ptxas printed no register report for {lib.path.name}")
+                print(f"[build] library={lib.path.name} spill_stores={spill_stores(lib)} ptxas={report}", flush=True)
+            for program in kernel.PROGRAMS:
+                lib = kernel.library(program)
+                require(spill_stores(lib) == 0, f"ptxas spills in {lib.path.name}")
+            hgmma = hgmma_counts(flash_lib.result())
+            require(len(hgmma) == len(flash.HEAD_DIMS) and all(n > 0 for n in hgmma.values()),
+                    f"a bf16 prefill kernel without wgmma in its SASS: {hgmma}")
+            print(f"[build] flash bf16 prefill HGMMA instructions by kernel: {json.dumps(hgmma)}", flush=True)
+            for line in ptxas_report(flash_lib.result()):
+                if "Li192E" in line:  # MLA's head dim: registers and spill stores of each D = 192 kernel
+                    print(f"[build] flash D=192 {line}", flush=True)
+            print(f"[build] sources={len(built)} programs={len(kernel.PROGRAMS)} + flash_attention "
+                  f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+            phases.done("build")
+
+            # 3. check: every program and telemetry instance == its plain version, exactly. The checks
+            # at N > CPU_PLAIN_MAX_N run their plain versions on the card in CARD_PLAIN_WORKERS
+            # processes, beside the rest of the shard phase's world (two ranks on the card, phase 10b):
+            # none of them times anything kept (phases 6 and 7 time the plain versions alone)
+            t0 = time.perf_counter()
             with concurrent.futures.ProcessPoolExecutor(CARD_PLAIN_WORKERS, mp_context=ctx,
                                                         initializer=_worker_init) as card_pool:
                 checks = Checks(pool, seed, card_pool)
                 run_checks(checks, seed)
+                run_telemetry_checks(checks, seed)
                 n_card = len(checks.pending_card)
                 checks.finish_card()
-        finally:
             shard_wait(shard_procs, shard_deadline)
-        print(f"[check] program checks done ({n_card} plain runs in {CARD_PLAIN_WORKERS} card workers; the "
-              f"shard world beside them) elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
-        run_telemetry_checks(checks, seed)
-        print(f"[check] card phase done: {checks.count} checks, {len(checks.pending)} plain runs "
-              f"still in CPU workers elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+            print(f"[check] card phase done: {checks.count} checks ({n_card} plain runs in {CARD_PLAIN_WORKERS} "
+                  f"card workers, the shard world beside them), {len(checks.pending)} plain runs still in CPU "
+                  f"workers elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+            phases.done("program and telemetry checks (with the shard world)")
+        except BaseException:
+            shard_stop(shard_procs)
+            raise
 
         # 4. grid: the main path, through every program
         t0 = time.perf_counter()
-        paper = zipf.paper_grid()
-        n100k = [c for c in paper if c.n_objects == 100_000]
-        rows = [(kind, kind, {}, "", paper) for kind in KINDS]
-        rows += [("gdsf", "gdsf", SIZED, "sized", paper), ("arc", "arc", {}, "", paper),
-                 ("gdsf+bytes", "gdsf", BUDGET, "bytes", paper)]
-        rows += [(f"{kind}+bytes", kind, BUDGET, "bytes", n100k) for kind in BYTE_KINDS if kind != "gdsf"]
-        references = {label: pool.submit(cpu_grid_case, kind, opts, seed)
-                      for label, kind, _, opts, cases in rows if cases is paper}
         expected = dict.fromkeys(kernel.LAUNCHES, 0)
         n_requests = len(paper) * zipf.PAPER_NUM_SAMPLES * zipf.PAPER_TRACE_LEN
         grid = {}
@@ -3142,14 +3719,16 @@ def main() -> int:
         print(f"[grid] launches={json.dumps(launches)} total={sum(launches.values())} plfu_gt_lfu=True "
               f"grid_mean_chr={json.dumps(chr_of)} cpu_reference_case={paper[0]} "
               f"cpu_reference_rows={len(references)} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+        phases.done("grid")
 
         # the small checks' plain runs, back from the CPU workers
         t0 = time.perf_counter()
         n_cpu = len(checks.pending)
         checks.finish()
         print(f"[check] cases={checks.count} (plain on the CPU: {n_cpu}) samples={SAMPLES} "
-              f"base_T={BASE_CHECK_LEN} (cut from 20,000) max_abs_err={max(checks.worst.values())} "
+              f"base_T={json.dumps({n: t for n, _, t in BASE_CHECK_CASES})} max_abs_err={max(checks.worst.values())} "
               f"tolerance=exact wait_s={time.perf_counter() - t0:.3f}", flush=True)
+        phases.done("small checks' CPU plain runs (wait)")
 
     # 5. scan: arc's scan resistance at benchmarks/scan_bench.py's full setting
     t0 = time.perf_counter()
@@ -3166,14 +3745,17 @@ def main() -> int:
             chrs[scenario] = int(hits.sum()) / tr.size
         scan_chr[kind] = chrs["scan"]
         print(f"[scan {kind}] options={json.dumps(extra)} chr={chrs['scan']} stationary_chr={chrs['stationary']} "
-              f"scan_cost={chrs['stationary'] - chrs['scan']}")
+              f"scan_cost={chrs['stationary'] - chrs['scan']}", flush=True)
     require(scan_chr["arc"] > scan_chr["lru"] and scan_chr["arc"] > scan_chr["lfu"],
             f"arc does not beat lru and lfu on scan: {scan_chr}")
     print(f"[scan] N={SCAN_N} cap={SCAN_CAP} S={SCAN_SAMPLES} T={SCAN_LEN} seed={SCAN_SEED} "
-          f"sweeps={json.dumps(SCAN_KW)} arc_gt_lru_and_lfu=True elapsed_s={time.perf_counter() - t0:.3f}")
+          f"sweeps={json.dumps(SCAN_KW)} arc_gt_lru_and_lfu=True elapsed_s={time.perf_counter() - t0:.3f}",
+          flush=True)
+    phases.done("scan")
 
-    # profile: the device's idle share between the launches of one grid row
+    # profile: the device's idle share between the launches of one grid row's largest cases
     profile_row(seed, card)
+    phases.done("profile row")
 
     # 6. measure
     traces = torch.as_tensor(zipf.sample_traces(MEASURE_N, SAMPLES, MEASURE_LEN, seed=seed), device="cuda")
@@ -3212,15 +3794,19 @@ def main() -> int:
             "T": MEASURE_LEN, "plain_T": PLAIN_MEASURE_LEN,
         })
 
+    phases.done("measure")
+
     # 7. telemetry: the telemetry path at the measured case, counted
     entries += run_telemetry(traces, offs, checks, card, sms, seed)
     del traces, short, offs
+    phases.done("telemetry")
 
     # the fleet engines' phases in inference mode, as the plain runs: their steps are thousands of
     # small ops, each cheaper without autograd's bookkeeping (the outputs are the same)
     with torch.inference_mode():
         # 8. fleet: device traces, routers, the level-major fleet held to its oracle, the paper's CPU time
         keep = fleet_phase(seed, card)
+        phases.done("fleet")
 
         # 9. placed and 10. hierarchy: the time-major placed engine and the two-tier hierarchy, held to
         # their oracles in the CPU workers
@@ -3228,18 +3814,23 @@ def main() -> int:
         with concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx, initializer=_worker_init,
                                                     initargs=(CPU_WORKER_NICE,)) as pool:
             placed_phase(pool, seed, card, keep)
+            phases.done("placed")
             hierarchy_phase(pool, seed, card)
+            phases.done("hierarchy")
 
         # 10a. stream and 10b. shard: the streaming engine and the sharded runs, held to the fleet and
         # placed phases' bounded calls and oracle results
         stream_phase(keep, card)
+        phases.done("stream")
         shard_phase(keep, card)
+        phases.done("shard wrap-up")
         del keep
 
     # 11. flash check: the attention kernel against its plain version, f32 products in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = flash_checks(seed)
+    phases.done("flash check")
 
     # 12. serve: smollm-360m at full width behind the content cache, every attention call on the kernel
     t0 = time.perf_counter()
@@ -3250,15 +3841,18 @@ def main() -> int:
     serving_energy_line(model, served, card)
     # 13. fleet front: the same model behind the serving fleet front
     fleet_front(model, seed, card)
+    phases.done("serve and fleet front")
 
     # 14. serve check: the card against the plain path on the CPU, the same weights
     serve_check(model, seed)
+    phases.done("serve check")
 
     # 15. measure: the kernel at the served shapes beside its bound, plain version and SDPA; the engine
     entries += flash_measure(seed, worst, by_instance, sms)
     serve_measure(model, seed, card)
     del model
     torch.cuda.empty_cache()
+    phases.done("flash and serve measure")
 
     # 16. MoE/MLA serve: deepseek-v2-236b at its published widths, 4 of 60 layers, behind the content
     # cache, every MLA prefill on the kernel at D = 192; 17. its card-vs-CPU check on 2 layers
@@ -3272,6 +3866,7 @@ def main() -> int:
                              shapes=((MLA_FLASH_ENTRY, flash.INSTANCES[0], MLA_FLASH_SHAPE),))
     print(f"[moe] serve + check elapsed_s={t_moe:.3f} with the MLA flash measure "
           f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    phases.done("moe")
 
     # 18. SSM serve and 19. SSM check: rwkv6-7b (4 of 32 layers) and jamba-1.5-large-398b (5 of 72) at
     # their published widths behind the content cache, jamba's attention layer on the kernel at D = 128;
@@ -3292,11 +3887,36 @@ def main() -> int:
                                            JAMBA_DECODE_ENTRY: jamba[flash.INSTANCES[1]]}, sms, shapes=JAMBA_FLASH_SHAPES)
     print(f"[ssm] serve + check elapsed_s={t_ssm:.3f} with jamba's flash measure "
           f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    phases.done("ssm")
+
+    # 19a. whisper-large-v3 at full depth (32 + 32 layers): served through prefill and decode_step, every
+    # attention call on the kernel (the encoder, cross-attention over the source), held to the CPU on
+    # 2 + 2 layers; then the kernel at its shapes
+    t0 = time.perf_counter()
+    model, by_entry, reqs = whisper_serve(seed, card)
+    whisper_check(model, reqs, seed)
+    del model, reqs
+    torch.cuda.empty_cache()
+    entries += flash_measure(seed, worst, by_entry, sms, shapes=WHISPER_FLASH_SHAPES)
+    print(f"[whisper] serve + check + flash measure elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    phases.done("19a whisper")
+
+    # 19b. llava-next-mistral-7b at full depth (32 layers), its 1,152 prefix embeddings before the text;
+    # held to the CPU on 2 layers; then the kernel at its shapes
+    t0 = time.perf_counter()
+    model, by_entry, reqs = llava_serve(seed, card)
+    llava_check(model, reqs, seed)
+    del model, reqs
+    torch.cuda.empty_cache()
+    entries += flash_measure(seed, worst, by_entry, sms, shapes=LLAVA_FLASH_SHAPES)
+    print(f"[llava] serve + check + flash measure elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    phases.done("19b llava")
 
     # 20. kernels
-    print(json.dumps({"kernels": entries}))
-    print(f"[total] host_cpu={host_cpu()!r} elapsed_s={time.perf_counter() - t_start:.3f}")
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
+    print(f"[phases] {json.dumps(phases.seconds)}", flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(f"[total] host_cpu={host_cpu()!r} elapsed_s={time.perf_counter() - t_start:.3f}", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0
 
 

@@ -48,24 +48,25 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str, sources) -> Library:
+def build(name: str, sources, extra_flags: tuple[str, ...] = ()) -> Library:
     """Compile ``sources`` (unless a library of the same hash exists) and load
-    it. Safe to call from several threads at once, so that several libraries
-    build in parallel; a second call for a library being built waits for
-    it."""
+    it, with ``extra_flags`` after ``NVCC_FLAGS``. Safe to call from several
+    threads at once, so that several libraries build in parallel; a second
+    call for a library being built waits for it."""
     sources = [Path(s) for s in sources]
+    flags = (*NVCC_FLAGS, *extra_flags)
     headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
-    digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256("\0".join(flags).encode())
     for src in [*sources, *headers]:
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
     with _LOCK:
         lock = _BUILDING.setdefault(path, threading.Lock())
     with lock:
-        return _build_locked(name, sources, path)
+        return _build_locked(name, sources, flags, path)
 
 
-def _build_locked(name: str, sources: list[Path], path: Path) -> Library:
+def _build_locked(name: str, sources: list[Path], flags: tuple[str, ...], path: Path) -> Library:
     if path in _LOADED:
         return _LOADED[path]
     log = path.with_suffix(".log")
@@ -73,7 +74,7 @@ def _build_locked(name: str, sources: list[Path], path: Path) -> Library:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)],
             capture_output=True,
             text=True,
         )

@@ -29,6 +29,7 @@ other, and copies nothing behind the caller's back.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -40,6 +41,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import naive_attention
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
+#: nvcc optimises the source's many kernel instances on as many threads as the host has cores
+#: (70 s on one core to 28 s on 8, an H100 host's Xeon, with the same registers a kernel)
+SPLIT_COMPILE = ("--split-compile=0",)
 #: head dims the kernel is instantiated for (every dense config's, the tests', and MLA's
 #: nope + rope, 192, at which deepseek-v2's prefill runs)
 HEAD_DIMS = (16, 32, 64, 128, 192)
@@ -67,6 +71,9 @@ ARGTYPES = ((_PTR,) * 4 + (_LONG,) * 12 + (_INT,) * 8 + (ctypes.c_float,) + (_IN
 INSTANCES = ("flash_attention/prefill", "flash_attention/decode")
 #: kernel launches by instance since import (or since a caller last set them to 0)
 LAUNCHES = dict.fromkeys(INSTANCES, 0)
+#: the same launches by shape, ``(Sq, Skv, causal)``: a caller that serves several
+#: shapes on one instance reads each one's count here (set to 0 with ``LAUNCHES``)
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def instance_of(sq: int) -> str:
@@ -135,7 +142,7 @@ def library() -> _build.Library:
     """Build (at first use) and load the kernel's library, with its C
     signatures; later calls return it without hashing the source again (the
     model launches the kernel once a layer a token)."""
-    built = _build.build("flash_attention", (SOURCE,))
+    built = _build.build("flash_attention", (SOURCE,), extra_flags=SPLIT_COMPILE)
     built.lib.flash_attention_launch.argtypes = list(ARGTYPES)
     built.lib.flash_attention_launch.restype = ctypes.c_int
     built.lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -213,6 +220,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None, kv_len=Non
         msg = built.lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES[instance_of(sq)] += 1
+    SHAPE_LAUNCHES[(sq, skv, bool(causal))] += 1
     return out
 
 

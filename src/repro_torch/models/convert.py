@@ -3,10 +3,12 @@
 The reference keeps a parameter pytree whose repeating layers are stacked
 under ``stack.blocks.<j>`` on a leading ``layers`` axis (``<j>`` the layer's
 place in the repeating pattern) and whose leading dense layers sit under
-``stack.prefix.<i>``. :func:`params_from_jax` takes that tree as numpy arrays
-(for instance ``jax.tree_util.tree_map(np.asarray, params)``), unstacks the
-blocks into the port's ``layers.<i>`` and loads every array, so that both
-packages compute with the same weights. It imports nothing of JAX.
+``stack.prefix.<i>``; the encoder-decoder stacks its layers under ``encoder``
+(``n_encoder_layers`` on the leading axis) and ``decoder`` (``n_layers``).
+:func:`params_from_jax` takes that tree as numpy arrays (for instance
+``jax.tree_util.tree_map(np.asarray, params)``), unstacks the blocks into the
+port's ``layers.<i>`` (or ``encoder.<i>`` and ``decoder.<i>``) and loads every
+array, so that both packages compute with the same weights. It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -31,10 +33,17 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
 def port_arrays(cfg, tree) -> dict[str, np.ndarray]:
     """The reference's tree as ``{port parameter name: array}``."""
     prefix, pattern, n_blocks = transformer.stack_pattern(cfg)
+    stacks = {"encoder": cfg.n_encoder_layers, "decoder": cfg.n_layers} if cfg.encoder_decoder else {}
     out = {}
     for name, array in _flatten(tree).items():
         parts = name.split(".")
-        if parts[0] == "stack" and parts[1] == "blocks":
+        if parts[0] in stacks:
+            n, rest = stacks[parts[0]], ".".join(parts[1:])
+            if array.shape[0] != n:
+                raise ValueError(f"{name}: {array.shape[0]} stacked layers, the config has {n}")
+            for i in range(n):
+                out[f"{parts[0]}.{i}.{rest}"] = array[i]
+        elif parts[0] == "stack" and parts[1] == "blocks":
             j, rest = int(parts[2]), ".".join(parts[3:])
             if array.shape[0] != n_blocks:
                 raise ValueError(f"{name}: {array.shape[0]} stacked blocks, the config has {n_blocks}")

@@ -1,9 +1,10 @@
 """Public model API: ``build(cfg) -> Model`` with init/apply/prefill/decode_step.
 
-The port of the reference's ``models/model.py`` for the decoder-only archs:
-dense and MoE (GQA and MLA attention), ssm (RWKV6) and hybrid (Mamba with
-attention layers between, jamba). The encoder-decoder (whisper) and the vlm
-prefix (llava) wait for ROADMAP module 12.
+The port of the reference's ``models/model.py`` for every arch: the decoder
+stacks, dense and MoE (GQA and MLA attention), ssm (RWKV6) and hybrid (Mamba
+with attention layers between, jamba), with the vlm's prefix embeddings
+(llava) before the text; and the encoder-decoder (whisper,
+:mod:`repro_torch.models.whisper`).
 ``Model`` is an ``nn.Module`` that holds its parameters (fp32 masters, or
 the config's ``param_dtype``); the reference passes a parameter pytree into
 each call instead. Every forward casts them once into compute-dtype copies
@@ -17,7 +18,11 @@ changes.
   * ``param_specs`` / ``cache_spec``       — ParamSpec / (shape, axes, dtype)
     trees in the reference's layouts
 
-Batch key: ``"tokens"`` (B, S) ints. Everything runs without autograd.
+Batch keys: ``"tokens"`` (B, S) ints always; ``"prefix_embeds"`` (B,
+n_prefix_embeds, d) for the vlm (cast to the compute dtype and put before the
+text: positions run over both) and ``"enc_embeds"`` (B, S_src, d) for the
+encoder-decoder (its ``cache_len`` is the source length, and its self cache
+is ``max_target_positions`` long). Everything runs without autograd.
 """
 from __future__ import annotations
 
@@ -26,11 +31,8 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 from repro_torch.models.common import ParamSpec, count_params, flatten_specs, init_param, rms_norm
-
-#: families this port runs; the audio and vlm archs wait for ROADMAP module 12
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
@@ -43,28 +45,29 @@ def lm_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.encoder_decoder or cfg.n_prefix_embeds:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported: the port runs the dense, moe, ssm and hybrid configs; "
-            "the encoder-decoder (audio) and the prefix embeddings (vlm) wait for ROADMAP module 12")
-
-
 class Model(nn.Module):
     """A decoder LM (GQA, MLA, RWKV6 or Mamba mixers; dense, MoE or cmix
-    FFNs) on ``device`` (``None`` means ``cuda``)."""
+    FFNs; prefix embeddings before the text for the vlm), or the
+    encoder-decoder (``encoder.<i>`` and ``decoder.<i>`` layers, ``descs``
+    empty), on ``device`` (``None`` means ``cuda``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         dtype = getattr(torch, cfg.param_dtype)
         d, v = cfg.d_model, cfg.vocab_size
-        self.descs = transformer.layer_descs(cfg)
         self.embed = nn.Parameter(torch.empty((v, d), dtype=dtype, device=dev), requires_grad=False)
-        self.layers = nn.ModuleList(transformer.Sublayer(cfg, desc, dtype, dev) for desc in self.descs)
+        if cfg.encoder_decoder:
+            self.descs = []
+            self.encoder = nn.ModuleList(transformer.ParamTree(whisper._enc_layer_specs(cfg), dtype, dev)
+                                         for _ in range(cfg.n_encoder_layers))
+            self.enc_ln_f = nn.Parameter(torch.empty((d,), dtype=dtype, device=dev), requires_grad=False)
+            self.decoder = nn.ModuleList(transformer.ParamTree(whisper._dec_layer_specs(cfg), dtype, dev)
+                                         for _ in range(cfg.n_layers))
+        else:
+            self.descs = transformer.layer_descs(cfg)
+            self.layers = nn.ModuleList(transformer.Sublayer(cfg, desc, dtype, dev) for desc in self.descs)
         self.ln_f = nn.Parameter(torch.empty((d,), dtype=dtype, device=dev), requires_grad=False)
         self.unembed = nn.Parameter(torch.empty((d, v), dtype=dtype, device=dev), requires_grad=False)
         self._cast_key = None
@@ -73,7 +76,10 @@ class Model(nn.Module):
     # ------------------------------------------------------------- params
     @property
     def param_specs(self) -> dict:
-        """The reference's spec tree (the layers stacked under ``stack.blocks``)."""
+        """The reference's spec tree (the layers stacked under ``stack.blocks``,
+        or under ``encoder`` and ``decoder``)."""
+        if self.cfg.encoder_decoder:
+            return whisper.whisper_specs(self.cfg)
         return lm_specs(self.cfg)
 
     @property
@@ -107,6 +113,8 @@ class Model(nn.Module):
 
     def port_specs(self) -> dict[str, ParamSpec]:
         """``{parameter name: ParamSpec}`` in this module's (unstacked) layout."""
+        if self.cfg.encoder_decoder:
+            return whisper.port_specs(self.cfg)
         specs = {"embed": ParamSpec((self.cfg.vocab_size, self.cfg.d_model), ("vocab", "embed"))}
         for i, desc in enumerate(self.descs):
             layer = flatten_specs(transformer.sublayer_specs(self.cfg, desc))
@@ -131,24 +139,40 @@ class Model(nn.Module):
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if key != self._cast_key:
             cdt = self.compute_dtype
-            self._cast = {
-                "embed": self.embed.detach().to(cdt),
-                "layers": [layer.tree(cdt) for layer in self.layers],
-                "ln_f": self.ln_f.detach().to(cdt),
-                "unembed": self.unembed.detach().to(cdt),
-            }
+            self._cast = {"embed": self.embed.detach().to(cdt)}
+            if self.cfg.encoder_decoder:
+                self._cast.update(encoder=[layer.tree(cdt) for layer in self.encoder],
+                                  enc_ln_f=self.enc_ln_f.detach().to(cdt),
+                                  decoder=[layer.tree(cdt) for layer in self.decoder])
+            else:
+                self._cast["layers"] = [layer.tree(cdt) for layer in self.layers]
+            self._cast.update(ln_f=self.ln_f.detach().to(cdt), unembed=self.unembed.detach().to(cdt))
             self._cast_key = key
         return self._cast
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _embeds(self, embeds) -> torch.Tensor:
+        return torch.as_tensor(embeds, device=self.device).to(self.compute_dtype)
+
+    def _embed_tokens(self, p: dict, batch) -> torch.Tensor:
+        """The token embeddings, after the prefix embeddings where the config
+        has them (the reference's ``_embed_tokens``)."""
+        x = p["embed"][self._tokens(batch["tokens"])]
+        if self.cfg.n_prefix_embeds:
+            x = torch.cat([self._embeds(batch["prefix_embeds"]), x], dim=1)
+        return x
+
     # ------------------------------------------------------------ forward
     @torch.no_grad()
     def hidden(self, batch) -> torch.Tensor:
-        """Final normed hidden states (B, S, d)."""
+        """Final normed hidden states (B, S, d) (the decoder's, S the target
+        length, for the encoder-decoder)."""
         p = self.params()
-        x = p["embed"][self._tokens(batch["tokens"])]
+        if self.cfg.encoder_decoder:
+            return whisper.hidden(self.cfg, p, self._embeds(batch["enc_embeds"]), self._tokens(batch["tokens"]))
+        x = self._embed_tokens(p, batch)
         x = transformer.stack_apply(self.cfg, p["layers"], self.descs, x)
         return rms_norm(x, p["ln_f"], self.cfg.norm_eps)
 
@@ -158,6 +182,10 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------- serve
     def cache_spec(self, batch: int, cache_len: int):
+        """``{name: (shape, logical_axes, dtype)}`` of the decode cache; for the
+        encoder-decoder ``cache_len`` is the source length."""
+        if self.cfg.encoder_decoder:
+            return whisper.cache_spec(self.cfg, batch, cache_len, self.compute_dtype)
         return transformer.stack_cache_spec(self.cfg, batch, cache_len, self.compute_dtype)
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
@@ -166,9 +194,13 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch, cache_len: int):
-        """Returns (logits (B, S, V) f32, cache)."""
+        """Returns (logits (B, S, V) f32, cache). The encoder-decoder ignores
+        ``cache_len``: its cross cache takes the source's length, its self
+        cache ``max_target_positions``."""
         p = self.params()
-        x = p["embed"][self._tokens(batch["tokens"])]
+        if self.cfg.encoder_decoder:
+            return whisper.prefill(self.cfg, p, self._embeds(batch["enc_embeds"]), self._tokens(batch["tokens"]))
+        x = self._embed_tokens(p, batch)
         x, cache = transformer.stack_prefill(self.cfg, p["layers"], self.descs, x, cache_len)
         x = rms_norm(x, p["ln_f"], self.cfg.norm_eps)
         return (x @ p["unembed"]).float(), cache
@@ -176,8 +208,11 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos: int):
         """tokens: (B, 1) ints; pos: this token's position. Returns (logits
-        (B, V) f32, cache), the cache updated in place."""
+        (B, V) f32, cache), the cache updated in place. The vlm's text
+        positions come after its prefix: ``pos`` counts the prefix too."""
         p = self.params()
+        if self.cfg.encoder_decoder:
+            return whisper.decode_step(self.cfg, p, cache, self._tokens(tokens), int(pos))
         x = p["embed"][self._tokens(tokens)]
         x, cache = transformer.stack_decode(self.cfg, p["layers"], self.descs, x, cache, int(pos))
         x = rms_norm(x, p["ln_f"], self.cfg.norm_eps)
@@ -186,6 +221,5 @@ class Model(nn.Module):
 
 def build(cfg: ModelConfig, device=None) -> Model:
     """A model of ``cfg`` on ``device`` (``None`` means ``cuda``), its
-    parameters not yet filled: call ``init`` or ``convert.params_from_jax``.
-    Raises ``NotImplementedError`` for a family the port does not run yet."""
+    parameters not yet filled: call ``init`` or ``convert.params_from_jax``."""
     return Model(cfg, device)

@@ -239,13 +239,15 @@ def stack_specs(cfg: ModelConfig) -> dict:
     specs: dict = {}
     if prefix:
         specs["prefix"] = {str(i): sublayer_specs(cfg, d) for i, d in enumerate(prefix)}
-
-    def stacked(tree):
-        return {k: ParamSpec((n_blocks,) + s.shape, ("layers",) + s.logical_axes, s.init, s.scale)
-                if isinstance(s, ParamSpec) else stacked(s) for k, s in tree.items()}
-
-    specs["blocks"] = stacked({str(j): sublayer_specs(cfg, d) for j, d in enumerate(pattern)})
+    specs["blocks"] = stacked({str(j): sublayer_specs(cfg, d) for j, d in enumerate(pattern)}, n_blocks)
     return specs
+
+
+def stacked(tree: dict, n: int) -> dict:
+    """``tree``'s specs with a leading ``layers`` axis of ``n``: the reference's
+    scanned layout."""
+    return {k: ParamSpec((n,) + s.shape, ("layers",) + s.logical_axes, s.init, s.scale)
+            if isinstance(s, ParamSpec) else stacked(s, n) for k, s in tree.items()}
 
 
 def stack_apply(cfg: ModelConfig, layers: list[dict], descs, x, *, causal=True):

@@ -4,7 +4,8 @@
   bucketing of per-step events into the 11-metric series (ungrouped or per
   tenant group), the port's copy of the reference's, on torch tensors.
 * :mod:`repro_torch.telemetry.timing` — CUDA-event timing with the
-  first-call/execute split and an optional ``torch.profiler`` trace.
+  first-call/execute split and an optional ``torch.profiler`` trace, and
+  ``j_per_step`` (management J a request from a CPU interval).
 * :mod:`repro_torch.telemetry.latency` — the per-tier service-time model that
   turns grouped fleet series into per-tenant p50/p99 latency.
 * :mod:`repro_torch.telemetry.export` and :mod:`repro_torch.telemetry.dashboard`
@@ -29,7 +30,7 @@ from repro_torch.telemetry.spec import (
     window_sizes,
     windowed_pressure,
 )
-from repro_torch.telemetry.timing import Timing, measure
+from repro_torch.telemetry.timing import Timing, j_per_step, measure
 
 __all__ = [
     "METRIC_INDEX",
@@ -43,6 +44,7 @@ __all__ = [
     "chunk_window_matrix",
     "group_onehot",
     "grouped_series_from_run",
+    "j_per_step",
     "measure",
     "n_windows",
     "percentile_us",

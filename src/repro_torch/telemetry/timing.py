@@ -17,7 +17,8 @@
 
 ``Timing.j_per_step`` prices the measured device time at the card's power
 limit (:func:`repro_torch.core.energy.device_energy_j`), an upper bound on the
-energy the card drew. Measuring needs a card: there is no CPU fallback
+energy the card drew; the module's :func:`j_per_step` prices a measured CPU
+interval as management energy (the reference's function of that name). Measuring needs a card: there is no CPU fallback
 (:func:`profile` alone also runs on the CPU, where it sees no device time).
 """
 from __future__ import annotations
@@ -125,6 +126,12 @@ class Timing:
     def j_per_step(self) -> float:
         """Device energy per simulated request at the card's power limit."""
         return energy.device_energy_j(self.execute_s, self.power_w) / self.steps
+
+
+def j_per_step(cpu_seconds: float, steps: int) -> float:
+    """Management J per request from a measured CPU interval — the measured
+    counterpart of the analytic per-op energy tables."""
+    return energy.mgmt_energy_j(cpu_seconds) / steps
 
 
 def measure(fn, *args, steps: int, repeats: int = 3, warmup: int = 1, make_args=None, profile_dir=None,

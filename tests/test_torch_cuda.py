@@ -500,6 +500,13 @@ FLASH_EDGES = [
     (1, 2, 2, 200, 300, 192, False, 250),   # D = 192, kv_len < Skv, non-causal
     (1, 8, 8, 12, 12, 192, True, None),     # a 12-token MLA prompt: the decode instance, causal
     (1, 16, 16, 1, 2_056, 192, False, 2_049),  # D = 192 decode over splits
+    (1, 20, 20, 1_500, 1_500, 64, False, None),  # whisper's encoder: non-causal, a partial last key tile
+    (1, 20, 20, 4, 1_500, 64, False, None),     # cross-attention from a 4-row prompt: the decode instance
+    (1, 20, 20, 128, 1_500, 64, False, None),   # cross-attention, Sq != Skv, non-causal: the prefill instance
+    (1, 20, 20, 1, 1_500, 64, False, 1_500),    # the cross decode over the whole source
+    (1, 20, 20, 1, 448, 64, False, 133),        # the decoder's decode against its self cache of 448
+    (1, 32, 8, 2_048, 2_048, 128, True, None),  # llava's prefill over prefix and text
+    (1, 32, 8, 1, 2_056, 128, False, 2_049),    # llava's decode
 ]
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True, torch.float32, None),

@@ -88,6 +88,47 @@ def test_plain_matches_reference_kernel_at_mla_head_dim(b, h, kh, sq, skv, d, ca
     np.testing.assert_allclose(_np(got), _np(kernel), atol=tol, rtol=tol)
 
 
+#: whisper's and llava's shapes, heads cut to 2 (whisper) and 4 over 1 (llava's group of 4; the
+#: Pallas interpreter runs a grid cell at a time): whisper's non-causal encoder over 1,500 frames
+#: (1,500 = 23 x 64 + 28: the last key tile is partial) and a 300-frame one; cross-attention, not
+#: causal, Sq != Skv over the 1,500-frame source from 4 rows (the decode instance on the card) and
+#: from 128; the cross decode over the whole source; the decoder's causal prompt and its decode
+#: against the self cache of 448; llava's causal prefill at D = 128 and its decode with kv_len
+WHISPER_LLAVA_CASES = [
+    (1, 2, 2, 1_500, 1_500, 64, False, "bfloat16", None),
+    (1, 2, 2, 300, 300, 64, False, "float32", None),
+    (1, 2, 2, 4, 1_500, 64, False, "float32", None),
+    (1, 2, 2, 4, 1_500, 64, False, "bfloat16", None),
+    (1, 2, 2, 128, 1_500, 64, False, "float32", None),
+    (1, 2, 2, 128, 1_500, 64, False, "bfloat16", None),
+    (1, 2, 2, 1, 1_500, 64, False, "float32", 1_500),
+    (1, 2, 2, 1, 1_500, 64, False, "bfloat16", None),
+    (1, 2, 2, 4, 4, 64, True, "bfloat16", None),
+    (1, 2, 2, 1, 448, 64, False, "float32", 144),
+    (1, 4, 1, 256, 256, 128, True, "bfloat16", None),
+    (1, 4, 1, 1, 520, 128, False, "bfloat16", 517),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal,dtype,kv_len", WHISPER_LLAVA_CASES)
+def test_plain_matches_reference_kernel_at_whisper_and_llava_shapes(b, h, kh, sq, skv, d, causal, dtype, kv_len):
+    """The plain version equals the reference's Pallas kernel (interpret
+    mode) and its oracle within the SWEEP tolerances at the served models'
+    shapes: non-causal rows over a source whose last key tile is partial,
+    Sq != Skv, and kv_len below the cache."""
+    (q, k, v), (jq, jk, jv) = _inputs((b, h, sq, d), (b, kh, skv, d), dtype, seed=sq * 13 + skv)
+    got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert got.dtype == q.dtype and tuple(got.shape) == (b, h, sq, d)
+    kernel = ref_flash(jq, jk, jv, causal=causal, kv_len=kv_len, interpret=True)
+    oracle = ref_naive(jq, jk, jv, causal=causal, kv_len=kv_len)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(kernel), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
+    if not causal and sq > 1:
+        # the same rows read causally are another function: the case's mask is what is held
+        assert np.abs(_np(ops.flash_attention(q, k, v, causal=True, kv_len=kv_len)) - _np(got)).max() > 10 * tol
+
+
 def _float64_attention(q, k, v, causal, kv_len=None):
     """The function in float64 from the same inputs: a yardstick for the
     plain path's own f32 rounding."""

@@ -55,6 +55,8 @@ def test_port_files_exist():
     # the streaming engine and the multi-device fleet
     for entry in ("fleet/stream.py", "fleet/shard.py"):
         assert f"src/repro_torch/{entry}" in names, entry
+    # the encoder-decoder
+    assert "src/repro_torch/models/whisper.py" in names
     assert len(names) >= 59
 
 

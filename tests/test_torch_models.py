@@ -1,15 +1,22 @@
 """The port's configs and models against the reference's, on the CPU.
 
-Configs are pinned field for field. Models (the dense archs; the MoE
-archs deepseek-v2-236b with MLA attention and a dense prefix layer, and
-grok-1-314b with GQA; rwkv6-7b, RWKV6 time and channel mixes; and the hybrid
+Configs are pinned field for field. Models (every arch: the dense archs;
+the MoE archs deepseek-v2-236b with MLA attention and a dense prefix layer,
+and grok-1-314b with GQA; rwkv6-7b, RWKV6 time and channel mixes; the hybrid
 jamba-1.5-large-398b, Mamba layers with an attention layer between and MoE
-FFNs on every other layer): the reference's weights (its ``init`` from
-``PRNGKey(0)``) are carried into a port ``Model`` with
+FFNs on every other layer; llava-next-mistral-7b, its 8 prefix embeddings
+(reduced; drawn at 0.02, as the reference's smoke test draws them) before
+the text; and the encoder-decoder whisper-large-v3): the reference's weights
+(its ``init`` from ``PRNGKey(0)``) are carried into a port ``Model`` with
 ``convert.params_from_jax``; both then run ``apply``, ``prefill`` (the dense
 attention branch at a 12-token prompt, the chunked one at 48 tokens: the
 reduced configs switch at 16; at 48 the reduced MoE, E = 4, k = 2, C = 32,
-runs near its capacity) and 3 ``decode_step``s on the same tokens.
+runs near its capacity; llava's prompt counts its prefix; whisper's prompt
+is its source, 12 or 48 frames, before a 4-token decoder prompt) and 3 ``decode_step``s on the same tokens.
+tests/test_torch_whisper.py holds whisper's parts (``encode``, ``hidden``)
+on their own. The new archs' (llava's, whisper's) own forward, decode and
+parameter counts are also held to what tests/test_models_smoke.py asks of
+the reference.
 Tolerances: float32 1e-5 on logits of magnitude below 1 (summation order
 only); bfloat16 2e-2, a few bf16 ulps at that magnitude (the two frameworks
 round bf16 matmuls, activations and the logits at different points).
@@ -46,14 +53,18 @@ from repro.models import common as ref_common
 from repro_torch import configs
 from repro_torch.models import build, common, moe
 from repro_torch.models.convert import params_from_jax, port_arrays
-from repro_torch.models.model import lm_specs
 from test_torch_moe import F32Dots
 
 DENSE = ("smollm-360m", "granite-3-2b", "phi4-mini-3.8b", "mistral-large-123b")
 MOE = ("deepseek-v2-236b", "grok-1-314b", "jamba-1.5-large-398b")
 SSM = ("rwkv6-7b", "jamba-1.5-large-398b")
-PORTED = DENSE + MOE + ("rwkv6-7b",)
-OTHERS = tuple(a for a in configs.ARCH_IDS if a not in PORTED)
+#: the archs whose families the port took last: the vlm's prefix and the encoder-decoder
+NEW = ("llava-next-mistral-7b", "whisper-large-v3")
+PORTED = DENSE + MOE + ("rwkv6-7b",) + NEW
+#: the encoder-decoder's decoder prompt in the parity test (its ``prompt`` is the source's length)
+ENC_DEC_PROMPT = 4
+#: tests/test_models_smoke.py's published parameter counts of the new archs (a band of 18 % either side)
+PUBLISHED_PARAMS = {"whisper-large-v3": 1.6e9, "llava-next-mistral-7b": 7.2e9}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: a router near tie: the k-th and (k+1)-th logits within 4 bf16 ulps (2**-5 relative)
 NEAR_TIE = 2**-5
@@ -84,8 +95,8 @@ def test_n_params_equal_at_full_config(arch):
     widths (smollm-360m: about 409 M), and a built model holds them; the
     active parameters too (a model on the meta device allocates nothing)."""
     cfg, ref_cfg = configs.get_config(arch), ref_configs.get_config(arch)
-    assert common.count_params(lm_specs(cfg)) == ref_build(ref_cfg).n_params
     full = build(cfg, device="meta")
+    assert common.count_params(full.param_specs) == ref_build(ref_cfg).n_params
     assert full.n_params == ref_build(ref_cfg).n_params == sum(p.numel() for p in full.parameters())
     assert full.n_active_params == ref_build(ref_cfg).n_active_params
     model = build(cfg.reduced(), device="cpu")
@@ -97,10 +108,66 @@ def test_n_params_equal_at_full_config(arch):
         assert full.n_active_params < full.n_params
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_build_refuses_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP module 12"):
-        build(configs.get_config(arch).reduced(), device="cpu")
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_build_takes_every_config(arch):
+    """No config is refused: every arch builds at its reduced widths and
+    holds the parameters its spec tree names."""
+    model = build(configs.get_config(arch).reduced(), device="cpu")
+    assert {name for name, _ in model.named_parameters()} == set(model.port_specs())
+
+
+def _smoke_batch(cfg, b=2, s=32, seed=0):
+    """tests/test_models_smoke.py's batch: the encoder-decoder's ``s``
+    source frames and ``max_target_positions`` tokens; the vlm's prefix
+    embeddings (0.02 x normal) before ``s - n_prefix_embeds`` tokens."""
+    rng = np.random.default_rng(seed)
+    if cfg.encoder_decoder:
+        return {"enc_embeds": rng.normal(size=(b, s, cfg.d_model)).astype(np.float32),
+                "tokens": rng.integers(0, cfg.vocab_size, (b, cfg.max_target_positions)).astype(np.int32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s - cfg.n_prefix_embeds)).astype(np.int32)}
+    if cfg.n_prefix_embeds:
+        out["prefix_embeds"] = (rng.normal(size=(b, cfg.n_prefix_embeds, cfg.d_model)) * 0.02).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_forward_smoke(arch):
+    """tests/test_models_smoke.py's forward smoke on the port: f32 logits of
+    the batch's shape, all finite."""
+    cfg = configs.get_config(arch).reduced()
+    model = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    batch = _smoke_batch(cfg)
+    logits = model.apply(batch)
+    exp_s = cfg.max_target_positions if cfg.encoder_decoder else 32
+    assert logits.shape == (2, exp_s, cfg.vocab_size) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits"
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_decode_matches_forward(arch):
+    """tests/test_models_smoke.py's decode check on the port: a prefill of 8
+    tokens and 3 decode steps reproduce the full forward's logits (the vlm's
+    positions after its prefix), at the reference test's 2e-3."""
+    cfg = configs.get_config(arch).reduced()
+    model = build(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    batch = _smoke_batch(cfg, seed=1)
+    full = model.apply(batch)
+    tokens = batch["tokens"]
+    p_len, offset = 8, cfg.n_prefix_embeds
+    _, cache = model.prefill(dict(batch, tokens=tokens[:, :p_len]), tokens.shape[1] + offset)
+    for t in range(p_len, p_len + 3):
+        logits, cache = model.decode_step(cache, tokens[:, t:t + 1], offset + t)
+        np.testing.assert_allclose(logits.numpy(), full[:, offset + t].numpy(), atol=2e-3, rtol=2e-3,
+                                   err_msg=f"{arch}: decode diverges from forward at t={t}")
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_full_config_param_count(arch):
+    """tests/test_models_smoke.py's count on the port, with no allocation:
+    the published band."""
+    model = build(configs.get_config(arch), device="meta")
+    target = PUBLISHED_PARAMS[arch]
+    assert 0.82 * target <= model.n_params <= 1.18 * target, f"{arch}: {model.n_params / 1e9:.2f}B"
 
 
 def _pair(arch, compute_dtype, **over):
@@ -127,9 +194,11 @@ def _greedy_equal_where_clear(port_logits, ref_logits, tol):
 def _ref_cache(ref_model, ref_cache, name):
     """The reference's cache leaf ``name`` stacked over the layers that hold
     it, in layer order (its prefix layers, then the scanned blocks), as the
-    port stacks it."""
+    port stacks it; the encoder-decoder's leaves are stacked already."""
     from repro.models.transformer import stack_pattern
 
+    if ref_model.cfg.encoder_decoder:
+        return np.asarray(ref_cache[name], np.float32)
     prefix, pattern, n_blocks = stack_pattern(ref_model.cfg)
     layers = [np.asarray(ref_cache["prefix"][str(i)][name], np.float32) for i in range(len(prefix))
               if name in ref_cache["prefix"][str(i)]]
@@ -139,6 +208,8 @@ def _ref_cache(ref_model, ref_cache, name):
 
 
 def _ref_cache_names(ref_cache) -> set:
+    if not any(isinstance(part, dict) for part in ref_cache.values()):
+        return set(ref_cache)
     return {name for part in ref_cache.values() for layer in part.values() for name in layer}
 
 
@@ -184,6 +255,24 @@ class Routes:
         self.port.clear()
 
 
+def _batches(cfg, prompt):
+    """(port batch, reference batch, the first decode position), each
+    package with its own copy of the arrays: ``prompt`` positions (the vlm's
+    prefix embeddings, 0.02 x normal, and ``prompt - n_prefix_embeds``
+    tokens, as tests/test_models_smoke.py's batch: the chunked path needs a
+    multiple of its chunk); for the encoder-decoder a source of ``prompt``
+    frames and an ``ENC_DEC_PROMPT``-token decoder prompt."""
+    rng = np.random.default_rng(prompt)
+    n_tokens = ENC_DEC_PROMPT if cfg.encoder_decoder else prompt - cfg.n_prefix_embeds
+    arrays = {"tokens": rng.integers(0, cfg.vocab_size, (2, n_tokens)).astype(np.int32)}
+    if cfg.encoder_decoder:
+        arrays["enc_embeds"] = rng.standard_normal((2, prompt, cfg.d_model)).astype(np.float32)
+    if cfg.n_prefix_embeds:
+        arrays["prefix_embeds"] = (rng.standard_normal((2, cfg.n_prefix_embeds, cfg.d_model)) * 0.02).astype(np.float32)
+    return ({k: v.copy() for k, v in arrays.items()}, {k: jnp.array(v, copy=True) for k, v in arrays.items()},
+            cfg.n_prefix_embeds + n_tokens)
+
+
 @pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("prompt", [12, 48])
@@ -203,14 +292,13 @@ def test_forward_prefill_decode_match_reference(monkeypatch, arch, compute_dtype
             return [r for r in range(2) if r not in routes.flipped]
         return [0, 1]
 
-    tokens = np.random.default_rng(prompt).integers(0, model.cfg.vocab_size, (2, prompt)).astype(np.int32)
-    cache_len = prompt + 4
-    got = model.apply({"tokens": tokens})
-    want = np.asarray(jax.jit(lambda p, t: ref_model.apply(p, {"tokens": t}))(params, jnp.asarray(tokens)))
+    port_batch, ref_batch, start = _batches(model.cfg, prompt)
+    cache_len = prompt if model.cfg.encoder_decoder else start + 4
+    got = model.apply(port_batch)
+    want = np.asarray(jax.jit(ref_model.apply)(params, ref_batch))
     _close(got[held()], want[held()], tol)
-    ref_logits, ref_cache = jax.jit(lambda p, t: ref_model.prefill(p, {"tokens": t}, cache_len))(
-        params, jnp.asarray(tokens))
-    logits, cache = model.prefill({"tokens": tokens}, cache_len)
+    ref_logits, ref_cache = jax.jit(lambda p, b: ref_model.prefill(p, b, cache_len))(params, ref_batch)
+    logits, cache = model.prefill(port_batch, cache_len)
     _close(logits[held()], np.asarray(ref_logits)[held()], tol)
     names = tuple(cache)
     assert set(names) == _ref_cache_names(ref_cache) == set(model.cache_spec(2, cache_len))
@@ -219,8 +307,8 @@ def test_forward_prefill_decode_match_reference(monkeypatch, arch, compute_dtype
     decode = jax.jit(ref_model.decode_step)
     nxt = np.array(jnp.argmax(ref_logits[:, -1], -1), np.int32)[:, None]
     for t in range(3):
-        ref_logits, ref_cache = decode(params, ref_cache, jnp.asarray(nxt), jnp.int32(prompt + t))
-        logits, cache = model.decode_step(cache, nxt, prompt + t)
+        ref_logits, ref_cache = decode(params, ref_cache, jnp.asarray(nxt), jnp.int32(start + t))
+        logits, cache = model.decode_step(cache, nxt, start + t)
         _close(logits[held()], np.asarray(ref_logits)[held()], tol)
         _greedy_equal_where_clear(logits[held()], np.asarray(ref_logits)[held()], tol)
         nxt = np.array(jnp.argmax(ref_logits, -1), np.int32)[:, None]

@@ -319,3 +319,14 @@ def test_profile_writes_its_trace_on_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         assert trace.kernels == 0 and trace.idle_share is None
     assert timing._busy_and_span([(0.0, 2.0), (1.0, 3.0), (5.0, 6.0)]) == (4.0, 6.0)
+
+
+@pytest.mark.parametrize("cpu_seconds,steps", [(1.0, 10), (0.25, 100_000), (3.5e-3, 7)])
+def test_module_j_per_step_matches_reference(cpu_seconds, steps):
+    """``telemetry.j_per_step`` (management J a request from a CPU interval)
+    is the reference's function, exported from the package as the
+    reference's is; ``Timing.j_per_step`` stays the device's J at the power
+    limit."""
+    want = ref_telemetry.j_per_step(cpu_seconds, steps)
+    assert port_telemetry.j_per_step(cpu_seconds, steps) == timing.j_per_step(cpu_seconds, steps) == want
+    assert "j_per_step" in port_telemetry.__all__ and "j_per_step" in ref_telemetry.__all__

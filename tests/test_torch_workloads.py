@@ -6,8 +6,11 @@ scenarios (``stationary``, ``churn``, ``flash_crowd``, ``diurnal``,
 imports nothing of ``repro``); each must give the reference's arrays bit for
 bit (ids, sizes and dtypes) and raise the reference's errors, and
 ``repro_torch.workloads.make_traces`` must build every scenario as the
-reference's does.
+reference's does. ``TraceSpec`` and ``register_scenario`` are the
+reference's too.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -115,3 +118,45 @@ def test_make_traces_matches_reference_for_every_scenario():
     np.testing.assert_array_equal(got, ref_workloads.make_traces("multi_tenant", 300, 2, 800, seed=1, n_tenants=3))
     with pytest.raises(ValueError, match="unknown scenario"):
         port_workloads.make_traces("nope", 10)
+
+
+@pytest.mark.parametrize("scenario,overrides", [("flash_crowd", dict(n_spikes=1)), ("scan", dict(n_sweeps=2)),
+                                                ("stationary", {})])
+def test_trace_spec_matches_reference(scenario, overrides):
+    """``TraceSpec`` is the reference's: the same fields, sorted overrides,
+    equality and hash, and ``build`` gives the reference's arrays."""
+    port = port_workloads.TraceSpec(scenario, 500, 2, 1_500, seed=1).with_overrides(**overrides)
+    ref = ref_workloads.TraceSpec(scenario, 500, 2, 1_500, seed=1).with_overrides(**overrides)
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.astuple(port) == dataclasses.astuple(ref)
+    assert port == port_workloads.TraceSpec(scenario, 500, 2, 1_500, 1, tuple(sorted(overrides.items())))
+    assert hash(port) == hash(port_workloads.TraceSpec(scenario, 500, 2, 1_500, 1, tuple(sorted(overrides.items()))))
+    np.testing.assert_array_equal(port.build(), ref.build())
+    defaults = port_workloads.TraceSpec(scenario, 7)
+    assert (defaults.n_samples, defaults.trace_len, defaults.seed, defaults.overrides) == \
+        (ref_workloads.TraceSpec(scenario, 7).n_samples, ref_workloads.TraceSpec(scenario, 7).trace_len, 0, ())
+
+
+def test_trace_spec_and_register_scenario_refuse_as_the_reference():
+    for mod in (port_workloads, ref_workloads):
+        with pytest.raises(ValueError, match="unknown scenario 'nope'"):
+            mod.TraceSpec("nope", 10)
+        with pytest.raises(ValueError, match="scenario 'stationary' already registered"):
+            mod.register_scenario("stationary", mod.stationary)
+
+
+def test_register_scenario_adds_a_generator(monkeypatch):
+    """A registered generator is built by name, by ``make_traces`` and by a
+    ``TraceSpec``, in both packages alike."""
+    def ramp(n_objects, n_samples, trace_len, *, seed=0, step=1):
+        return (np.arange(n_samples * trace_len).reshape(n_samples, trace_len) * step + seed) % n_objects
+
+    for mod in (port_workloads, ref_workloads):
+        monkeypatch.setitem(mod.SCENARIOS, "ramp", None)
+        del mod.SCENARIOS["ramp"]
+        mod.register_scenario("ramp", ramp)
+    got = port_workloads.TraceSpec("ramp", 50, 2, 30, seed=3).with_overrides(step=7).build()
+    want = ref_workloads.TraceSpec("ramp", 50, 2, 30, seed=3).with_overrides(step=7).build()
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32 and got.shape == (2, 30)
+    np.testing.assert_array_equal(port_workloads.make_traces("ramp", 50, 2, 30, seed=3), ramp(50, 2, 30, seed=3))
