@@ -24,7 +24,8 @@ layers, every MLA prefill through the kernel at D = 192; rwkv6-7b and
 jamba-1.5-large-398b at theirs, cut to 4 and 5 layers, jamba's attention
 layer through the kernel at D = 128; whisper-large-v3 and
 llava-next-mistral-7b at full width and depth through ``Model.prefill`` and
-``decode_step``, every attention call through the kernel); the fleet, placed and hierarchy phases drive the
+``decode_step``, every attention call through the kernel); training
+(smollm-360m at full width and depth, phase 19c) runs no kernel; the fleet, placed and hierarchy phases drive the
 N-tier fleet engines, which step the plain PyTorch policies (no kernel of
 their own), and the fleet front serves the model behind a tree of content
 caches. Phases, one line each (or one line per item):
@@ -360,6 +361,29 @@ caches. Phases, one line each (or one line per item):
              tokens, 4 decode steps, within 0.125; the text without the prefix
              (at positions 0...) must be rejected. Then the kernel at its
              prefill and decode shapes.
+19c. train — training on the card (``repro_torch.train``, eager PyTorch, no
+             kernel: the flash kernel has no backward, so a forward that
+             autograd records takes the plain attention). (a) smollm-360m at
+             full width and depth (32 layers, 409,007,040 parameters, f32
+             masters, bf16 compute, each layer rematerialised), weights from
+             ``--seed``, 60 steps of ``make_train_step`` on
+             ``ZipfBigramStream`` batches of 8 x 512 tokens (AdamW, lr 1e-3, 5
+             warm-up steps), the flash counts set to 0 just before and read
+             just after (0): the last 10 steps' mean loss at least 0.5 under
+             the first 10's; the step's median ms over steps 11-60, tokens/s,
+             the model's FLOPs a step (6 N tokens + attention) and their share
+             of 989 TFLOP/s, J a token at the power limit, the kernels and the
+             idle share over one step, the peak memory. (b) a ``Trainer`` at
+             full width on 2 of 32 layers (8 x 128 tokens) to step 20 with a
+             checkpoint every 10 in a temporary directory, then a new one that
+             must print ``resumed from step 20`` and stop at 30 after 10 steps;
+             the newest checkpoint restored onto the CPU equal to the card's
+             state bit for bit; its bytes, save and restore seconds. (c) those
+             2 layers' loss and every gradient on one batch (2 x 256) on the
+             card and the CPU's plain path (bf16 compute on both): within 0.02
+             and a relative L2 of 0.05; non-causal attention must be rejected.
+             (d) ``launch.train.main`` in process, 4 steps of the reduced
+             config on the card.
 20. kernels — a ``[phases]`` line (each phase's seconds), then one JSON
              line, an entry per kernel instance, with the trace
              lengths of cache_sim's time (``T``) and plain version's
@@ -377,6 +401,8 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
+import io
 import json
 import math
 import multiprocessing
@@ -384,6 +410,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -403,10 +430,16 @@ from repro_torch.kernels.cache_sim import cache_sim as kernel  # noqa: E402
 from repro_torch.kernels.cache_sim import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as flash  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import attention, build, moe, ssm, transformer, whisper  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.telemetry import spec as telemetry_spec  # noqa: E402
 from repro_torch.telemetry import timing  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train.data import DataConfig, ZipfBigramStream  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
+from repro_torch.train.train_step import TrainConfig, init_train_state, make_loss_fn, make_train_step, value_and_grad  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.workloads import device as device_workloads  # noqa: E402
 from repro_torch.workloads import generators  # noqa: E402
 
@@ -3380,6 +3413,213 @@ def llava_check(model, reqs: list, seed: int) -> None:
                 f"cpu_s={time.perf_counter() - t_copy:.3f}")
 
 
+# --------------------------------------------------------------------------- training (12b)
+TRAIN_ARCH = "smollm-360m"
+#: the reference's ``build(cfg).n_params`` at full depth (32 layers)
+TRAIN_PARAMS = 409_007_040
+#: (a): smollm-360m trained at full width and depth from ``--seed``'s weights (f32 masters, bf16
+#: compute, remat per its config), ``ZipfBigramStream`` over its vocab, 8 x 512 tokens a step, 60
+#: steps at lr 1e-3 with 5 warm-up steps; the loss must fall by TRAIN_LOSS_DROP, the last 10 steps'
+#: mean against the first 10's (the reference test's criterion)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 512, 60, 5, 1e-3
+TRAIN_LOSS_DROP, TRAIN_LOSS_WINDOW = 0.5, 10
+#: the steps timed: 11 to 60 (the first ones hold the allocator's and cuBLAS's first calls)
+TRAIN_TIMED_FROM = 10
+#: the dense bf16 peak of one H100 SXM (NVIDIA's data sheet, at 700 W)
+H100_BF16_FLOPS = 989e12
+#: (b): the Trainer at full width cut to 2 of 32 layers, for its checkpoints' disk time (f32 params,
+#: m and v: 1.36 GB a checkpoint), 8 x 128 tokens a step, to step 20 with a checkpoint every 10, then
+#: a new Trainer resuming to 30
+TRAINER_LAYERS, TRAINER_BATCH, TRAINER_SEQ, TRAINER_CKPT_EVERY, TRAINER_STEPS = 2, 8, 128, 10, (20, 30)
+#: (c): the card against the CPU's plain path at the same compute dtype (bf16 over f32 masters): the
+#: trainer's last weights (2 layers, full width), one batch of 2 x 256 tokens; the loss within
+#: TRAIN_LOSS_TOL, each parameter's gradient within a relative L2 error of TRAIN_GRAD_TOL
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2, 256, 0.02, 0.05
+#: (d): the launcher in process, on the card: the reduced config, 4 steps
+LAUNCH_STEPS = 4
+
+
+def model_flops_per_step(cfg, n_params: int, batch: int, seq: int) -> float:
+    """The model's FLOPs a train step: 6 x N a token (forward and backward,
+    every parameter counted) plus attention's score and value products, 12
+    x layers x heads x head_dim x seq a token (forward and backward, the
+    whole square, PaLM's count); remat's recomputation is not counted."""
+    tokens = batch * seq
+    return 6 * n_params * tokens + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens
+
+
+def train_full(seed: int, card) -> None:
+    """19c (a): smollm-360m at full width and depth, TRAIN_STEPS steps of
+    ``make_train_step`` from weights drawn from ``seed``, the flash counts set
+    to 0 just before and read just after (training takes the plain attention:
+    the kernel has no backward). Prints the step's median ms over the timed
+    steps, tokens/s, the model's FLOPs a step and their share of the bf16
+    peak, J a token at the power limit, the kernels and the idle share over
+    one step (``torch.profiler``) and the peak memory."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    model = build(cfg, device="cuda")
+    tcfg = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+    params, state = init_train_state(model, tcfg, torch.Generator(device="cuda").manual_seed(seed))
+    n = sum(p.numel() for p in params.values())
+    require(model.n_params == n == TRAIN_PARAMS and cfg.n_layers == 32 and cfg.remat,
+            f"{TRAIN_ARCH} holds {n} parameters in {cfg.n_layers} layers (remat {cfg.remat})")
+    stream = ZipfBigramStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    batches = [stream.batch(i) for i in range(TRAIN_STEPS)]
+    step_fn = make_train_step(model, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_ready = time.perf_counter()
+    flash_counts_zero()
+    losses, times = [], []
+    for batch in batches:
+        t1 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))  # read after the step's last launch: waits for all of it
+        times.append(time.perf_counter() - t1)
+    launches = dict(flash.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    t_trained = time.perf_counter()
+    require(sum(launches.values()) == 0, f"training launched the flash kernel: {launches}")
+    require(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+    first = float(np.mean(losses[:TRAIN_LOSS_WINDOW]))
+    last = float(np.mean(losses[-TRAIN_LOSS_WINDOW:]))
+    require(last <= first - TRAIN_LOSS_DROP, f"the loss fell from {first} to {last}, not by {TRAIN_LOSS_DROP}")
+    trace = timing.profile(step_fn, params, state, batches[-1], profile_dir=None)
+    step_s = float(np.median(times[TRAIN_TIMED_FROM:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops_per_step(cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"[train] arch={cfg.name} layers={cfg.n_layers} n_params={n} params={cfg.param_dtype} "
+          f"compute={cfg.compute_dtype} remat={cfg.remat} batch={TRAIN_BATCH}x{TRAIN_SEQ} steps={TRAIN_STEPS} "
+          f"lr={TRAIN_LR} warmup={TRAIN_WARMUP} loss_first10={first} loss_last10={last} "
+          f"loss_by_10={[round(x, 4) for x in losses[::10]]} flash_launches={json.dumps(launches)} "
+          f"step_ms_median_11_60={step_s * 1e3} step_ms_first={times[0] * 1e3} tokens_per_s={tokens / step_s} "
+          f"model_flops_per_step={flops} (6 N tokens + attention) flops_share_of_989_tflops="
+          f"{flops / step_s / H100_BF16_FLOPS} j_per_token={energy.device_energy_j(step_s, card.power_limit_w) / tokens} "
+          f"step_trace_kernels={trace.kernels} step_busy_s={trace.busy_s} step_span_s={trace.span_s} "
+          f"step_idle_share={trace.idle_share} max_memory_allocated_bytes={peak} "
+          f"power_limit_w={card.power_limit_w} card={card.label!r} build_s={t_ready - t0:.3f} "
+          f"train_s={t_trained - t_ready:.3f} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+
+def train_resume(seed: int, card) -> tuple[object, dict]:
+    """19c (b): a Trainer at full width on TRAINER_LAYERS layers to step 20
+    with a checkpoint every 10, in a temporary directory; a new Trainer must
+    resume from step 20 and stop at 30 after 10 steps. The newest checkpoint,
+    restored onto the CPU, must equal the card's state leaf for leaf, bit for
+    bit. Prints the checkpoint's bytes and the seconds to save and restore.
+    Returns the model and the last params (the card check's weights)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAINER_LAYERS)
+    model = build(cfg, device="cuda")
+    tcfg = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAINER_STEPS[1]))
+    stream = ZipfBigramStream(DataConfig(cfg.vocab_size, TRAINER_SEQ, TRAINER_BATCH))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        def trainer(total):
+            return Trainer(model, tcfg, TrainerConfig(total_steps=total, ckpt_every=TRAINER_CKPT_EVERY, ckpt_dir=d,
+                                                      log_every=TRAINER_CKPT_EVERY), stream)
+
+        first = trainer(TRAINER_STEPS[0]).run(seed)
+        require(first["final_step"] == TRAINER_STEPS[0] and train_ckpt.available_steps(d) == [10, 20],
+                f"the first trainer stopped at {first['final_step']} with checkpoints {train_ckpt.available_steps(d)}")
+        resumed = trainer(TRAINER_STEPS[1])
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            second = resumed.run(seed)
+        run_s = time.perf_counter() - t1
+        print(out.getvalue(), end="", flush=True)
+        require(f"resumed from step {TRAINER_STEPS[0]}" in out.getvalue(), "the second trainer did not resume")
+        require(second["final_step"] == TRAINER_STEPS[1] and len(second["history"]) == 10,
+                f"the resumed trainer ended at {second['final_step']} after {len(second['history'])} steps")
+        step_dir = Path(d) / f"step_{TRAINER_STEPS[1]}"
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        t1 = time.perf_counter()
+        step, host = train_ckpt.restore(d, resumed.state, device="cpu")
+        restore_s = time.perf_counter() - t1
+    on_card, on_host = train_ckpt._flatten(resumed.state), train_ckpt._flatten(host)
+    unequal = [k for k in on_card if on_card[k].dtype != on_host[k].dtype or not torch.equal(on_card[k].cpu(), on_host[k])]
+    require(step == TRAINER_STEPS[1] and on_card.keys() == on_host.keys() and not unequal,
+            f"the checkpoint restored onto the CPU (step {step}) differs from the card's state: {unequal[:5]}")
+    print(f"[train trainer] arch={cfg.name} layers={cfg.n_layers} of 32 (full width) batch={TRAINER_BATCH}x{TRAINER_SEQ} "
+          f"ckpt_every={TRAINER_CKPT_EVERY} first_final_step={first['final_step']} resumed_from={TRAINER_STEPS[0]} "
+          f"final_step={second['final_step']} history={len(second['history'])} final_loss={second['final_loss']} "
+          f"stragglers={second['stragglers']} ckpt_leaves={len(on_host)} ckpt_bytes={ckpt_bytes} "
+          f"save_snapshot_s={resumed.saver.snapshot_s:.3f} save_write_s={resumed.saver.write_s:.3f} "
+          f"restore_to_cpu_s={restore_s:.3f} restored_equal_bit_for_bit=True resumed_run_s={run_s:.3f} "
+          f"card={card.label!r} elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    return model, resumed.state["params"]
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.float() - want.float()) / torch.linalg.vector_norm(want.float()).clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def noncausal_training():
+    """A deliberately wrong training forward while it lasts: every attention
+    call of ``attention.gqa_apply`` made non-causal."""
+    right = attention.full_attention
+    attention.full_attention = lambda *args, **kw: right(*args, **{**kw, "causal": False})
+    try:
+        yield
+    finally:
+        attention.full_attention = right
+
+
+def train_check(model, masters: dict, seed: int) -> None:
+    """19c (c): the loss and every parameter's gradient of ``model`` (full
+    width, TRAINER_LAYERS layers) with ``masters`` on one batch, on the card
+    and on the CPU's plain path (a copy of the masters, the same bf16
+    compute): the loss within TRAIN_LOSS_TOL, each gradient within
+    TRAIN_GRAD_TOL relative L2; the training forward with non-causal
+    attention must be rejected."""
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    batch = ZipfBigramStream(DataConfig(model.cfg.vocab_size, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH,
+                                        seed=seed + 21)).batch(0)
+    loss_fn = make_loss_fn(model, tcfg)
+    (loss, _), grads = value_and_grad(loss_fn, masters, batch)
+    with noncausal_training():
+        (wrong_loss, _), wrong = value_and_grad(loss_fn, masters, batch)
+    grads = {k: g.cpu() for k, g in grads.items()}
+    wrong = {k: g.cpu() for k, g in wrong.items()}
+    t_card = time.perf_counter()
+    cpu = build(model.cfg, device="cpu")
+    (cpu_loss, _), cpu_grads = value_and_grad(make_loss_fn(cpu, tcfg), {k: v.cpu() for k, v in masters.items()}, batch)
+    t_cpu = time.perf_counter()
+    errs = {k: rel_l2(grads[k], cpu_grads[k]) for k in cpu_grads}
+    wrong_errs = {k: rel_l2(wrong[k], cpu_grads[k]) for k in cpu_grads}
+    loss_err, wrong_loss_err = abs(float(loss) - float(cpu_loss)), abs(float(wrong_loss) - float(cpu_loss))
+    worst, wrong_worst = max(errs, key=errs.get), max(wrong_errs, key=wrong_errs.get)
+    print(f"[train check] arch={model.cfg.name} layers={model.cfg.n_layers} (full width; the trainer's last weights) "
+          f"batch={TRAIN_CHECK_BATCH}x{TRAIN_CHECK_SEQ} compute={model.cfg.compute_dtype} card_loss={float(loss)} "
+          f"cpu_loss={float(cpu_loss)} loss_abs_err={loss_err} loss_tolerance={TRAIN_LOSS_TOL} "
+          f"grad_max_rel_l2={errs[worst]} ({worst}) grad_tolerance={TRAIN_GRAD_TOL} "
+          f"wrong_version='non-causal attention' wrong_loss_abs_err={wrong_loss_err} "
+          f"wrong_grad_max_rel_l2={wrong_errs[wrong_worst]} ({wrong_worst}) card_s={t_card - t0:.3f} "
+          f"cpu_s={t_cpu - t_card:.3f}", flush=True)
+    require(loss_err <= TRAIN_LOSS_TOL and max(errs.values()) <= TRAIN_GRAD_TOL,
+            f"card vs CPU: loss {loss_err} > {TRAIN_LOSS_TOL} or a gradient {errs[worst]} > {TRAIN_GRAD_TOL}")
+    require(wrong_loss_err > TRAIN_LOSS_TOL or max(wrong_errs.values()) > TRAIN_GRAD_TOL,
+            "the tolerances do not reject non-causal attention")
+
+
+def train_launch(card) -> None:
+    """19c (d): ``launch.train.main`` in process, LAUNCH_STEPS steps of the
+    reduced config on the card, its checkpoints in a temporary directory."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as d:
+        out = launch_train.main(["--arch", TRAIN_ARCH, "--reduced", "--steps", str(LAUNCH_STEPS), "--device", "cuda",
+                                 "--ckpt-dir", str(Path(d) / "run")])
+        saved = train_ckpt.available_steps(Path(d) / "run")
+    require(out["final_step"] == LAUNCH_STEPS and math.isfinite(out["final_loss"]) and saved == [LAUNCH_STEPS],
+            f"the launcher ended at step {out['final_step']} (loss {out['final_loss']}, checkpoints {saved})")
+    print(f"[train launch] argv='--arch {TRAIN_ARCH} --reduced --steps {LAUNCH_STEPS} --device cuda' "
+          f"final_step={out['final_step']} final_loss={out['final_loss']} checkpoints={saved} card={card.label!r} "
+          f"elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+
+
 def events_ms(fn, repeats: int) -> float:
     """Mean device ms of ``fn`` over ``repeats`` calls between two CUDA events,
     after one warm-up call."""
@@ -3911,6 +4151,25 @@ def main() -> int:
     entries += flash_measure(seed, worst, by_entry, sms, shapes=LLAVA_FLASH_SHAPES)
     print(f"[llava] serve + check + flash measure elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
     phases.done("19b llava")
+
+    # 19c. train: smollm-360m at full width and depth through make_train_step (no flash launch); the
+    # Trainer's checkpoints and resume on 2 layers, restored onto the CPU bit for bit; the card's loss and
+    # gradients held to the CPU's on those 2 layers; the launcher in process. What the earlier phases
+    # left on the heap is frozen out of the collector's passes while it runs: a step's autograd graph
+    # makes thousands of objects, and each collection would walk the frozen ones too
+    t0 = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    train_full(seed, card)
+    torch.cuda.empty_cache()
+    model, masters = train_resume(seed, card)
+    train_check(model, masters, seed)
+    del model, masters
+    train_launch(card)
+    gc.unfreeze()
+    torch.cuda.empty_cache()
+    print(f"[train] phase elapsed_s={time.perf_counter() - t0:.3f}", flush=True)
+    phases.done("19c train")
 
     # 20. kernels
     print(f"[phases] {json.dumps(phases.seconds)}", flush=True)

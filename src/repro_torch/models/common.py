@@ -9,8 +9,11 @@ are the CPU path. On a CUDA tensor, :func:`full_attention` and
 :func:`decode_attention` call the hand-written flash kernel
 (``kernels.flash_attention.ops.flash_attention``) instead, which keeps ``p``
 in f32: the reference calls the Pallas flash kernel the TPU-native version of
-this same function. There is no sharding here (``shard_hint`` waits for the
-port's sharding module).
+this same function. The kernel has no backward, so a forward that autograd
+records (:func:`records`: training) takes the plain functions on the card
+too, as the reference trains through them. :func:`remat` is the reference's
+``jax.checkpoint`` around a layer. There is no sharding here (``shard_hint``
+waits for the port's sharding module).
 """
 from __future__ import annotations
 
@@ -21,10 +24,46 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG = -1e30  # the reference's finite mask value
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for value in tree.values():
+            yield from _tensors(value)
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _tensors(value)
+
+
+def records(*trees) -> bool:
+    """Whether autograd records an op on these tensors (or on the tensors in
+    these nested dicts, lists and tuples): grad is enabled and one of them
+    requires grad. Serving (``torch.no_grad``) never records."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(trees))
+
+
+def recomputed(fn, *args, **kw):
+    """``fn(*args, **kw)`` under ``torch.utils.checkpoint`` (non-reentrant;
+    nothing random inside, so no RNG state is kept): the backward pass keeps
+    only its inputs and runs it again, as ``jax.checkpoint`` does."""
+    return checkpoint.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def remat(cfg, fn, *args, **kw):
+    """``fn(*args, **kw)``, :func:`recomputed` where ``cfg.remat`` is set and
+    autograd records: the reference's ``jax.checkpoint`` around each block.
+    A plain call otherwise, as in every served forward."""
+    if cfg.remat and records(args, kw):
+        return recomputed(fn, *args, **kw)
+    return fn(*args, **kw)
+
 
 # ----------------------------------------------------------------- params
 
@@ -139,7 +178,8 @@ def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 #
 # The reference's chunked path (its XLA path for long context, and the oracle
 # its flash kernel is validated against) and its dense path, mirrored; the
-# card runs the flash kernel for both.
+# card's served forward runs the flash kernel for both, its training forward
+# these.
 
 
 def _online_attn_block(q, k, v, mask, scale):
@@ -225,9 +265,11 @@ def _flash(q, k, v, **kw) -> torch.Tensor:
 
 
 def full_attention(q, k, v, *, causal, cfg, q_offset=0) -> torch.Tensor:
-    """The flash kernel on the card; on the CPU the reference's dispatch:
-    the chunked path beyond the threshold, the dense one below it."""
-    if q.is_cuda:
+    """The flash kernel on the card; on the CPU, and wherever autograd
+    records (training: the kernel has no backward, and the reference trains
+    through its XLA path), the reference's dispatch: the chunked path beyond
+    the threshold, the dense one below it."""
+    if q.is_cuda and not records(q, k, v):
         if q_offset:
             raise ValueError("the flash kernel takes top-left aligned rows only (q_offset = 0)")
         return _flash(q, k, v, causal=causal)

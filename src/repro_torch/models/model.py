@@ -7,9 +7,10 @@ with attention layers between, jamba), with the vlm's prefix embeddings
 :mod:`repro_torch.models.whisper`).
 ``Model`` is an ``nn.Module`` that holds its parameters (fp32 masters, or
 the config's ``param_dtype``); the reference passes a parameter pytree into
-each call instead. Every forward casts them once into compute-dtype copies
-(the reference's ``cast_floating`` on each call), kept until a parameter
-changes.
+each call instead. A served forward casts them once into compute-dtype
+copies (the reference's ``cast_floating`` on each call), kept until a
+parameter changes; a forward that autograd records casts them on every
+call, as the reference does, so that the gradient reaches the masters.
 
   * ``apply(batch)``                       — full forward, f32 logits (B, S, V)
   * ``prefill(batch, cache_len)``          — forward + decode-cache construction
@@ -22,7 +23,9 @@ Batch keys: ``"tokens"`` (B, S) ints always; ``"prefix_embeds"`` (B,
 n_prefix_embeds, d) for the vlm (cast to the compute dtype and put before the
 text: positions run over both) and ``"enc_embeds"`` (B, S_src, d) for the
 encoder-decoder (its ``cache_len`` is the source length, and its self cache
-is ``max_target_positions`` long). Everything runs without autograd.
+is ``max_target_positions`` long). ``apply``, ``prefill`` and
+``decode_step`` run without autograd; ``hidden`` takes master tensors
+(``params=``) and is differentiable in them, which the train loss uses.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer, whisper
-from repro_torch.models.common import ParamSpec, count_params, flatten_specs, init_param, rms_norm
+from repro_torch.models.common import ParamSpec, count_params, flatten_specs, init_param, records, rms_norm
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
@@ -133,22 +136,49 @@ class Model(nn.Module):
             init_param(param, specs[name], generator)
         return self
 
-    def params(self) -> dict:
+    def params(self, masters: dict | None = None) -> dict:
         """The parameters in the compute dtype, as the reference's nested dict
-        (``layers`` a list): cast once, again only after a parameter changed."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        (``layers``, ``encoder`` and ``decoder`` lists of layer dicts).
+
+        ``masters`` (``{parameter name: tensor}``, the names of
+        ``named_parameters``) are cast on every call, the cast recorded by
+        autograd, as the reference casts its pytree on every call, so that a
+        gradient reaches the masters. Without ``masters``, the model's own
+        parameters: cast again on every call while autograd records on them
+        (grad enabled, a parameter that requires grad); else cast once and
+        kept until a parameter changes (every served forward)."""
+        if masters is not None:
+            return self._nest(masters)
+        named = dict(self.named_parameters())
+        if records(named):
+            return self._nest(named)
+        key = tuple((p.data_ptr(), p._version) for p in named.values())
         if key != self._cast_key:
-            cdt = self.compute_dtype
-            self._cast = {"embed": self.embed.detach().to(cdt)}
-            if self.cfg.encoder_decoder:
-                self._cast.update(encoder=[layer.tree(cdt) for layer in self.encoder],
-                                  enc_ln_f=self.enc_ln_f.detach().to(cdt),
-                                  decoder=[layer.tree(cdt) for layer in self.decoder])
-            else:
-                self._cast["layers"] = [layer.tree(cdt) for layer in self.layers]
-            self._cast.update(ln_f=self.ln_f.detach().to(cdt), unembed=self.unembed.detach().to(cdt))
+            self._cast = self._nest({name: p.detach() for name, p in named.items()})
             self._cast_key = key
         return self._cast
+
+    def _nest(self, flat: dict) -> dict:
+        """``{"layers.0.mixer.wq": tensor, ...}`` -> the nested dict, each
+        tensor cast to the compute dtype (no copy where it has it already)."""
+        cdt = self.compute_dtype
+        out: dict = {}
+        for name, tensor in flat.items():
+            *path, leaf = name.split(".")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = tensor.to(cdt)
+        for stack in ("layers", "encoder", "decoder"):
+            if stack in out:
+                out[stack] = [out[stack][str(i)] for i in range(len(out[stack]))]
+        return out
+
+    def unembed_weight(self, params: dict) -> torch.Tensor:
+        """The reference's ``Model.unembed``: the unembedding of ``params``
+        as given (the train loss's masters; the name ``unembed`` is this
+        module's parameter)."""
+        return params["unembed"]
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
@@ -165,11 +195,14 @@ class Model(nn.Module):
         return x
 
     # ------------------------------------------------------------ forward
-    @torch.no_grad()
-    def hidden(self, batch) -> torch.Tensor:
+    def hidden(self, batch, params: dict | None = None) -> torch.Tensor:
         """Final normed hidden states (B, S, d) (the decoder's, S the target
-        length, for the encoder-decoder)."""
-        p = self.params()
+        length, for the encoder-decoder), computed with ``params`` (master
+        tensors by parameter name; the model's own where None). Autograd
+        records it where it records on the parameters (training): then every
+        attention call takes the plain path and each layer is rematerialised
+        where ``cfg.remat`` is set."""
+        p = self.params(params)
         if self.cfg.encoder_decoder:
             return whisper.hidden(self.cfg, p, self._embeds(batch["enc_embeds"]), self._tokens(batch["tokens"]))
         x = self._embed_tokens(p, batch)

@@ -22,10 +22,14 @@ discretised ``exp(dt A)`` and ``dt B x``) is formed outside the loop, a chunk
 of ``TIME_CHUNK`` steps at a time, so that no (S, ..., n, n) tensor is held
 whole. The casts follow the reference's step by step (the states and the scan
 in f32, the outputs cast back to the compute dtype where it casts them);
-only the order of a few f32 sums differs. The reference's chunked scan
-(``_chunked_time_scan``) rematerialises for its backward pass and computes
-the same forward values as a plain scan; its chunking belongs to the port's
-training slice.
+only the order of a few f32 sums differs.
+
+Autograd refuses those loops' ``out=`` writes. A forward that autograd
+records (training) steps the same two products out of place instead, a
+``TIME_CHUNK`` of steps inside one ``torch.utils.checkpoint``, so that the
+backward pass keeps only the state at each chunk's start and recomputes the
+chunk: the reference's ``_chunked_time_scan``, which gives the same values
+as a plain scan.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import ParamSpec, recomputed, records
 
 
 def _sigmoid(x):
@@ -108,6 +112,14 @@ def _wkv_scan(r, k, v, w, u, state):
     kt = k.permute(1, 0, 2, 3).reshape(s, b * h, n, 1)
     vt = v.permute(1, 0, 2, 3).reshape(s, b * h, 1, n)
     wt = w.permute(1, 0, 2, 3).reshape(s, b * h, n, 1)
+    if records(r, k, v, w, state):
+        st, chunks = state.reshape(b * h, n, n), []
+        for c0 in range(0, s, TIME_CHUNK):
+            c1 = min(s, c0 + TIME_CHUNK)
+            o, st = recomputed(_wkv_steps, st, rt[c0:c1], kt[c0:c1], vt[c0:c1], wt[c0:c1])
+            chunks.append(o)
+        outs = torch.cat(chunks).reshape(s, b, h, n).permute(1, 0, 2, 3) + bonus
+        return outs, st.reshape(b, h, n, n)
     st = state.reshape(b * h, n, n).clone()
     outs = torch.empty((s, b * h, 1, n), dtype=torch.float32, device=r.device)
     for c0 in range(0, s, TIME_CHUNK):
@@ -118,6 +130,17 @@ def _wkv_scan(r, k, v, w, u, state):
             torch.addcmul(kv[t - c0], wt[t], st, out=st)
     outs = outs.reshape(s, b, h, n).permute(1, 0, 2, 3) + bonus
     return outs, st.reshape(b, h, n, n)
+
+
+def _wkv_steps(st, rt, kt, vt, wt):
+    """The served loop's two products a step, out of place: returns (outs
+    (chunk, B*H, 1, N), the state after the chunk)."""
+    kv = kt * vt
+    outs = []
+    for t in range(rt.shape[0]):
+        outs.append(torch.bmm(rt[t], st))
+        st = torch.addcmul(kv[t], wt[t], st)
+    return torch.stack(outs), st
 
 
 def rwkv6_apply(params, x, cfg: ModelConfig, state=None, prev_x=None):
@@ -213,6 +236,14 @@ def _mamba_core(params, u, cfg, h0):
     bt = b_in.float().permute(1, 0, 2)[:, :, None, :]  # (S,B,1,ns)
     ut = u.float().permute(1, 0, 2)[..., None]  # (S,B,di,1)
     ct = c_in.float().permute(1, 0, 2)[..., None].contiguous()  # (S,B,ns,1)
+    if records(dtt, bt, ut, ct, a, h0):
+        h, chunks = h0, []
+        for c0 in range(0, s, TIME_CHUNK):
+            c1 = min(s, c0 + TIME_CHUNK)
+            y, h = recomputed(_mamba_steps, h, a, dtt[c0:c1], bt[c0:c1], ut[c0:c1], ct[c0:c1])
+            chunks.append(y)
+        y = torch.cat(chunks)[..., 0].permute(1, 0, 2).to(u.dtype) + u * params["d_skip"]
+        return y, h
     h = h0.clone()
     ys = torch.empty((s, b, di, 1), dtype=torch.float32, device=u.device)
     for c0 in range(0, s, TIME_CHUNK):
@@ -224,6 +255,18 @@ def _mamba_core(params, u, cfg, h0):
             torch.bmm(h, ct[t], out=ys[t])
     y = ys[..., 0].permute(1, 0, 2).to(u.dtype) + u * params["d_skip"]
     return y, h
+
+
+def _mamba_steps(h, a, dtt, bt, ut, ct):
+    """The served loop's discretisation and two products a step, out of
+    place: returns (ys (chunk, B, di, 1), h after the chunk)."""
+    da = torch.exp(dtt * a)
+    dbu = dtt * bt * ut
+    ys = []
+    for t in range(dtt.shape[0]):
+        h = torch.addcmul(dbu[t], da[t], h)
+        ys.append(torch.bmm(h, ct[t]))
+    return torch.stack(ys), h
 
 
 def mamba_apply(params, x, cfg: ModelConfig, cache=None):

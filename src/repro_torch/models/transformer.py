@@ -5,8 +5,10 @@
 
 The reference scans stacked blocks with ``lax.scan``; here the stack is an
 ``nn.ModuleList`` of :class:`Sublayer`, one a layer (prefix layers included),
-walked by a Python loop. The decode cache is a flat dict, each name stacked
-over the layers that hold it, in layer order (:func:`cache_slots`): every
+walked by a Python loop (each layer rematerialised in a recorded forward
+where ``cfg.remat`` is set, as the reference checkpoints its blocks). The
+decode cache is a flat dict, each name stacked over the layers that hold it,
+in layer order (:func:`cache_slots`): every
 layer for the dense, MoE and RWKV6 stacks (``{"k": (L, B, S, KH, D), "v"}``
 for GQA, ``{"ckv": (L, B, S, kv_lora), "k_rope"}`` for MLA, ``{"state": (L,
 B, H, N, N), "prev_x", "prev_x_c"}`` for RWKV6); in a hybrid, ``k``/``v``
@@ -24,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import ParamSpec, mlp_apply, mlp_specs, rms_norm
+from repro_torch.models.common import ParamSpec, mlp_apply, mlp_specs, remat, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,13 +209,6 @@ class ParamTree(nn.Module):
             else:
                 self.add_module(name, ParamTree(value, dtype, device))
 
-    def tree(self, dtype: torch.dtype) -> dict:
-        """The parameters as the reference's nested dict, cast to ``dtype``
-        (no copy where they already have it)."""
-        out = {name: p.detach().to(dtype) for name, p in self.named_parameters(recurse=False)}
-        out.update({name: child.tree(dtype) for name, child in self.named_children()})
-        return out
-
 
 class Sublayer(ParamTree):
     """One layer's parameters (``ln1``, ``mixer``, ``ln2``, ``ffn``), named as
@@ -251,8 +246,11 @@ def stacked(tree: dict, n: int) -> dict:
 
 
 def stack_apply(cfg: ModelConfig, layers: list[dict], descs, x, *, causal=True):
+    """The layers in order; each rematerialised in the backward pass where
+    ``cfg.remat`` is set and autograd records (the reference checkpoints
+    each scanned block)."""
     for desc, p in zip(descs, layers):
-        x = sublayer_apply(cfg, desc, p, x, causal=causal)
+        x = remat(cfg, sublayer_apply, cfg, desc, p, x, causal=causal)
     return x
 
 

@@ -29,6 +29,7 @@ from repro_torch.models.common import (
     full_attention,
     mlp_apply,
     mlp_specs,
+    remat,
     rms_norm,
 )
 from repro_torch.models.transformer import stacked
@@ -118,13 +119,19 @@ def _add_norm(cfg, x, a, gamma):
     return x + a, rms_norm(x.float() + a.float(), gamma, cfg.norm_eps).to(x.dtype)
 
 
+def _enc_layer(cfg, p, h):
+    a = attn.gqa_apply(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, causal=False)
+    h, n = _add_norm(cfg, h, a, p["ln2"])
+    return h + mlp_apply(p["ffn"], n, cfg.act)
+
+
 def encode(cfg: ModelConfig, params, enc_embeds: torch.Tensor) -> torch.Tensor:
-    """The encoder over ``enc_embeds`` (in the compute dtype): non-causal self-attention."""
+    """The encoder over ``enc_embeds`` (in the compute dtype): non-causal
+    self-attention, each layer rematerialised in a recorded forward where
+    ``cfg.remat`` is set (as the reference checkpoints its scanned layer)."""
     h = enc_embeds
     for p in params["encoder"]:
-        a = attn.gqa_apply(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, causal=False)
-        h, n = _add_norm(cfg, h, a, p["ln2"])
-        h = h + mlp_apply(p["ffn"], n, cfg.act)
+        h = remat(cfg, _enc_layer, cfg, p, h)
     return rms_norm(h, params["enc_ln_f"], cfg.norm_eps)
 
 
@@ -142,7 +149,7 @@ def hidden(cfg: ModelConfig, params, enc_embeds: torch.Tensor, tokens: torch.Ten
     enc_out = encode(cfg, params, enc_embeds)
     x = params["embed"][tokens]
     for p in params["decoder"]:
-        x = _dec_layer(cfg, p, x, enc_out)
+        x = remat(cfg, _dec_layer, cfg, p, x, enc_out)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 

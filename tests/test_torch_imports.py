@@ -57,7 +57,12 @@ def test_port_files_exist():
         assert f"src/repro_torch/{entry}" in names, entry
     # the encoder-decoder
     assert "src/repro_torch/models/whisper.py" in names
-    assert len(names) >= 59
+    # training: the data stream, the optimizer, compression, the train step, checkpoints, the trainer
+    # and its launcher
+    for entry in ("train/__init__.py", "train/data.py", "train/optimizer.py", "train/compression.py",
+                  "train/train_step.py", "train/checkpoint.py", "train/trainer.py", "launch/train.py"):
+        assert f"src/repro_torch/{entry}" in names, entry
+    assert len(names) >= 67
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
